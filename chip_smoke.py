@@ -3,16 +3,21 @@
 
     python3 chip_smoke.py            # SF=1: 6,000,000 lineitem rows
     python3 chip_smoke.py --sf 0.05  # a quicker run at a smaller scale
+    python3 chip_smoke.py --perm-of DIR   # only scatter_permutation's
+                                          # time, of DIR/tidb_tpu_torch
 
 Phases, each printing one line or more; any failure raises and the
 script exits non-zero without printing a result:
 
 1. device: the GPU's name and ``nvidia-smi`` name and power limit;
 2. build: compile the CUDA kernels from the sources in this checkout;
-3. kernels: each kernel at the main path's shape (8,388,608 rows of
-   random 8-bit digits, values = arange) against its plain PyTorch
-   version on the card, exactly; kernel, plain, library-yardstick and
-   memory-bound times;
+3. kernels: each kernel at the main path's shape (8,388,608 rows,
+   values = arange) on uniform partition keys and on query A's skew
+   (28.5% of the rows on the dead rows' tail key) against its plain
+   PyTorch version on the card, exactly; kernel, plain,
+   library-yardstick and memory-bound times at the kernel's tile; the
+   whole pass; ``scatter_permutation`` (4 passes) for B = 2^22 and
+   2^23 against the plain partition;
 4. reference: a small lineitem through the port on the GPU and through
    its plain path on the CPU, whose per-device states and results must
    be equal;
@@ -61,13 +66,20 @@ def nvidia_smi() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def cuda_ms(torch, fn, reps: int = REPS, flush=None) -> float:
+def cuda_ms(torch, fn, reps: int = REPS, flush=None,
+            clean: bool = False) -> float:
     """Median milliseconds of ``fn`` by CUDA events, one launch per
     sample after a warm-up; ``flush`` (a large tensor) is overwritten
-    before each sample so inputs come from HBM, not the 50 MB L2."""
+    before each sample so inputs come from HBM, not the 50 MB L2.  The
+    overwrite leaves the L2 full of dirty lines, which the sample writes
+    back as it evicts them, as a pass meets the lines the previous pass
+    wrote; ``clean=True`` reads ``flush`` instead, so the L2 holds clean
+    lines and the sample pays for its own bytes only."""
     times = []
     for i in range(reps + 1):
-        if flush is not None:
+        if flush is not None and clean:
+            flush.sum()
+        elif flush is not None:
             flush.zero_()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
@@ -90,29 +102,46 @@ def bound_ms(nbytes: int, ops: int) -> tuple[float, str]:
 # phase 3: each kernel against its plain version
 # --------------------------------------------------------------------- #
 
-def kernel_phase(torch, rk, dev) -> dict:
-    n = KERNEL_ROWS
+LIVE_SHARE_A = 0.715        # live rows of query A's device batch at SF=1
+KEY_BITS = 30               # partition key bits below the tail key, B>=2^22
+
+
+def main_path_keys(torch, dev, dist: str, seed: int = 1):
+    """int32 partition keys of the main path's shape: uniform in
+    [0, 2^30), or query A's skew, where the dead and pad rows (28.5% of
+    the batch at SF=1) all take the tail key 2^30."""
     gen = torch.Generator(device=dev)
-    gen.manual_seed(1)
-    dig = torch.randint(0, rk.N_DIGITS, (n,), generator=gen, device=dev,
-                        dtype=torch.int32)
-    val = torch.arange(n, dtype=torch.int32, device=dev)
+    gen.manual_seed(seed)
+    key = torch.randint(0, 1 << KEY_BITS, (KERNEL_ROWS,), generator=gen,
+                        device=dev, dtype=torch.int32)
+    if dist == "tail skew":
+        dead = torch.rand(KERNEL_ROWS, generator=gen, device=dev) \
+            >= LIVE_SHARE_A
+        key[dead] = 1 << KEY_BITS
+    return key
+
+
+def time_kernels(torch, rk, key, val, flush) -> dict:
+    """Each kernel at shift 0 against its plain version, exactly, with
+    kernel, plain and library-yardstick times and the memory bound at
+    the kernel's tile."""
+    n = key.numel()
     tiles = rk.n_tiles(n)
-    flush = torch.empty(64 << 20, dtype=torch.int32, device=dev)  # 256 MiB
-    err = torch.zeros(1, dtype=torch.int32, device=dev)
+    err = rk.new_err(key.device)
     out = {}
 
-    # radix_hist
-    hist = rk.radix_hist(dig)
-    plain = rk.radix_hist_plain(dig)
+    hist = rk.radix_hist(key, 0)
+    plain = rk.radix_hist_plain(key, 0)
     torch.cuda.synchronize()
     err_hist = int((hist - plain).abs().max())
     check(torch.equal(hist, plain), "radix_hist != radix_hist_plain")
     h2 = torch.empty_like(hist)
-    ms = cuda_ms(torch, lambda: rk.launch_hist(dig, h2, err), flush=flush)
-    plain_ms = cuda_ms(torch, lambda: rk.radix_hist_plain(dig), flush=flush)
-    flat_key = (torch.arange(n, device=dev, dtype=torch.int64)
-                // rk.TILE) * rk.N_DIGITS + dig
+    ms = cuda_ms(torch, lambda: rk.launch_hist(key, 0, h2, err), flush=flush)
+    plain_ms = cuda_ms(torch, lambda: rk.radix_hist_plain(key, 0),
+                       flush=flush)
+    dig = key & (rk.N_DIGITS - 1)
+    flat_key = (torch.arange(n, device=key.device, dtype=torch.int64)
+                // rk.KERNEL_TILE) * rk.N_DIGITS + dig
     lib = torch.bincount(flat_key, minlength=tiles * rk.N_DIGITS)
     check(torch.equal(lib.view(tiles, rk.N_DIGITS).to(torch.int32), hist),
           "bincount yardstick != radix_hist")
@@ -121,48 +150,100 @@ def kernel_phase(torch, rk, dev) -> dict:
     b_ms, b_by = bound_ms(4 * n + 4 * rk.N_DIGITS * tiles, n)
     out["radix_hist"] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                              bound_ms=b_ms, bound_by=b_by,
-                             max_abs_err=err_hist)
+                             max_abs_err=err_hist,
+                             clean_ms=cuda_ms(torch, lambda: rk.launch_hist(
+                                 key, 0, h2, err), flush=flush, clean=True))
 
     # radix_scatter, given the exclusive offsets of that histogram
     offs = rk.exclusive_offsets(hist)
-    got = rk.radix_scatter(dig, val, offs)
-    plain = rk.radix_scatter_plain(dig, val, offs)
+    got = rk.radix_scatter(key, val, offs, 0)
+    plain = rk.radix_scatter_plain(key, val, offs, 0)
     torch.cuda.synchronize()
-    err_sc = int((got - plain).abs().max())
-    check(torch.equal(got, plain), "radix_scatter != radix_scatter_plain")
-    o2 = torch.empty_like(got)
-    ms = cuda_ms(torch, lambda: rk.launch_scatter(dig, val, offs, o2, err),
-                 flush=flush)
-    plain_ms = cuda_ms(torch, lambda: rk.radix_scatter_plain(dig, val, offs),
-                       flush=flush)
+    err_sc = max(int((g - p).abs().max()) for g, p in zip(got, plain))
+    check(torch.equal(got[0], plain[0]) and torch.equal(got[1], plain[1]),
+          "radix_scatter != radix_scatter_plain")
+    k2, v2 = torch.empty_like(key), torch.empty_like(val)
+    ms = cuda_ms(torch, lambda: rk.launch_scatter(key, val, offs, 0, k2, v2,
+                                                  err), flush=flush)
+    plain_ms = cuda_ms(torch, lambda: rk.radix_scatter_plain(key, val, offs,
+                                                             0), flush=flush)
     lib = torch.sort(dig, stable=True).indices
-    check(torch.equal(lib.to(torch.int32), got),
+    check(torch.equal(val[lib], got[1]),
           "stable sort yardstick != radix_scatter")
     lib_ms = cuda_ms(torch, lambda: torch.sort(dig, stable=True),
                      flush=flush)
-    b_ms, b_by = bound_ms(12 * n + 4 * rk.N_DIGITS * tiles, 4 * n)
+    b_ms, b_by = bound_ms(16 * n + 4 * rk.N_DIGITS * tiles, 4 * n)
     out["radix_scatter"] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                                 bound_ms=b_ms, bound_by=b_by,
-                                max_abs_err=err_sc)
+                                max_abs_err=err_sc,
+                                clean_ms=cuda_ms(torch, lambda: rk.launch_scatter(
+                                    key, val, offs, 0, k2, v2, err),
+                                    flush=flush, clean=True))
     check(int(err.item()) == 0, "a timed launch reported an error")
 
-    # the whole pass: wrapper (hist, cumsum, scatter, error read-backs)
-    # against the 1-bit plain pass
-    full = rk.counting_sort_pass(dig, val)
-    check(torch.equal(full, rk.counting_sort_pass_plain(dig, val)),
+    # the whole pass: wrapper (hist, cumsum, scatter, one error
+    # read-back) against the 1-bit plain pass
+    full = rk.counting_sort_pass(key, val, 0)
+    ref = rk.counting_sort_pass_plain(key, val, 0)
+    check(torch.equal(full[0], ref[0]) and torch.equal(full[1], ref[1]),
           "counting_sort_pass != counting_sort_pass_plain")
-    pass_ms = cuda_ms(torch, lambda: rk.counting_sort_pass(dig, val),
-                      flush=flush)
-    pass_plain_ms = cuda_ms(torch, lambda: rk.counting_sort_pass_plain(
-        dig, val), flush=flush)
-    for name, r in out.items():
-        print(f"kernel {name}: n={n} exact=True kernel_ms={r['ms']:.4f} "
-              f"plain_ms={r['plain_ms']:.4f} "
-              f"library_ms={r['library_ms']:.4f} "
-              f"bound_ms={r['bound_ms']:.4f} ({r['bound_by']})")
-    print(f"pass counting_sort_pass: n={n} exact=True ms={pass_ms:.4f} "
-          f"plain_1bit_ms={pass_plain_ms:.4f}")
+    out["pass_ms"] = cuda_ms(torch, lambda: rk.counting_sort_pass(key, val,
+                                                                  0),
+                             flush=flush)
+    out["pass_plain_ms"] = cuda_ms(torch, lambda: rk.counting_sort_pass_plain(
+        key, val, 0), flush=flush)
     return out
+
+
+def time_scatter_permutation(torch, radix, dev, flush) -> dict:
+    """``scatter_permutation`` (partition key, 4 radix passes, the error
+    read-back) at the main path's row count for B = 2^22 and 2^23, held
+    against the 1-bit plain partition on the card."""
+    from tidb_tpu_torch.copr import dag as D
+    n = KERNEL_ROWS
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2)
+    h = torch.randint(-(1 << 63), (1 << 63) - 1, (n,), generator=gen,
+                      device=dev, dtype=torch.int64)
+    sel = torch.rand(n, generator=gen, device=dev) < LIVE_SHARE_A
+    out = {}
+    for b in (1 << 22, 1 << 23):
+        got = radix.scatter_permutation(h, sel, b, n)
+        key = radix.partition_key(h, sel, b)
+        want = radix._partition_plain(key, D.radix_key_bits(b), n)
+        check(torch.equal(got, want),
+              f"scatter_permutation B={b} != the plain partition")
+        out[b] = cuda_ms(torch, lambda: radix.scatter_permutation(
+            h, sel, b, n), flush=flush)
+        print(f"scatter_permutation: n={n} B={b} "
+              f"passes={D.radix_passes(b)} exact=True "
+              f"ms={out[b]:.4f}")
+    return out
+
+
+def kernel_phase(torch, rk, radix, dev) -> dict:
+    """Both kernels on uniform keys and on query A's tail-key skew; the
+    ``kernels`` line reports the uniform run."""
+    val = torch.arange(KERNEL_ROWS, dtype=torch.int32, device=dev)
+    flush = torch.empty(64 << 20, dtype=torch.int32, device=dev)  # 256 MiB
+    runs = {}
+    for dist in ("uniform", "tail skew"):
+        r = runs[dist] = time_kernels(
+            torch, rk, main_path_keys(torch, dev, dist), val, flush)
+        for name in ("radix_hist", "radix_scatter"):
+            k = r[name]
+            print(f"kernel {name} [{dist}]: n={KERNEL_ROWS} "
+                  f"tile={rk.KERNEL_TILE} exact=True "
+                  f"kernel_ms={k['ms']:.4f} plain_ms={k['plain_ms']:.4f} "
+                  f"library_ms={k['library_ms']:.4f} "
+                  f"bound_ms={k['bound_ms']:.4f} ({k['bound_by']}) "
+                  f"of_bound={k['bound_ms'] / k['ms']:.3f} "
+                  f"kernel_ms_clean_l2={k['clean_ms']:.4f}")
+        print(f"pass counting_sort_pass [{dist}]: n={KERNEL_ROWS} exact=True "
+              f"ms={r['pass_ms']:.4f} plain_1bit_ms={r['pass_plain_ms']:.4f}")
+    time_scatter_permutation(torch, radix, dev, flush)
+    return {name: runs["uniform"][name]
+            for name in ("radix_hist", "radix_scatter")}
 
 
 # --------------------------------------------------------------------- #
@@ -326,13 +407,20 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--sf", type=float, default=1.0,
                     help="TPC-H scale factor of the slice phase")
+    ap.add_argument("--perm-of", metavar="DIR",
+                    help="only time scatter_permutation of the "
+                         "tidb_tpu_torch package found in DIR (e.g. an "
+                         "unpacked parent commit) and stop")
     args = ap.parse_args()
+    if args.perm_of:
+        sys.path.insert(0, args.perm_of)
 
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
               "needs a CUDA GPU", file=sys.stderr)
         return 2
+    from tidb_tpu_torch.copr import radix
     from tidb_tpu_torch.copr.cuda import radix_kernel as rk
 
     dev = torch.device("cuda", 0)
@@ -342,16 +430,22 @@ def main() -> int:
           f"torch={torch.__version__} cuda={torch.version.cuda} "
           f"python={sys.version.split()[0]}")
     print(smi)
+    if args.perm_of:
+        print(f"scatter_permutation of {radix.__file__}")
+        flush = torch.empty(64 << 20, dtype=torch.int32, device=dev)
+        time_scatter_permutation(torch, radix, dev, flush)
+        return 0
 
     t0 = time.perf_counter()
     so = rk.build()
     rk._load()
     regs = [ln.strip() for log in rk.BUILD_LOG for ln in log.splitlines()
-            if "registers" in ln or "Compiling entry" in ln]
+            if "registers" in ln or "Compiling entry" in ln
+            or "spill" in ln]
     print(f"build: {so.name} seconds={time.perf_counter() - t0:.2f} "
           f"ptxas={' | '.join(regs)}")
 
-    kern = kernel_phase(torch, rk, dev)
+    kern = kernel_phase(torch, rk, radix, dev)
     reference_phase(torch, dev)
     counts = slice_phase(torch, rk, args.sf)
 

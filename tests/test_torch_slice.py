@@ -38,7 +38,8 @@ from tidb_tpu.store import snapshot_from_columns as j_snapshot
 from tidb_tpu.testing.tpch import gen_lineitem as j_gen_lineitem
 from tidb_tpu.types import dtypes as jdt
 from tidb_tpu_torch.copr import dag as D
-from tidb_tpu_torch.copr import segment
+from tidb_tpu_torch.copr import radix, segment
+from tidb_tpu_torch.copr.cuda import radix_kernel as rk
 from tidb_tpu_torch.copr.aggregate import GroupKeyMeta, sum_out_dtype
 from tidb_tpu_torch.expr import builders as b
 from tidb_tpu_torch.expr.compile import Evaluator
@@ -215,6 +216,38 @@ def test_snapshot_from_numpy_keeps_the_stacked_layout(lineitem):
 def test_per_device_states_equal_jax(lineitem, which, mode):
     """Each of the 8 devices' raw state table (keys, limbs, counts,
     max, __ngroups__) equals the JAX program's."""
+    _assert_states_equal_jax(lineitem, which, mode)
+
+
+def _tiled_partition(bid, bits, n):
+    """The CUDA kernel path's partition with each key-carrying pass
+    computed as the kernels compute it: the plain histogram and scatter
+    at KERNEL_TILE, chained through the exclusive offsets."""
+    key, idx = bid, torch.arange(n, dtype=torch.int32)
+    for p in range(-(-bits // D.RADIX_BITS)):
+        shift = p * D.RADIX_BITS
+        offs = rk.exclusive_offsets(rk.radix_hist_plain(key, shift))
+        key, idx = rk.radix_scatter_plain(key, idx, offs, shift)
+    return idx
+
+
+@pytest.mark.parametrize("mode", ["on", "off"])
+@pytest.mark.parametrize("which", ["A", "B"])
+def test_per_device_states_through_tiled_kernels_equal_jax(
+        lineitem, which, mode, monkeypatch):
+    """The same states with the partition routed through the kernels'
+    arithmetic at their own tile, as the GPU runs it."""
+    calls = []
+
+    def partition(bid, bits, n):
+        calls.append(n)
+        return _tiled_partition(bid, bits, n)
+    monkeypatch.setattr(radix, "_partition_plain", partition)
+    _assert_states_equal_jax(lineitem, which, mode)
+    assert len(calls) == N_DEV
+
+
+def _assert_states_equal_jax(lineitem, which, mode):
     jsnap, snap = _snaps(lineitem, A_COLS if which == "A" else B_COLS)
     jagg, _ = _query(which, _JaxNS, 8192)
     agg, _ = _query(which, _PortNS, 8192)

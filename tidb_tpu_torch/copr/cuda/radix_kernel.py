@@ -2,22 +2,36 @@
 """One stable counting-sort pass of the SCATTER radix partition.
 
 Two hand-written CUDA kernels (``radix_kernel.cu``, built for sm_90a at
-first use) replace the JAX package's Pallas TPU kernels:
+first use) replace the JAX package's Pallas TPU kernels.  The partition
+key is carried through the pass: each kernel takes the int32 key and the
+pass's ``shift`` and computes the digit ``(key >> shift) & 255`` itself.
 
-- ``radix_hist(dig)``: the per-tile histogram of 8-bit digits,
-  ``(n_tiles, 256)`` int32, one row per 512-row tile;
-- ``radix_scatter(dig, val, off)``: each value stored at
-  ``off[tile, digit] + (stable rank of the row among its tile's rows of
-  that digit)``.
+- ``radix_hist(key, shift)``: the per-tile digit histogram,
+  ``(n_ktiles, 256)`` int32, one row per ``KERNEL_TILE``-row tile;
+- ``radix_scatter(key, val, off, shift)``: ``(key_out, val_out)``, each
+  row's key and value stored at ``off[tile, digit] + (stable rank of the
+  row among its tile's rows of that digit)``.
 
-``counting_sort_pass(dig, val)`` chains them with an exclusive cumsum over
-the counts flattened digit-major (a tile's digit-d rows land after every
-earlier tile's digit-d rows: stability across tiles), so composing passes
-LSB digit first gives the stable LSD radix sort of the full key.
+``counting_sort_pass(key, val, shift)`` chains them with an exclusive
+cumsum over the counts flattened digit-major (a tile's digit-d rows land
+after every earlier tile's digit-d rows: stability across tiles), so
+composing passes LSB digit first gives the stable LSD radix sort of the
+full key, the keys in sorted order coming out beside the values.
 
-On a CUDA tensor each wrapper launches its kernel or raises; on a CPU
-tensor it runs its plain PyTorch version below.  ``LAUNCHES`` counts the
-kernel launches of each wrapper.
+The kernels' tile is ``KERNEL_TILE`` (8192 rows), a constant of the
+``.cu`` checked at load; the TPU kernels' tile ``TILE`` (512) stays the
+geometry of the JAX package.  The plain versions take ``tile=`` so that
+they can be held against the Pallas kernels at 512: with ``key = dig``
+and ``shift = 0`` they compute what the TPU kernels compute.
+
+Keys are the partition key's domain, ``[0, 2^31)``: a negative key is
+reported.  On a CUDA tensor each wrapper launches its kernel or raises;
+on a CPU tensor it runs its plain PyTorch version below.  The kernels
+report a bad key or a position outside ``[0, n)`` through a device
+error flag: the single-call wrappers read it after their launches, and
+``counting_sort_pass(..., err=flag)`` leaves it to the caller, so that a
+partition of several passes reads it once (``read_err``).  ``LAUNCHES``
+counts the kernel launches of each wrapper.
 
 The shared library is compiled with ``nvcc`` from the CUDA toolkit that
 torch finds (``CUDA_HOME``) into ``tidb_tpu_torch/_build/``, named by the
@@ -38,6 +52,7 @@ import torch
 from .. import dag as D
 
 TILE = D.RADIX_TILE
+KERNEL_TILE = 8192
 N_DIGITS = 1 << D.RADIX_BITS
 
 LAUNCHES = {"radix_hist": 0, "radix_scatter": 0}
@@ -51,9 +66,9 @@ _lib_mu = threading.Lock()
 _lib: list = []          # [ctypes.CDLL] once loaded
 BUILD_LOG: list = []     # nvcc/ptxas output of the build in this process
 
-# tiles per chunk of the plain versions' one-hot: bounds their peak
-# memory (chunk x TILE x 256 int32) to 128 MiB whatever n is
-_PLAIN_CHUNK = 256
+# rows per chunk of the plain versions' one-hot: bounds their peak
+# memory (rows x 256 int32) to 128 MiB whatever n is
+_PLAIN_CHUNK_ROWS = 1 << 17
 
 
 # --------------------------------------------------------------------- #
@@ -93,15 +108,17 @@ def _load() -> ctypes.CDLL:
             return _lib[0]
         lib = ctypes.CDLL(str(build()))
         p, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-        lib.radix_tile.argtypes = []
-        lib.radix_tile.restype = i32
-        lib.radix_hist_launch.argtypes = [p, p, i64, p, i32, p]
+        lib.radix_kernel_tile.argtypes = []
+        lib.radix_kernel_tile.restype = i32
+        lib.radix_hist_launch.argtypes = [p, p, i64, i32, p, i32, p]
         lib.radix_hist_launch.restype = i32
-        lib.radix_scatter_launch.argtypes = [p, p, p, p, i64, p, i32, p]
+        lib.radix_scatter_launch.argtypes = [p, p, p, p, p, i64, i32, p,
+                                             i32, p]
         lib.radix_scatter_launch.restype = i32
-        if lib.radix_tile() != TILE:
-            raise RuntimeError(f"radix_kernel.cu tile {lib.radix_tile()} "
-                               f"!= RADIX_TILE {TILE}")
+        if lib.radix_kernel_tile() != KERNEL_TILE:
+            raise RuntimeError(f"radix_kernel.cu tile "
+                               f"{lib.radix_kernel_tile()} != KERNEL_TILE "
+                               f"{KERNEL_TILE}")
         _lib.append(lib)
         return lib
 
@@ -115,30 +132,31 @@ def _raise_on(rc: int, name: str) -> None:
         raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
 
 
-def launch_hist(dig: torch.Tensor, hist: torch.Tensor,
+def launch_hist(key: torch.Tensor, shift: int, hist: torch.Tensor,
                 err: torch.Tensor) -> None:
     """Launch ``radix_hist_kernel`` on validated CUDA tensors (no count,
     no error read-back: the wrappers below do both)."""
     _raise_on(_load().radix_hist_launch(
-        dig.data_ptr(), hist.data_ptr(), dig.numel(), err.data_ptr(),
-        dig.device.index, _stream(dig)), "radix_hist")
+        key.data_ptr(), hist.data_ptr(), key.numel(), shift, err.data_ptr(),
+        key.device.index, _stream(key)), "radix_hist")
 
 
-def launch_scatter(dig: torch.Tensor, val: torch.Tensor, off: torch.Tensor,
-                   out: torch.Tensor, err: torch.Tensor) -> None:
+def launch_scatter(key: torch.Tensor, val: torch.Tensor, off: torch.Tensor,
+                   shift: int, key_out: torch.Tensor, val_out: torch.Tensor,
+                   err: torch.Tensor) -> None:
     """Launch ``radix_scatter_kernel`` on validated CUDA tensors."""
     _raise_on(_load().radix_scatter_launch(
-        dig.data_ptr(), val.data_ptr(), off.data_ptr(), out.data_ptr(),
-        dig.numel(), err.data_ptr(), dig.device.index, _stream(dig)),
-        "radix_scatter")
+        key.data_ptr(), val.data_ptr(), off.data_ptr(), key_out.data_ptr(),
+        val_out.data_ptr(), key.numel(), shift, err.data_ptr(),
+        key.device.index, _stream(key)), "radix_scatter")
 
 
 # --------------------------------------------------------------------- #
 # validation
 # --------------------------------------------------------------------- #
 
-def n_tiles(n: int) -> int:
-    return -(-n // TILE)
+def n_tiles(n: int, tile: int = KERNEL_TILE) -> int:
+    return -(-n // tile)
 
 
 def _check(name: str, t, shape: tuple | None = None, device=None) -> None:
@@ -161,15 +179,28 @@ def _check(name: str, t, shape: tuple | None = None, device=None) -> None:
         raise ValueError(f"{name} lies on {t.device}, expected {device}")
 
 
-def _check_digits_cpu(dig: torch.Tensor) -> None:
-    if dig.numel() and (int(dig.min()) < 0 or int(dig.max()) >= N_DIGITS):
-        raise ValueError(f"digit outside [0, {N_DIGITS})")
+def _check_shift(shift) -> None:
+    if isinstance(shift, bool) or not isinstance(shift, int) \
+            or not 0 <= shift < 32:
+        raise ValueError(f"shift must be an int in [0, 32), got {shift!r}")
 
 
-def _read_err(err: torch.Tensor, name: str) -> None:
+def _check_keys_cpu(key: torch.Tensor) -> None:
+    if key.numel() and int(key.min()) < 0:
+        raise ValueError("key outside [0, 2^31)")
+
+
+def new_err(device: torch.device) -> torch.Tensor:
+    """A zeroed device error flag for ``counting_sort_pass(err=...)``."""
+    return torch.zeros(1, dtype=torch.int32, device=device)
+
+
+def read_err(err: torch.Tensor, name: str) -> None:
+    """Raise if a launch that shared ``err`` reported a bad input (one
+    host sync)."""
     code = int(err.item())
     if code & 1:
-        raise ValueError(f"{name}: digit outside [0, {N_DIGITS})")
+        raise ValueError(f"{name}: key outside [0, 2^31)")
     if code & 2:
         raise ValueError(f"{name}: offsets place a row outside [0, n)")
 
@@ -178,41 +209,52 @@ def _read_err(err: torch.Tensor, name: str) -> None:
 # the wrappers
 # --------------------------------------------------------------------- #
 
-def radix_hist(dig: torch.Tensor) -> torch.Tensor:
-    """(n_tiles, 256) int32 per-tile digit counts of ``dig``."""
-    _check("dig", dig)
-    if dig.device.type == "cpu":
-        _check_digits_cpu(dig)
-        return radix_hist_plain(dig)
-    hist = torch.empty((n_tiles(dig.numel()), N_DIGITS), dtype=torch.int32,
-                       device=dig.device)
-    if dig.numel() == 0:
+def radix_hist(key: torch.Tensor, shift: int) -> torch.Tensor:
+    """(n_ktiles, 256) int32 counts of the digits ``(key >> shift) & 255``
+    in each ``KERNEL_TILE``-row tile."""
+    _check("key", key)
+    _check_shift(shift)
+    if key.device.type == "cpu":
+        _check_keys_cpu(key)
+        return radix_hist_plain(key, shift)
+    hist = torch.empty((n_tiles(key.numel()), N_DIGITS), dtype=torch.int32,
+                       device=key.device)
+    if key.numel() == 0:
         return hist
-    err = torch.zeros(1, dtype=torch.int32, device=dig.device)
-    launch_hist(dig, hist, err)
+    err = new_err(key.device)
+    launch_hist(key, shift, hist, err)
     LAUNCHES["radix_hist"] += 1
-    _read_err(err, "radix_hist")
+    read_err(err, "radix_hist")
     return hist
 
 
-def radix_scatter(dig: torch.Tensor, val: torch.Tensor,
-                  off: torch.Tensor) -> torch.Tensor:
-    """Reorder ``val`` by ``dig`` given the per-tile digit base offsets
-    ``off`` (n_tiles, 256): ``out[off[t, d] + rank] = val[i]``."""
-    _check("dig", dig)
-    n = dig.numel()
-    _check("val", val, (n,), dig.device)
-    _check("off", off, (n_tiles(n), N_DIGITS), dig.device)
-    if dig.device.type == "cpu":
-        _check_digits_cpu(dig)
-        return radix_scatter_plain(dig, val, off)
-    out = torch.empty((n,), dtype=torch.int32, device=dig.device)
-    if n == 0:
-        return out
-    err = torch.zeros(1, dtype=torch.int32, device=dig.device)
-    launch_scatter(dig, val, off, out, err)
+def _scatter_cuda(key, val, off, shift, err):
+    key_out = torch.empty_like(key)
+    val_out = torch.empty_like(val)
+    launch_scatter(key, val, off, shift, key_out, val_out, err)
     LAUNCHES["radix_scatter"] += 1
-    _read_err(err, "radix_scatter")
+    return key_out, val_out
+
+
+def radix_scatter(key: torch.Tensor, val: torch.Tensor, off: torch.Tensor,
+                  shift: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Reorder ``key`` and ``val`` by the digit of ``key`` given the
+    per-tile digit base offsets ``off`` (n_ktiles, 256): row i of tile t
+    with digit d goes to ``off[t, d] + rank``.  Returns
+    ``(key_out, val_out)``."""
+    _check("key", key)
+    n = key.numel()
+    _check("val", val, (n,), key.device)
+    _check("off", off, (n_tiles(n), N_DIGITS), key.device)
+    _check_shift(shift)
+    if key.device.type == "cpu":
+        _check_keys_cpu(key)
+        return radix_scatter_plain(key, val, off, shift)
+    if n == 0:
+        return key.clone(), val.clone()
+    err = new_err(key.device)
+    out = _scatter_cuda(key, val, off, shift, err)
+    read_err(err, "radix_scatter")
     return out
 
 
@@ -225,57 +267,86 @@ def exclusive_offsets(hist: torch.Tensor) -> torch.Tensor:
     return offs.reshape(N_DIGITS, hist.shape[0]).t().contiguous()
 
 
-def counting_sort_pass(dig: torch.Tensor, val: torch.Tensor) -> torch.Tensor:
-    """One stable counting-sort pass: reorder int32 ``val`` by the
-    256-valued int32 ``dig`` keys, keeping order within equal digits.
-    Any row count; the last tile may be ragged."""
-    _check("dig", dig)
-    _check("val", val, (dig.numel(),), dig.device)
-    if dig.device.type == "cpu":
-        _check_digits_cpu(dig)
-        return counting_sort_pass_plain(dig, val)
-    hist = radix_hist(dig)
-    return radix_scatter(dig, val, exclusive_offsets(hist))
+def counting_sort_pass(key: torch.Tensor, val: torch.Tensor, shift: int,
+                       err: torch.Tensor | None = None
+                       ) -> tuple[torch.Tensor, torch.Tensor]:
+    """One stable counting-sort pass: reorder int32 ``key`` and ``val``
+    by the digit ``(key >> shift) & 255``, keeping order within equal
+    digits; returns ``(key_out, val_out)``.  Any row count; the last tile
+    may be ragged.  On CUDA, given a device flag ``err`` (``new_err``),
+    the launches report into it and the caller reads it (``read_err``);
+    without one, the flag is read here."""
+    _check("key", key)
+    _check("val", val, (key.numel(),), key.device)
+    _check_shift(shift)
+    if key.device.type == "cpu":
+        _check_keys_cpu(key)
+        return counting_sort_pass_plain(key, val, shift)
+    n = key.numel()
+    if n == 0:
+        return key.clone(), val.clone()
+    flag = new_err(key.device) if err is None else err
+    hist = torch.empty((n_tiles(n), N_DIGITS), dtype=torch.int32,
+                       device=key.device)
+    launch_hist(key, shift, hist, flag)
+    LAUNCHES["radix_hist"] += 1
+    out = _scatter_cuda(key, val, exclusive_offsets(hist), shift, flag)
+    if err is None:
+        read_err(flag, "counting_sort_pass")
+    return out
 
 
 # --------------------------------------------------------------------- #
 # plain PyTorch versions (the CPU path and the on-card reference)
 # --------------------------------------------------------------------- #
 
-def _tiled(x: torch.Tensor, fill: int) -> torch.Tensor:
-    """``x`` padded with ``fill`` to whole tiles, viewed (n_tiles, TILE)."""
-    n = x.numel()
-    pad = n_tiles(n) * TILE - n
+def _tiled_digits(key: torch.Tensor, shift: int, tile: int) -> torch.Tensor:
+    """The digits of ``key``, padded with N_DIGITS (a digit no row has)
+    to whole tiles, viewed (n_tiles, tile)."""
+    d = (key >> shift) & (N_DIGITS - 1)
+    pad = n_tiles(key.numel(), tile) * tile - key.numel()
     if pad:
-        x = torch.cat([x, x.new_full((pad,), fill)])
-    return x.view(-1, TILE)
+        d = torch.cat([d, d.new_full((pad,), N_DIGITS)])
+    return d.view(-1, tile)
 
 
-def radix_hist_plain(dig: torch.Tensor) -> torch.Tensor:
-    """The TPU kernel's own formulation: a one-hot compare of each tile
-    against the 256 digits, summed over the tile."""
-    d = _tiled(dig, N_DIGITS)            # pad rows match no digit
-    digits = torch.arange(N_DIGITS, dtype=torch.int32, device=dig.device)
+def _chunk_tiles(tile: int) -> int:
+    return max(1, _PLAIN_CHUNK_ROWS // tile)
+
+
+def radix_hist_plain(key: torch.Tensor, shift: int,
+                     tile: int = KERNEL_TILE) -> torch.Tensor:
+    """The TPU kernel's own formulation: a one-hot compare of each tile's
+    digits against the 256 digits, summed over the tile."""
+    d = _tiled_digits(key, shift, tile)
+    digits = torch.arange(N_DIGITS, dtype=torch.int32, device=key.device)
     out = torch.empty((d.shape[0], N_DIGITS), dtype=torch.int32,
-                      device=dig.device)
-    for t0 in range(0, d.shape[0], _PLAIN_CHUNK):
-        blk = d[t0:t0 + _PLAIN_CHUNK]
+                      device=key.device)
+    step = _chunk_tiles(tile)
+    for t0 in range(0, d.shape[0], step):
+        blk = d[t0:t0 + step]
         out[t0:t0 + blk.shape[0]] = (blk[:, :, None] == digits).sum(
             1, dtype=torch.int32)
     return out
 
 
-def radix_scatter_plain(dig: torch.Tensor, val: torch.Tensor,
-                        off: torch.Tensor) -> torch.Tensor:
+def radix_scatter_plain(key: torch.Tensor, val: torch.Tensor,
+                        off: torch.Tensor, shift: int,
+                        tile: int = KERNEL_TILE
+                        ) -> tuple[torch.Tensor, torch.Tensor]:
     """The TPU kernel's own formulation: stable within-tile ranks from an
-    exclusive cumsum of the tile's one-hot down the tile."""
-    n = dig.numel()
-    d = _tiled(dig, N_DIGITS)
-    v = _tiled(val, 0)
-    digits = torch.arange(N_DIGITS, dtype=torch.int32, device=dig.device)
-    out = torch.empty((n,), dtype=torch.int32, device=dig.device)
-    for t0 in range(0, d.shape[0], _PLAIN_CHUNK):
-        blk = d[t0:t0 + _PLAIN_CHUNK]
+    exclusive cumsum of the tile's one-hot down the tile; the key moves
+    with its value."""
+    n = key.numel()
+    d = _tiled_digits(key, shift, tile)
+    flat_key = torch.cat([key, key.new_zeros(d.numel() - n)])
+    flat_val = torch.cat([val, val.new_zeros(d.numel() - n)])
+    digits = torch.arange(N_DIGITS, dtype=torch.int32, device=key.device)
+    key_out = torch.empty_like(key)
+    val_out = torch.empty_like(val)
+    step = _chunk_tiles(tile)
+    for t0 in range(0, d.shape[0], step):
+        blk = d[t0:t0 + step]
         oh = (blk[:, :, None] == digits).to(torch.int32)
         rank = torch.cumsum(oh, 1, dtype=torch.int32) - oh
         within = (rank * oh).sum(2, dtype=torch.int32)
@@ -286,33 +357,36 @@ def radix_scatter_plain(dig: torch.Tensor, val: torch.Tensor,
         if pos.numel() and (int(pos.min()) < 0 or int(pos.max()) >= n):
             raise ValueError("radix_scatter: offsets place a row outside "
                              "[0, n)")
-        out[pos] = v[t0:t0 + blk.shape[0]].reshape(-1)[live]
-    return out
+        rows = slice(t0 * tile, (t0 + blk.shape[0]) * tile)
+        key_out[pos] = flat_key[rows][live]
+        val_out[pos] = flat_val[rows][live]
+    return key_out, val_out
 
 
-def counting_sort_pass_plain(dig: torch.Tensor,
-                             val: torch.Tensor) -> torch.Tensor:
-    """The same stable pass as RADIX_BITS 1-bit stable partitions, LSB
-    first: a 1-bit counting sort is one cumsum (zeros keep their order
-    at offset 0, ones at offset total_zeros) and one scatter."""
-    n = dig.numel()
+def counting_sort_pass_plain(key: torch.Tensor, val: torch.Tensor,
+                             shift: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The same stable pass as RADIX_BITS 1-bit stable partitions over
+    bits ``shift ..`` of the key, LSB first: a 1-bit counting sort is one
+    cumsum (zeros keep their order at offset 0, ones at offset
+    total_zeros) and one scatter."""
+    n = key.numel()
     if n == 0:
-        return val.clone()
-    iota = torch.arange(n, dtype=torch.int32, device=dig.device)
-    d, v = dig, val
-    for s in range(D.RADIX_BITS):
-        b = (d >> s) & 1
+        return key.clone(), val.clone()
+    iota = torch.arange(n, dtype=torch.int32, device=key.device)
+    k, v = key, val
+    for s in range(shift, min(shift + D.RADIX_BITS, 32)):
+        b = (k >> s) & 1
         zb = torch.cumsum(1 - b, 0, dtype=torch.int32)  # zeros so far, incl.
         pos = torch.where(b == 0, zb - 1, zb[-1] + iota - zb).to(torch.int64)
-        nd = torch.empty_like(d)
-        nd[pos] = d
+        nk = torch.empty_like(k)
+        nk[pos] = k
         nv = torch.empty_like(v)
         nv[pos] = v
-        d, v = nd, nv
-    return v
+        k, v = nk, nv
+    return k, v
 
 
-__all__ = ["TILE", "N_DIGITS", "LAUNCHES", "build", "radix_hist",
-           "radix_scatter", "counting_sort_pass", "exclusive_offsets",
-           "radix_hist_plain", "radix_scatter_plain",
-           "counting_sort_pass_plain"]
+__all__ = ["TILE", "KERNEL_TILE", "N_DIGITS", "LAUNCHES", "build",
+           "radix_hist", "radix_scatter", "counting_sort_pass",
+           "exclusive_offsets", "new_err", "read_err", "radix_hist_plain",
+           "radix_scatter_plain", "counting_sort_pass_plain"]

@@ -14,7 +14,8 @@ Per device:
    give the identical stable permutation:
 
    - the kernel path (``_partition_kernel``): each pass is the CUDA
-     histogram + scatter pair of copr/cuda/radix_kernel.py;
+     histogram + scatter pair of copr/cuda/radix_kernel.py, carrying the
+     key through the pass;
    - the plain path (``_partition_plain``): RADIX_BITS 1-bit stable
      partitions per pass, each one cumsum and one scatter.
 
@@ -60,14 +61,19 @@ def _partition_plain(bid: torch.Tensor, bits: int, n: int) -> torch.Tensor:
 
 def _partition_kernel(bid: torch.Tensor, bits: int, n: int) -> torch.Tensor:
     """Stable LSD radix partition through the counting-sort kernels,
-    RADIX_BITS-digit passes; ``counting_sort_pass`` handles a ragged last
-    tile itself, so no padding key is needed."""
-    from .cuda.radix_kernel import counting_sort_pass
+    RADIX_BITS-digit passes.  Each pass carries the partition key beside
+    the row permutation, so the next pass reads its keys in order with no
+    gather; ``counting_sort_pass`` handles a ragged last tile itself, so
+    no padding key is needed.  The passes share one device error flag,
+    read once after the last."""
+    from .cuda import radix_kernel as rk
+    key = bid.contiguous()
     idx = torch.arange(n, dtype=torch.int32, device=bid.device)
-    digit_mask = (1 << D.RADIX_BITS) - 1
+    err = rk.new_err(bid.device) if bid.device.type == "cuda" else None
     for p in range(-(-bits // D.RADIX_BITS)):
-        dig = ((bid[idx] >> (p * D.RADIX_BITS)) & digit_mask).contiguous()
-        idx = counting_sort_pass(dig, idx)
+        key, idx = rk.counting_sort_pass(key, idx, p * D.RADIX_BITS, err)
+    if err is not None:
+        rk.read_err(err, "scatter_permutation")
     return idx
 
 
