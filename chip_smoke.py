@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port (tidb_tpu_torch) on one CUDA GPU and check it.
 
-    python3 chip_smoke.py            # SF=1: 6,000,000 lineitem rows
-    python3 chip_smoke.py --sf 0.05  # a quicker run at a smaller scale
+    python3 chip_smoke.py            # SCATTER queries at SF=1, the
+                                     # DENSE/SCALAR main path at SF=10
+    python3 chip_smoke.py --sf 0.05 --main-sf 0.1   # a quicker run
     python3 chip_smoke.py --perm-of DIR   # only scatter_permutation's
                                           # time, of DIR/tidb_tpu_torch
 
@@ -10,22 +11,38 @@ Phases, each printing one line or more; any failure raises and the
 script exits non-zero without printing a result:
 
 1. device: the GPU's name and ``nvidia-smi`` name and power limit;
-2. build: compile the CUDA kernels from the sources in this checkout;
-3. kernels: each kernel at the main path's shape (8,388,608 rows,
+2. build: compile the CUDA kernels from the sources in this checkout,
+   one ``nvcc`` per source, all at once;
+3. radix kernels: each at the SCATTER path's shape (8,388,608 rows,
    values = arange) on uniform partition keys and on query A's skew
    (28.5% of the rows on the dead rows' tail key) against its plain
    PyTorch version on the card, exactly; kernel, plain,
    library-yardstick and memory-bound times at the kernel's tile; the
    whole pass; ``scatter_permutation`` (4 passes) for B = 2^22 and
    2^23 against the plain partition;
-4. reference: a small lineitem through the port on the GPU and through
-   its plain path on the CPU, whose per-device states and results must
-   be equal;
-5. slice: TPC-H lineitem at ``--sf`` and the two high-NDV GROUP BY
-   queries through ``CopClient(device="cuda").execute_agg``, results
-   equal to a numpy oracle, the kernel launch counts equal to the
-   radix passes the client ran;
-6. the ``kernels`` JSON line, then the last line
+4. group_reduce: the kernel at the main path's row count (67,108,864,
+   one SF=10 device batch) on a random mask, for G in {1, 12, 4096,
+   1,000,000, 2^23 with rows in the sink slot}, sum/min/max over int64
+   and float64 and min/max over int16, each against its plain version
+   on the card (integers and float min/max exactly, float sums within
+   ``FSUM_RTOL`` of the slot's sum of |v|, and bit-equal between two
+   launches), with kernel, plain, library-yardstick (``index_add_``,
+   ``scatter_reduce_``) and memory-bound times;
+5. reference: a small lineitem through the port on the GPU and through
+   its plain path on the CPU, for the SCATTER queries A and B and for
+   TPC-H Q1, Q6 and Q19, whose states and results must be equal;
+6. SCATTER slice: TPC-H lineitem at ``--sf`` and the two high-NDV GROUP
+   BY queries through ``CopClient(device="cuda").execute_agg``, results
+   equal to a numpy oracle, the radix kernel launches equal to the radix
+   passes the client ran and the group_reduce launches to the
+   reductions its programs imply;
+7. main path: lineitem at ``--main-sf`` (the nine columns Q1, Q6 and
+   Q19 read) and TPC-H Q1, Q6 and Q19 through
+   ``CopClient(device="cuda").execute_agg``, results equal to a numpy
+   oracle with the predicates of bench.py's np_q1 / np_q6 / np_q19 and
+   exact Python-int sums, and the group_reduce launches of each query
+   equal to what ``_agg_partial_states`` implies;
+8. the ``kernels`` JSON line, then the last line
    ``{"ok": true, "device": {...}}``.
 
 Query A is the grouping inside TPC-H Q18; query B is a corpus query of
@@ -34,6 +51,8 @@ the JAX package's TPC-H plan set:
        group by l_orderkey
     B: select l_orderkey, l_suppkey, max(l_extendedprice) from lineitem
        where l_quantity < 45 group by l_orderkey, l_suppkey
+Q1, Q6 and Q19 are the DAGs of __graft_entry__._q1_dag, bench._q6_dag
+and bench._q19_dag, built with the port's builders.
 """
 
 from __future__ import annotations
@@ -50,6 +69,7 @@ import numpy as np
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3, NVIDIA data sheet
 CUDA_CORE_OPS_PER_S = 67e12      # H100 SXM non-tensor fp32 rate, per op
 KERNEL_ROWS = 8_388_608          # padded rows of one device batch at SF=1
+MAIN_ROWS = 67_108_864           # padded rows of one device batch at SF=10
 REPS = 15
 
 
@@ -247,7 +267,157 @@ def kernel_phase(torch, rk, radix, dev) -> dict:
 
 
 # --------------------------------------------------------------------- #
-# phases 4-5: the slice
+# phase 4: group_reduce against its plain version
+# --------------------------------------------------------------------- #
+
+GR_GROUPS = (1, 12, 4096, 1_000_000, 1 << 23)
+GR_LIVE = 0.7               # share of rows the mask keeps
+GR_SINK = 0.25              # share of rows in the sink slot at G = 2^23
+FSUM_RTOL = 1e-12           # float sums: of the slot's sum of |v|
+
+
+def gr_cases():
+    """(G, dtype name, how) of every group_reduce case."""
+    out = []
+    for G in GR_GROUPS:
+        for dtype in ("int64", "float64"):
+            out += [(G, dtype, how) for how in ("sum", "min", "max")]
+        out += [(G, "int16", how) for how in ("min", "max")]
+    return out
+
+
+def gr_inputs(torch, dev, G: int, seed: int):
+    """Mask and gids at the main path's row count: gids int32 uniform in
+    [0, G), a quarter of the rows in the sink slot G at G = 2^23, none
+    for G = 1 (SCALAR)."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    n = MAIN_ROWS
+    mask = torch.rand(n, generator=gen, device=dev) < GR_LIVE
+    if G == 1:
+        return mask, None
+    gids = torch.randint(0, G, (n,), generator=gen, device=dev,
+                         dtype=torch.int32)
+    if G == 1 << 23:
+        gids[torch.rand(n, generator=gen, device=dev) < GR_SINK] = G
+    return mask, gids
+
+
+def gr_values(torch, dev, dtype: str, seed: int):
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    n = MAIN_ROWS
+    if dtype == "float64":
+        return torch.randn(n, generator=gen, device=dev,
+                           dtype=torch.float64) * 1e6
+    if dtype == "int16":
+        return torch.randint(-32768, 32768, (n,), generator=gen, device=dev,
+                             dtype=torch.int16)
+    return torch.randint(-(1 << 62), 1 << 62, (n,), generator=gen,
+                         device=dev, dtype=torch.int64)
+
+
+def gr_check(torch, gr, got, want, vals, mask, gids, G, how) -> float:
+    """Raise unless the kernel's table equals the plain version's;
+    returns the largest absolute difference."""
+    if vals.dtype.is_floating_point and how == "sum":
+        absum = gr.group_reduce_plain(vals.abs(), mask, gids, G, "sum")
+        err = (got - want).abs()
+        check(bool((err <= FSUM_RTOL * absum).all()),
+              f"group_reduce G={G} float sum beyond {FSUM_RTOL} of sum|v|")
+        return float(err.max())
+    check(got.dtype == want.dtype and torch.equal(got, want),
+          f"group_reduce G={G} {vals.dtype} {how} != plain")
+    return 0.0
+
+
+def group_reduce_phase(torch, gr, dev) -> dict:
+    """Every case exact (or within FSUM_RTOL) against the plain version
+    on the card, float sums bit-equal between two launches, with kernel,
+    plain, library and bound times; returns the main path's case
+    (G = 12, int64 sum: Q1's shape) and the largest error."""
+    flush = torch.empty(64 << 20, dtype=torch.int32, device=dev)  # 256 MiB
+    results = {}
+    max_err = 0.0
+    inputs = {}
+    for G, dtype, how in gr_cases():
+        if G not in inputs:
+            inputs.clear()
+            inputs[G] = gr_inputs(torch, dev, G, G % 1000 + 1)
+        mask, gids = inputs[G]
+        vals = gr_values(torch, dev, dtype, 7)
+        got = gr.group_reduce(vals, mask, gids, G, how)
+        want = gr.group_reduce_plain(vals, mask, gids, G, how)
+        err = gr_check(torch, gr, got, want, vals, mask, gids, G, how)
+        max_err = max(max_err, err)
+        same = True
+        if dtype == "float64" and how == "sum":
+            same = torch.equal(got, gr.group_reduce(vals, mask, gids, G,
+                                                    how))
+            check(same, f"group_reduce G={G} float sum differs between "
+                        "two launches")
+        # the library yardstick: one scatter of the values, dead rows
+        # sent to the sink slot beforehand
+        gsink = torch.where(mask, torch.zeros((), dtype=torch.int64,
+                                              device=dev)
+                            if gids is None else gids.to(torch.int64), G)
+        neu = gr.neutral(vals.dtype, how)
+
+        def lib():
+            out = torch.full((G + 1,), neu, dtype=vals.dtype, device=dev)
+            if how == "sum":
+                return out.index_add_(0, gsink, vals)
+            return out.scatter_reduce_(0, gsink, vals, reduce="a" + how,
+                                       include_self=True)
+        lib_out = lib()[:G]
+        if how != "sum" or dtype != "float64":
+            check(torch.equal(lib_out, got), f"library yardstick G={G} "
+                  f"{dtype} {how} != group_reduce")
+        ms = cuda_ms(torch, lambda: gr.group_reduce(vals, mask, gids, G,
+                                                    how), flush=flush)
+        plain_ms = cuda_ms(torch, lambda: gr.group_reduce_plain(
+            vals, mask, gids, G, how), flush=flush)
+        lib_ms = cuda_ms(torch, lib, flush=flush)
+        gid_bytes = 0 if gids is None else gids.element_size()
+        nbytes = MAIN_ROWS * (vals.element_size() + 1 + gid_bytes) \
+            + G * vals.element_size()
+        b_ms, b_by = bound_ms(nbytes, MAIN_ROWS)
+        r = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
+                 bound_by=b_by, max_abs_err=err)
+        results[(G, dtype, how)] = r
+        print(f"kernel group_reduce [G={G} {dtype} {how}]: n={MAIN_ROWS} "
+              f"table={gr.table_mode(G)} exact={err == 0.0} "
+              f"max_abs_err={err:.3g} two_launches_equal={same} "
+              f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
+              f"library_ms={lib_ms:.4f} bound_ms={b_ms:.4f} ({b_by}) "
+              f"of_bound={b_ms / ms:.3f}")
+        del vals, got, want, gsink, lib_out
+    main = dict(results[(12, "int64", "sum")])
+    main["max_abs_err"] = max_err
+    return main
+
+
+def expected_reduces(agg) -> int:
+    """group_reduce launches of one device program run of ``agg`` on one
+    logical device, as copr/exec._agg_partial_states and _one_agg_state
+    (and the SCATTER segment reduce) imply: one for ``__rows__``, none
+    for COUNT(*), which reuses it, one for COUNT(x), two for MIN/MAX and
+    float or proven-narrow SUMs, three for a (hi, lo) limb SUM."""
+    from tidb_tpu_torch.copr import dag as D
+    n = 1
+    for i, a in enumerate(agg.aggs):
+        if a.func == D.AggFunc.COUNT:
+            n += 0 if a.arg is None else 1
+        elif a.func == D.AggFunc.SUM and not a.arg.dtype.is_float \
+                and i not in agg.narrow_sums:
+            n += 3
+        else:
+            n += 2
+    return n
+
+
+# --------------------------------------------------------------------- #
+# phases 5-7: the slices
 # --------------------------------------------------------------------- #
 
 A_COLS = ["l_orderkey", "l_quantity"]
@@ -281,6 +451,138 @@ def build_query(which: str, num_buckets: int = 0):
                           (ColumnRef(i64, 0), ColumnRef(i64, 1)), aggs,
                           D.GroupStrategy.SCATTER, num_buckets=num_buckets),
             [GroupKeyMeta(i64, 0), GroupKeyMeta(i64, 0)])
+
+
+Q_COLS = ["l_quantity", "l_extendedprice", "l_discount", "l_tax",
+          "l_returnflag", "l_linestatus", "l_shipdate", "l_shipinstruct",
+          "l_shipmode"]
+MAIN_QUERIES = ("Q1", "Q6", "Q19")
+
+
+def build_main_query(which: str, names, cols):
+    """(aggregation, key metas) of TPC-H Q1, Q6 or Q19 over a snapshot of
+    ``names``, built with the port's builders as
+    __graft_entry__._q1_dag, bench._q6_dag and bench._q19_dag build
+    them.  Q1's key metas are not nullable, as its key columns are not:
+    the dense gid has no NULL slot to decode."""
+    from tidb_tpu_torch.copr import dag as D
+    from tidb_tpu_torch.copr.aggregate import GroupKeyMeta, sum_out_dtype
+    from tidb_tpu_torch.expr import builders as b
+    from tidb_tpu_torch.expr.ir import ColumnRef, Const
+    from tidb_tpu_torch.types import dtypes as dt
+    ix = {n: i for i, n in enumerate(names)}
+
+    def r(n):
+        return ColumnRef(cols[ix[n]].dtype, ix[n], n)
+    scan = D.TableScan(tuple(range(len(names))),
+                       tuple(c.dtype for c in cols))
+
+    def summed(e):
+        return D.AggDesc(D.AggFunc.SUM, e, sum_out_dtype(e.dtype))
+    count = D.AggDesc(D.AggFunc.COUNT, None, dt.bigint(False))
+    if which == "Q1":
+        sel = D.Selection(scan, (b.compare(
+            "le", r("l_shipdate"), b.lit("1998-09-02", dt.date())),))
+        one = b.lit(1)
+        disc_price = b.arith("mul", r("l_extendedprice"),
+                             b.arith("sub", one, r("l_discount")))
+        charge = b.arith("mul", disc_price, b.arith("add", one, r("l_tax")))
+        fd = cols[ix["l_returnflag"]].dictionary
+        sd = cols[ix["l_linestatus"]].dictionary
+        agg = D.Aggregation(
+            sel, (r("l_returnflag"), r("l_linestatus")),
+            (summed(r("l_quantity")), summed(r("l_extendedprice")),
+             summed(disc_price), summed(charge), count),
+            D.GroupStrategy.DENSE, domain_sizes=(len(fd) + 1, len(sd) + 1))
+        return agg, [GroupKeyMeta(dt.varchar(False), len(fd) + 1, fd),
+                     GroupKeyMeta(dt.varchar(False), len(sd) + 1, sd)]
+    if which == "Q6":
+        sel = D.Selection(scan, (
+            b.compare("ge", r("l_shipdate"), b.lit("1994-01-01", dt.date())),
+            b.compare("lt", r("l_shipdate"), b.lit("1995-01-01", dt.date())),
+            b.between(r("l_discount"), b.decimal_lit("0.05"),
+                      b.decimal_lit("0.07")),
+            b.compare("lt", r("l_quantity"), b.decimal_lit("24"))))
+        rev = b.arith("mul", r("l_extendedprice"), r("l_discount"))
+        return D.Aggregation(sel, (), (summed(rev), count),
+                             D.GroupStrategy.SCALAR), []
+    (air, regair, fob, mail, ship_, truck), dip = q19_codes(names, cols)
+    mode_t = r("l_shipmode").dtype
+    qty = r("l_quantity")
+
+    def clause(qlo, qhi, modes):
+        return b.logic("and", b.logic(
+            "and", b.between(qty, b.decimal_lit(str(qlo)),
+                             b.decimal_lit(str(qhi))),
+            b.in_list(r("l_shipmode"), [Const(mode_t, m) for m in modes])),
+            b.compare("eq", r("l_shipinstruct"),
+                      Const(r("l_shipinstruct").dtype, dip)))
+    pred = b.logic("or", b.logic("or", clause(1, 11, (air, regair)),
+                                 clause(10, 20, (fob, mail))),
+                   clause(20, 30, (ship_, truck)))
+    rev = b.arith("mul", r("l_extendedprice"),
+                  b.arith("sub", b.decimal_lit("1"), r("l_discount")))
+    return D.Aggregation(D.Selection(scan, (pred,)), (),
+                         (summed(rev), count), D.GroupStrategy.SCALAR), []
+
+
+def q19_codes(names, cols):
+    ix = {n: i for i, n in enumerate(names)}
+    md = cols[ix["l_shipmode"]].dictionary
+    sd = cols[ix["l_shipinstruct"]].dictionary
+    return ([md.code_of(m) for m in ("AIR", "REG AIR", "FOB", "MAIL",
+                                     "SHIP", "TRUCK")],
+            sd.code_of("DELIVER IN PERSON"))
+
+
+def exact_sum(x: np.ndarray) -> int:
+    """The exact sum of an int64 array as a Python int: each row's high
+    and low 32 bits sum apart, neither sum can wrap below 2^31 rows."""
+    x = np.asarray(x, np.int64)
+    return (int((x >> 32).sum()) << 32) + int((x & 0xFFFFFFFF).sum())
+
+
+def main_oracle(which: str, names, cols) -> list:
+    """numpy answer rows of Q1 (flag code, status code, sum_qty,
+    sum_base_price, sum_disc_price, sum_charge, count_order) in dense
+    group order, or of Q6 / Q19 (revenue, count): the predicates of
+    bench.py's np_q1, np_q6 and np_q19."""
+    c = {n: col.data for n, col in zip(names, cols)}
+    qty, price = c["l_quantity"], c["l_extendedprice"]
+    disc, tax, ship = c["l_discount"], c["l_tax"], c["l_shipdate"]
+    if which == "Q1":
+        keep = ship <= 10471                     # 1998-09-02
+        dp = price * (100 - disc)
+        ch = dp * (100 + tax)
+        gid = c["l_returnflag"].astype(np.int64) * 3 + c["l_linestatus"]
+        rows = []
+        for g in np.unique(gid[keep]):
+            m = keep & (gid == g)
+            rows.append((int(g) // 3, int(g) % 3, exact_sum(qty[m]),
+                         exact_sum(price[m]), exact_sum(dp[m]),
+                         exact_sum(ch[m]), int(m.sum())))
+        return rows
+    if which == "Q6":
+        m = ((ship >= 8766) & (ship < 9131) & (disc >= 5) & (disc <= 7)
+             & (qty < 2400))
+        return [(exact_sum(price[m] * disc[m]), int(m.sum()))]
+    (air, regair, fob, mail, ship_, truck), dip = q19_codes(names, cols)
+    mode, inst = c["l_shipmode"], c["l_shipinstruct"]
+    c1 = (qty >= 100) & (qty <= 1100) & ((mode == air) | (mode == regair))
+    c2 = (qty >= 1000) & (qty <= 2000) & ((mode == fob) | (mode == mail))
+    c3 = (qty >= 2000) & (qty <= 3000) & ((mode == ship_) | (mode == truck))
+    m = (c1 | c2 | c3) & (inst == dip)
+    return [(exact_sum(price[m] * (100 - disc[m])), int(m.sum()))]
+
+
+def result_rows(res) -> list:
+    """[(keys..., values...)] of a CopResult as Python ints; a NULL
+    fails the check (none of these queries yields one)."""
+    cols = res.key_columns + res.columns
+    for c in cols:
+        check(bool(np.asarray(c.validity).all()), "unexpected NULL output")
+    n = len(cols[0].data) if cols else 0
+    return [tuple(int(c.data[i]) for c in cols) for i in range(n)]
 
 
 def oracle(which: str, cols: dict) -> tuple[list, list]:
@@ -322,16 +624,22 @@ def leaves(tree: dict, prefix: str = ""):
 
 def reference_phase(torch, dev) -> None:
     """A small lineitem through the GPU path and through the plain CPU
-    path: per-device states and final results must be equal."""
+    path: states (per device for SCATTER, merged for Q1/Q6/Q19) and
+    final results must be equal."""
     from tidb_tpu_torch.parallel.spmd import ShardedCopProgram
     from tidb_tpu_torch.store import CopClient, snapshot_from_columns
     from tidb_tpu_torch.testing.tpch import gen_lineitem
-    names, cols = gen_lineitem(0.01, seed=3, columns=B_COLS)
+    names, cols = gen_lineitem(0.01, seed=3, columns=B_COLS + Q_COLS[1:])
     bycol = dict(zip(names, cols))
-    for which in ("A", "B"):
-        use = A_COLS if which == "A" else B_COLS
+    runs = [("A", A_COLS), ("B", B_COLS)] + [(q, Q_COLS)
+                                             for q in MAIN_QUERIES]
+    for which, use in runs:
         snap = snapshot_from_columns(use, [bycol[c] for c in use])
-        agg, meta = build_query(which, 1 << 16)
+        if which in MAIN_QUERIES:
+            agg, meta = build_main_query(which, use,
+                                         [bycol[c] for c in use])
+        else:
+            agg, meta = build_query(which, 1 << 16)
         st = {}
         for d in (dev, torch.device("cpu")):
             cols_d, counts = snap.device_cols((d,))
@@ -341,18 +649,33 @@ def reference_phase(torch, dev) -> None:
         for k in flat["cpu"]:
             check(torch.equal(flat["cuda"][k].cpu(), flat["cpu"][k]),
                   f"query {which}: GPU state {k} != CPU plain state")
-        gpu = result_arrays(CopClient("cuda").execute_agg(agg, snap, meta))
-        cpu = result_arrays(CopClient("cpu", 8).execute_agg(agg, snap, meta))
-        want = oracle(which, bycol)
-        for got in (gpu, cpu):
-            for g, w in zip(got[0] + got[1], want[0] + want[1]):
-                check(np.array_equal(g, w), f"query {which}: small result")
+        gpu = CopClient("cuda").execute_agg(agg, snap, meta)
+        cpu = CopClient("cpu", 8).execute_agg(agg, snap, meta)
+        if which in MAIN_QUERIES:
+            want = main_oracle(which, use, [bycol[c] for c in use])
+            for got in (gpu, cpu):
+                check(result_rows(got) == want,
+                      f"query {which}: small result")
+            groups = len(want)
+        else:
+            want = oracle(which, bycol)
+            for got in (result_arrays(gpu), result_arrays(cpu)):
+                for g, w in zip(got[0] + got[1], want[0] + want[1]):
+                    check(np.array_equal(g, w),
+                          f"query {which}: small result")
+            groups = len(want[0][0])
         print(f"reference query {which}: rows={len(cols[0])} "
-              f"groups={len(want[0][0])} gpu_states==cpu_states=True "
+              f"groups={groups} gpu_states==cpu_states=True "
               f"gpu==cpu==numpy=True")
 
 
-def slice_phase(torch, rk, sf: float) -> dict:
+def reset(counters) -> None:
+    for launches in counters:
+        for name in launches:
+            launches[name] = 0
+
+
+def slice_phase(torch, rk, gr, sf: float) -> dict:
     from tidb_tpu_torch.copr import dag as D
     from tidb_tpu_torch.store import CopClient, snapshot_from_columns
     from tidb_tpu_torch.testing.tpch import gen_lineitem
@@ -362,15 +685,15 @@ def slice_phase(torch, rk, sf: float) -> dict:
     n_rows = len(cols[0])
     print(f"data: lineitem sf={sf} rows={n_rows} "
           f"gen_s={time.perf_counter() - t0:.2f}")
-    for name in rk.LAUNCHES:           # counts of the main path only
-        rk.LAUNCHES[name] = 0
-    expected = 0
+    reset((rk.LAUNCHES, gr.LAUNCHES))    # counts of this path only
+    expected = reduces = 0
     for which in ("A", "B"):
         use = A_COLS if which == "A" else B_COLS
         snap = snapshot_from_columns(use, [bycol[c] for c in use])
         agg, meta = build_query(which)
         client = CopClient(device="cuda")
         before = dict(rk.LAUNCHES)
+        before_gr = gr.LAUNCHES["group_reduce"]
         t0 = time.perf_counter()
         res = client.execute_agg(agg, snap, meta)
         wall = time.perf_counter() - t0
@@ -382,6 +705,11 @@ def slice_phase(torch, rk, sf: float) -> dict:
                   f"query {which}: {name} launched {got} times for "
                   f"{sum(passes)} radix passes")
         expected += sum(passes)
+        got_gr = gr.LAUNCHES["group_reduce"] - before_gr
+        want_gr = expected_reduces(agg) * len(passes)
+        check(got_gr == want_gr, f"query {which}: group_reduce launched "
+              f"{got_gr} times, its programs imply {want_gr}")
+        reduces += want_gr
         want = oracle(which, bycol)
         got = result_arrays(res)
         check(len(got[0][0]) == len(want[0][0]),
@@ -393,6 +721,7 @@ def slice_phase(torch, rk, sf: float) -> dict:
               f"ms={wall * 1e3:.1f} rows_per_s={n_rows / wall:.0f} "
               f"buckets={t['buckets']} passes={passes} "
               f"hist_launches={sum(passes)} scatter_launches={sum(passes)} "
+              f"group_reduce_launches={got_gr} "
               f"place_ms={t['place'] * 1e3:.1f} hash_ms={t['hash'] * 1e3:.1f} "
               f"device_ms={t['device'] * 1e3:.1f} "
               f"transfer_ms={t['transfer'] * 1e3:.1f} "
@@ -400,13 +729,81 @@ def slice_phase(torch, rk, sf: float) -> dict:
     counts = dict(rk.LAUNCHES)
     for name, c in counts.items():
         check(c == expected and c > 0, f"{name}: {c} main-path launches")
+    check(gr.LAUNCHES["group_reduce"] == reduces,
+          f"group_reduce: {gr.LAUNCHES['group_reduce']} SCATTER launches")
     return counts
+
+
+def main_path_phase(torch, gr, sf: float) -> int:
+    """TPC-H Q1, Q6 and Q19 at ``sf`` through CopClient(device="cuda"),
+    each equal to the numpy oracle; returns the group_reduce launches of
+    the three."""
+    from tidb_tpu_torch.store import CopClient, snapshot_from_columns
+    from tidb_tpu_torch.testing.tpch import gen_lineitem
+    t0 = time.perf_counter()
+    names, cols = gen_lineitem(sf, seed=0, columns=Q_COLS)
+    t1 = time.perf_counter()
+    snap = snapshot_from_columns(names, cols)
+    n_rows = len(cols[0])
+    queries = {q: build_main_query(q, names, cols) for q in MAIN_QUERIES}
+    print(f"data: lineitem sf={sf} rows={n_rows} columns={len(names)} "
+          f"gen_s={t1 - t0:.2f}")
+    reset((gr.LAUNCHES,))               # counts of this path only
+    total = 0
+    for which in MAIN_QUERIES:
+        agg, meta = queries[which]
+        client = CopClient(device="cuda")
+        before = gr.LAUNCHES["group_reduce"]
+        t0 = time.perf_counter()
+        res = client.execute_agg(agg, snap, meta)
+        wall = time.perf_counter() - t0
+        got = gr.LAUNCHES["group_reduce"] - before
+        want_n = expected_reduces(agg)
+        check(got == want_n, f"{which}: group_reduce launched {got} times, "
+              f"_agg_partial_states implies {want_n}")
+        total += got
+        t = client.timings
+        rows = result_rows(res)
+        want = main_oracle(which, names, cols)
+        check(rows == want, f"{which}: result != numpy oracle")
+        batch = int(snap.device_cols(client.devices)[0][0][0].numel())
+        print(f"main query {which}: rows={n_rows} batch_rows={batch} "
+              f"groups={len(rows)} ms={wall * 1e3:.1f} "
+              f"rows_per_s={n_rows / wall:.0f} "
+              f"group_reduce_launches={got} "
+              f"place_ms={t['place'] * 1e3:.1f} "
+              f"device_ms={t['device'] * 1e3:.1f} "
+              f"transfer_ms={t['transfer'] * 1e3:.1f} "
+              f"merge_ms={t['merge'] * 1e3:.1f} exact=True")
+        print(f"main query {which} result: {rows}")
+    check(gr.LAUNCHES["group_reduce"] == total and total > 0,
+          f"group_reduce: {gr.LAUNCHES['group_reduce']} main-path launches")
+    return total
+
+
+def build_phase(rk, gr) -> None:
+    """Both kernel libraries from the checkout's sources, one nvcc each,
+    started together."""
+    from tidb_tpu_torch.copr.cuda import build as kb
+    t0 = time.perf_counter()
+    sos = kb.build_all([rk.LIBRARY.src, gr.LIBRARY.src])
+    rk.LIBRARY.get()
+    gr.LIBRARY.get()
+    regs = [ln.strip() for log in kb.BUILD_LOG for ln in log.splitlines()
+            if "registers" in ln or "spill" in ln]
+    print(f"build: {' '.join(so.name for so in sos)} "
+          f"seconds={time.perf_counter() - t0:.2f} kernels={len(regs)}")
+    for ln in regs:
+        print(f"ptxas: {ln}")
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--sf", type=float, default=1.0,
-                    help="TPC-H scale factor of the slice phase")
+                    help="TPC-H scale factor of the SCATTER slice phase")
+    ap.add_argument("--main-sf", type=float, default=10.0,
+                    help="TPC-H scale factor of the DENSE/SCALAR main "
+                         "path (Q1, Q6, Q19)")
     ap.add_argument("--perm-of", metavar="DIR",
                     help="only time scatter_permutation of the "
                          "tidb_tpu_torch package found in DIR (e.g. an "
@@ -435,25 +832,24 @@ def main() -> int:
         flush = torch.empty(64 << 20, dtype=torch.int32, device=dev)
         time_scatter_permutation(torch, radix, dev, flush)
         return 0
+    from tidb_tpu_torch.copr.cuda import group_reduce as gr
 
-    t0 = time.perf_counter()
-    so = rk.build()
-    rk._load()
-    regs = [ln.strip() for log in rk.BUILD_LOG for ln in log.splitlines()
-            if "registers" in ln or "Compiling entry" in ln
-            or "spill" in ln]
-    print(f"build: {so.name} seconds={time.perf_counter() - t0:.2f} "
-          f"ptxas={' | '.join(regs)}")
-
+    build_phase(rk, gr)
     kern = kernel_phase(torch, rk, radix, dev)
+    kern["group_reduce"] = group_reduce_phase(torch, gr, dev)
     reference_phase(torch, dev)
-    counts = slice_phase(torch, rk, args.sf)
+    counts = slice_phase(torch, rk, gr, args.sf)
+    counts["group_reduce"] = main_path_phase(torch, gr, args.main_sf)
 
-    src = "tidb_tpu_torch/copr/cuda/radix_kernel.cu"
+    sources = {"radix_hist": "tidb_tpu_torch/copr/cuda/radix_kernel.cu",
+               "radix_scatter": "tidb_tpu_torch/copr/cuda/radix_kernel.cu",
+               "group_reduce": "tidb_tpu_torch/copr/cuda/group_reduce.cu"}
     replaces = {"radix_hist": "tidb_tpu/copr/pallas/radix_kernel.py:92",
-                "radix_scatter": "tidb_tpu/copr/pallas/radix_kernel.py:105"}
+                "radix_scatter": "tidb_tpu/copr/pallas/radix_kernel.py:105",
+                "group_reduce":
+                    "tidb_tpu/copr/exec.py:87 _reduce (XLA-fused)"}
     print(json.dumps({"kernels": [
-        {"name": name, "route": "cuda", "source": src,
+        {"name": name, "route": "cuda", "source": sources[name],
          "replaces": replaces[name], "launches": counts[name],
          "max_abs_err": r["max_abs_err"], "ms": r["ms"],
          "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],

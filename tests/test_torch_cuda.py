@@ -1,5 +1,11 @@
 """The port's CUDA kernels on a GPU, against their plain PyTorch versions.
 
+The radix counting-sort kernels equal their plain versions bit for bit;
+``group_reduce`` equals its plain version (computed on the CPU, whose
+scatter propagates NaN as the JAX package's does) exactly for integers
+and float min/max, and within ``FSUM_RTOL`` of the slot's sum of |v|
+for float sums, which it must return as the same bits on every launch.
+
 Every test here needs a CUDA GPU and skips without one.  The file
 imports no JAX, so it also runs on a machine that has only PyTorch:
 
@@ -13,6 +19,7 @@ import torch
 from tidb_tpu_torch.copr import dag as D
 from tidb_tpu_torch.copr import radix
 from tidb_tpu_torch.copr.aggregate import GroupKeyMeta
+from tidb_tpu_torch.copr.cuda import group_reduce as gr
 from tidb_tpu_torch.copr.cuda import radix_kernel as rk
 from tidb_tpu_torch.expr.ir import ColumnRef
 from tidb_tpu_torch.parallel.spmd import ShardedCopProgram
@@ -171,3 +178,124 @@ def test_client_on_gpu_equals_plain_path(dev):
     for x, y in zip(r_gpu.key_columns + r_gpu.columns,
                     r_cpu.key_columns + r_cpu.columns):
         assert (x.data == y.data).all() and (x.validity == y.validity).all()
+
+
+# ------------------------------------------------------------------ #
+# group_reduce
+# ------------------------------------------------------------------ #
+
+FSUM_RTOL = 1e-12
+GR_DTYPES = [torch.int8, torch.int16, torch.int32, torch.int64,
+             torch.float32, torch.float64]
+
+
+def _gr_inputs(n, G, dtype, seed, gid_dtype=torch.int32):
+    """Values (NaN and +-inf among floats), a mask keeping ~80%, gids in
+    [0, G] (G = the sink slot; none for G = 1), on the CPU."""
+    rng = np.random.default_rng(seed)
+    if dtype.is_floating_point:
+        v = rng.normal(0.0, 1e4, n)
+        v[rng.random(n) < 0.002] = np.nan
+        v[rng.random(n) < 0.001] = np.inf
+        vals = torch.from_numpy(v).to(dtype)
+    else:
+        info = torch.iinfo(dtype)
+        vals = torch.from_numpy(rng.integers(info.min, info.max, n,
+                                             endpoint=True)).to(dtype)
+    mask = torch.from_numpy(rng.random(n) < 0.8)
+    gids = None if G == 1 else torch.from_numpy(
+        rng.integers(0, G + 1, n)).to(gid_dtype)
+    return vals, mask, gids
+
+
+def _assert_gr_equal(got, want, vals, mask, gids, G, how):
+    assert got.dtype == want.dtype and got.shape == want.shape
+    if vals.dtype.is_floating_point and how == "sum":
+        absum = gr.group_reduce_plain(vals.double().abs().nan_to_num(
+            posinf=0.0), mask, gids, G, "sum")
+        g, w = got.double(), want.double()
+        same = (g == w) | (torch.isnan(g) & torch.isnan(w))
+        close = (g - w).abs() <= FSUM_RTOL * absum \
+            + (1e-6 if vals.dtype == torch.float32 else 0.0) * absum
+        assert bool((same | close).all())
+    else:
+        assert torch.equal(got.isnan() if got.is_floating_point() else got,
+                           want.isnan() if want.is_floating_point()
+                           else want)
+        if got.is_floating_point():
+            keep = ~want.isnan()
+            assert torch.equal(got[keep], want[keep])
+
+
+@pytest.mark.parametrize("how", ["sum", "min", "max"])
+@pytest.mark.parametrize("dtype", GR_DTYPES, ids=str)
+@pytest.mark.parametrize("G", [1, 12, 16, 17, 4096, 4097, 1 << 17])
+@pytest.mark.parametrize("n", [1, 1023, 70_001, 1 << 20])
+def test_group_reduce_equals_plain(dev, n, G, dtype, how):
+    """Every table mode (registers, shared, global) at ragged and large
+    n, every dtype: the kernel against the plain version on the CPU."""
+    vals, mask, gids = _gr_inputs(n, G, dtype, n + G)
+    before = gr.LAUNCHES["group_reduce"]
+    got = gr.group_reduce(vals.to(dev), mask.to(dev),
+                          None if gids is None else gids.to(dev), G, how)
+    assert gr.LAUNCHES["group_reduce"] == before + 1
+    want = gr.group_reduce_plain(vals, mask, gids, G, how)
+    _assert_gr_equal(got.cpu(), want, vals, mask, gids, G, how)
+
+
+@pytest.mark.parametrize("G", [1, 12, 4096, 1 << 20])
+def test_group_reduce_float_sum_is_deterministic(dev, G):
+    """Two launches on the same input give the same bits."""
+    vals, mask, gids = _gr_inputs(3_000_017, G, torch.float64, G)
+    vals = vals.nan_to_num(nan=1.0, posinf=2.0).to(dev)
+    mask = mask.to(dev)
+    gids = None if gids is None else gids.to(dev)
+    first = gr.group_reduce(vals, mask, gids, G, "sum")
+    for _ in range(3):
+        assert torch.equal(gr.group_reduce(vals, mask, gids, G, "sum"),
+                           first)
+
+
+@pytest.mark.parametrize("how", ["sum", "min", "max"])
+def test_group_reduce_int64_gids_of_the_segment_reduce(dev, how):
+    """The SCATTER segment reduce's int64 gids, sorted, with dead rows in
+    the sink slot."""
+    n, G = 500_000, 1 << 18
+    rng = np.random.default_rng(5)
+    gids = torch.from_numpy(np.sort(rng.integers(0, G + 1, n)))
+    vals = torch.from_numpy(rng.integers(-10 ** 12, 10 ** 12, n))
+    mask = gids < G
+    got = gr.group_reduce(vals.to(dev), mask.to(dev), gids.to(dev), G, how)
+    assert torch.equal(got.cpu(),
+                       gr.group_reduce_plain(vals, mask, gids, G, how))
+
+
+def test_reduce_takes_the_kernel_on_cuda(dev):
+    """exec._reduce on CUDA tensors launches group_reduce; SCALAR comes
+    back 0-d."""
+    from tidb_tpu_torch.copr.exec import _reduce
+    vals = torch.arange(1000, dtype=torch.int64, device=dev)
+    mask = vals % 3 == 0
+    before = gr.LAUNCHES["group_reduce"]
+    got = _reduce(vals, mask, None, 1, "sum")
+    assert gr.LAUNCHES["group_reduce"] == before + 1
+    assert got.shape == () and int(got) == sum(range(0, 1000, 3))
+
+
+def test_q6_on_gpu_equals_cpu(dev):
+    """TPC-H Q6 (and Q1) through CopClient(device="cuda") equal the plain
+    CPU path, and launch group_reduce as _agg_partial_states implies."""
+    import chip_smoke as cs
+    from tidb_tpu_torch.store import snapshot_from_columns
+    from tidb_tpu_torch.testing.tpch import gen_lineitem
+    names, cols = gen_lineitem(0.02, seed=1, columns=cs.Q_COLS)
+    snap = snapshot_from_columns(names, cols)
+    for which in ("Q6", "Q1"):
+        agg, meta = cs.build_main_query(which, names, cols)
+        before = gr.LAUNCHES["group_reduce"]
+        got = cs.result_rows(CopClient("cuda").execute_agg(agg, snap, meta))
+        assert gr.LAUNCHES["group_reduce"] - before == \
+            cs.expected_reduces(agg)
+        assert got == cs.result_rows(CopClient("cpu", 8).execute_agg(
+            agg, snap, meta))
+        assert got == cs.main_oracle(which, names, cols)

@@ -491,18 +491,22 @@ def _unported_cases():
                              group_capacity=16)
     return {
         "SORT strategy": agg(strategy="SORT"),
-        "DENSE strategy": agg(strategy="DENSE"),
-        "SCALAR strategy": agg(strategy="SCALAR"),
         "SEGMENT strategy": agg(strategy="SEGMENT"),
-        "Projection node": agg(child=D.Projection(scan, key)),
-        "float aggregate": agg(aggs=(D.AggDesc(
-            D.AggFunc.SUM, ColumnRef(f64, 1), dt.double()),)),
+        "Expand node": agg(child=D.Expand(scan, key, 2), group_by=(),
+                           strategy="SCALAR"),
+        "Limit node": agg(child=D.Limit(scan, 5), group_by=(),
+                          strategy="SCALAR"),
         "float key": agg(group_by=(ColumnRef(f64, 1),)),
         "unsigned key": agg(group_by=(ColumnRef(u64, 2),)),
-        "float compare": agg(child=D.Selection(scan, (b.compare(
-            "lt", ColumnRef(f64, 1), b.lit(1.5)),))),
         "unsigned compare": agg(child=D.Selection(scan, (b.compare(
             "lt", ColumnRef(u64, 2), b.lit(3)),))),
+        "division": agg(child=D.Selection(scan, (b.compare(
+            "lt", b.arith("div", ColumnRef(i64, 0), b.lit(2)),
+            b.lit(3)),)), group_by=(), strategy="SCALAR"),
+        "DATE against DATETIME compare": agg(child=D.Selection(scan, (
+            b.compare("lt", b.lit("2020-01-01", dt.date()),
+                      b.lit("2020-01-01 10:00:00", dt.datetime())),)),
+            group_by=(), strategy="SCALAR"),
     }
 
 

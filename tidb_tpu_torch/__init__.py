@@ -11,9 +11,11 @@ for the CPU (``device="cpu"``), where every hand-written kernel is
 replaced by its plain PyTorch version.  Asking for CUDA on a machine
 without a GPU raises.
 
-What is ported so far is the high-NDV GROUP BY path of the coprocessor
-client: ``store.client.CopClient.execute_agg`` over a
-``store.columnar.ColumnarSnapshot`` with a SCATTER aggregation, whose
-radix counting sort runs as CUDA kernels
+What is ported so far is the coprocessor client's aggregation:
+``store.client.CopClient.execute_agg`` over a
+``store.columnar.ColumnarSnapshot``, for the SCALAR and DENSE strategies
+(TPC-H Q1, Q6, Q19), whose reductions run on the ``group_reduce`` CUDA
+kernel (``copr/cuda/group_reduce.cu``), and for the high-NDV SCATTER
+strategy, whose radix counting sort runs as CUDA kernels
 (``copr/cuda/radix_kernel.cu``).
 """

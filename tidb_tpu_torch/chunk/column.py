@@ -20,13 +20,18 @@ class StringDict:
     """Sorted, order-preserving string dictionary (code order == bin
     collation)."""
 
-    __slots__ = ("values",)
+    __slots__ = ("values", "_index")
 
     def __init__(self, values: Sequence[str] = ()):
         self.values: list[str] = sorted(set(values))
+        self._index = {v: i for i, v in enumerate(self.values)}
 
     def __len__(self) -> int:
         return len(self.values)
+
+    def code_of(self, s: str) -> int:
+        """Exact code, or -1 if absent."""
+        return self._index.get(s, -1)
 
     def decode(self, code: int) -> str:
         return self.values[code]

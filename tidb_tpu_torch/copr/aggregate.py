@@ -1,11 +1,16 @@
 # ported from tidb_tpu/copr/aggregate.py @ a9e9482
 """Aggregation partial-state merge + finalize (host side, numpy).
 
-Per-device group tables of the high-NDV strategies merge on the host:
-each table is trimmed to its observed group count, the tables are
-concatenated and re-grouped by true key equality (``np.unique``), and
-sums merge in object ints, so (hi, lo) limb totals recombine exactly
-past int64.
+SCALAR/DENSE states arrive merged across the devices (parallel/spmd.py);
+``merge_states`` folds per-shard state dicts with sums in object ints,
+so (hi, lo) limb totals recombine exactly past int64, and ``finalize``
+drops empty dense groups and decodes the mixed-radix group id back into
+key columns.
+
+Per-device group tables of the high-NDV strategies merge here too
+(``merge_sorted_states``): each table is trimmed to its observed group
+count, the tables are concatenated and re-grouped by true key equality
+(``np.unique``).
 """
 
 from __future__ import annotations
@@ -26,7 +31,8 @@ K = dt.TypeKind
 class GroupKeyMeta:
     """How to decode one group key back into values."""
     dtype: dt.DataType
-    size: int                      # dense domain size; 0 for SCATTER keys
+    size: int                      # dense domain size incl. the NULL slot
+                                   # if nullable; 0 for SCATTER keys
     dictionary: Optional[StringDict] = None
 
 
@@ -34,6 +40,38 @@ _MERGE = {
     "count": "sum", "sum": "sum", "hi": "sum", "lo": "sum", "cnt": "sum",
     "min": "min", "max": "max", "__rows__": "sum",
 }
+
+
+def merge_field(name: str, a, b):
+    how = _MERGE[name]
+    if how == "sum":
+        return a + b
+    return np.minimum(a, b) if how == "min" else np.maximum(a, b)
+
+
+def merge_states(states_list: Sequence[dict]) -> dict:
+    """Merge per-shard partial states.  Sums are merged in object dtype
+    so limb totals can't overflow int64 across many shards."""
+    def promote(name, arr):
+        arr = np.asarray(arr)
+        if _MERGE[name] == "sum" and arr.dtype == np.int64:
+            return arr.astype(object)
+        return arr
+
+    out: dict = {}
+    for st in states_list:
+        for key, val in st.items():
+            if isinstance(val, dict):
+                tgt = out.setdefault(key, {})
+                for f, arr in val.items():
+                    arr = promote(f, arr)
+                    tgt[f] = arr if f not in tgt \
+                        else merge_field(f, tgt[f], arr)
+            else:
+                arr = promote(key, val)
+                out[key] = arr if key not in out \
+                    else merge_field(key, out[key], arr)
+    return out
 
 
 def _np_key_code(val: np.ndarray, valid: np.ndarray) -> np.ndarray:
@@ -90,8 +128,11 @@ def merge_sorted_states(agg: D.Aggregation,
             out = np.zeros(ng, dtype=arr.dtype)
             np.add.at(out, inv, arr)
             return out
-        info = np.iinfo(arr.dtype)
-        sentinel = info.max if how == "min" else info.min
+        if arr.dtype.kind == "f":
+            sentinel = np.inf if how == "min" else -np.inf
+        else:
+            info = np.iinfo(arr.dtype)  # sentinel in the array's dtype
+            sentinel = info.max if how == "min" else info.min
         init = np.full(ng, sentinel, arr.dtype)
         (np.minimum if how == "min" else np.maximum).at(init, inv, arr)
         return init
@@ -122,6 +163,52 @@ def finalize_sorted(agg: D.Aggregation, merged: dict,
     agg_cols = [_finalize_one(a, merged[f"a{i}"])
                 for i, a in enumerate(agg.aggs)]
     return key_cols, agg_cols
+
+
+def finalize(agg: D.Aggregation, merged: dict,
+             key_meta: Sequence[GroupKeyMeta]
+             ) -> tuple[list[Column], list[Column]]:
+    """Turn merged SCALAR/DENSE states into (group_key_columns,
+    agg_value_columns), dropping empty dense groups (occupancy 0)."""
+    rows = np.asarray(merged["__rows__"])
+    if agg.strategy == D.GroupStrategy.SCALAR:
+        live = np.array([0])  # single pseudo-group; SQL returns 1 row
+        rows = rows.reshape(1)
+    else:
+        live = np.nonzero(rows > 0)[0]
+
+    key_cols = _decode_group_keys(live, key_meta) \
+        if agg.strategy == D.GroupStrategy.DENSE else []
+
+    agg_cols: list[Column] = []
+    for i, a in enumerate(agg.aggs):
+        st = {f: np.asarray(v).reshape(-1)[live]
+              for f, v in merged[f"a{i}"].items()}
+        agg_cols.append(_finalize_one(a, st))
+    return key_cols, agg_cols
+
+
+def _decode_group_keys(live: np.ndarray,
+                       key_meta: Sequence[GroupKeyMeta]) -> list[Column]:
+    """Invert the mixed-radix dense group id (exec._dense_group_ids)."""
+    cols: list[Column] = []
+    rem = live.astype(np.int64)
+    strides = []
+    s = 1
+    for m in reversed(key_meta):
+        strides.append(s)
+        s *= m.size
+    strides.reverse()
+    for m, stride in zip(key_meta, strides):
+        code = (rem // stride) % m.size
+        if m.dtype.nullable:
+            valid = code > 0
+            code = np.maximum(code - 1, 0)
+        else:
+            valid = np.ones(len(code), bool)
+        data = code.astype(m.dtype.np_dtype())
+        cols.append(Column(m.dtype, data, valid, m.dictionary))
+    return cols
 
 
 def _finalize_one(a: D.AggDesc, st: dict) -> Column:
@@ -175,5 +262,5 @@ def sum_out_dtype(arg_t: dt.DataType) -> dt.DataType:
     return dt.decimal_wide(dt.DECIMAL_MAX_PRECISION, 0)  # SUM(int)
 
 
-__all__ = ["GroupKeyMeta", "merge_sorted_states", "finalize_sorted",
-           "sum_out_dtype"]
+__all__ = ["GroupKeyMeta", "merge_field", "merge_states", "finalize",
+           "merge_sorted_states", "finalize_sorted", "sum_out_dtype"]

@@ -33,23 +33,20 @@ error flag: the single-call wrappers read it after their launches, and
 partition of several passes reads it once (``read_err``).  ``LAUNCHES``
 counts the kernel launches of each wrapper.
 
-The shared library is compiled with ``nvcc`` from the CUDA toolkit that
-torch finds (``CUDA_HOME``) into ``tidb_tpu_torch/_build/``, named by the
-hash of the source, and loaded with ctypes.
+The shared library is built and loaded by ``build.py`` (nvcc for
+sm_90a into ``tidb_tpu_torch/_build/``, named by the hash of the
+source, bound with ctypes).
 """
 
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import subprocess
-import threading
 from pathlib import Path
 
 import torch
 
 from .. import dag as D
+from .build import Library, raise_on, stream_of
 
 TILE = D.RADIX_TILE
 KERNEL_TILE = 8192
@@ -58,13 +55,6 @@ N_DIGITS = 1 << D.RADIX_BITS
 LAUNCHES = {"radix_hist": 0, "radix_scatter": 0}
 
 _SRC = Path(__file__).with_name("radix_kernel.cu")
-BUILD_DIR = Path(__file__).resolve().parents[2] / "_build"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-
-_lib_mu = threading.Lock()
-_lib: list = []          # [ctypes.CDLL] once loaded
-BUILD_LOG: list = []     # nvcc/ptxas output of the build in this process
 
 # rows per chunk of the plain versions' one-hot: bounds their peak
 # memory (rows x 256 int32) to 128 MiB whatever n is
@@ -75,80 +65,39 @@ _PLAIN_CHUNK_ROWS = 1 << 17
 # build and load
 # --------------------------------------------------------------------- #
 
-def _nvcc() -> str:
-    from torch.utils.cpp_extension import CUDA_HOME
-    nvcc = os.path.join(CUDA_HOME or "", "bin", "nvcc")
-    if not CUDA_HOME or not os.path.exists(nvcc):
-        raise RuntimeError("nvcc not found: set CUDA_HOME to a CUDA toolkit")
-    return nvcc
+def _setup(lib: ctypes.CDLL) -> None:
+    p, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+    lib.radix_kernel_tile.argtypes = []
+    lib.radix_kernel_tile.restype = i32
+    lib.radix_hist_launch.argtypes = [p, p, i64, i32, p, i32, p]
+    lib.radix_hist_launch.restype = i32
+    lib.radix_scatter_launch.argtypes = [p, p, p, p, p, i64, i32, p, i32, p]
+    lib.radix_scatter_launch.restype = i32
+    if lib.radix_kernel_tile() != KERNEL_TILE:
+        raise RuntimeError(f"radix_kernel.cu tile {lib.radix_kernel_tile()} "
+                           f"!= KERNEL_TILE {KERNEL_TILE}")
 
 
-def build() -> Path:
-    """Compile ``radix_kernel.cu`` unless the library for this exact
-    source is already built; returns the library's path."""
-    tag = hashlib.sha256(_SRC.read_bytes()).hexdigest()[:16]
-    so = BUILD_DIR / f"libradix_kernel-{tag}.so"
-    if so.exists():
-        return so
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-    res = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(_SRC)],
-                         capture_output=True, text=True, check=False)
-    BUILD_LOG.append(res.stdout + res.stderr)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
-                           f"{res.stdout}{res.stderr}")
-    os.replace(tmp, so)      # atomic: a concurrent build never sees half
-    return so
-
-
-def _load() -> ctypes.CDLL:
-    with _lib_mu:
-        if _lib:
-            return _lib[0]
-        lib = ctypes.CDLL(str(build()))
-        p, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-        lib.radix_kernel_tile.argtypes = []
-        lib.radix_kernel_tile.restype = i32
-        lib.radix_hist_launch.argtypes = [p, p, i64, i32, p, i32, p]
-        lib.radix_hist_launch.restype = i32
-        lib.radix_scatter_launch.argtypes = [p, p, p, p, p, i64, i32, p,
-                                             i32, p]
-        lib.radix_scatter_launch.restype = i32
-        if lib.radix_kernel_tile() != KERNEL_TILE:
-            raise RuntimeError(f"radix_kernel.cu tile "
-                               f"{lib.radix_kernel_tile()} != KERNEL_TILE "
-                               f"{KERNEL_TILE}")
-        _lib.append(lib)
-        return lib
-
-
-def _stream(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
-
-
-def _raise_on(rc: int, name: str) -> None:
-    if rc != 0:
-        raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
+LIBRARY = Library(_SRC, _setup)
 
 
 def launch_hist(key: torch.Tensor, shift: int, hist: torch.Tensor,
                 err: torch.Tensor) -> None:
     """Launch ``radix_hist_kernel`` on validated CUDA tensors (no count,
     no error read-back: the wrappers below do both)."""
-    _raise_on(_load().radix_hist_launch(
+    raise_on(LIBRARY.get().radix_hist_launch(
         key.data_ptr(), hist.data_ptr(), key.numel(), shift, err.data_ptr(),
-        key.device.index, _stream(key)), "radix_hist")
+        key.device.index, stream_of(key)), "radix_hist")
 
 
 def launch_scatter(key: torch.Tensor, val: torch.Tensor, off: torch.Tensor,
                    shift: int, key_out: torch.Tensor, val_out: torch.Tensor,
                    err: torch.Tensor) -> None:
     """Launch ``radix_scatter_kernel`` on validated CUDA tensors."""
-    _raise_on(_load().radix_scatter_launch(
+    raise_on(LIBRARY.get().radix_scatter_launch(
         key.data_ptr(), val.data_ptr(), off.data_ptr(), key_out.data_ptr(),
         val_out.data_ptr(), key.numel(), shift, err.data_ptr(),
-        key.device.index, _stream(key)), "radix_scatter")
+        key.device.index, stream_of(key)), "radix_scatter")
 
 
 # --------------------------------------------------------------------- #
@@ -386,7 +335,7 @@ def counting_sort_pass_plain(key: torch.Tensor, val: torch.Tensor,
     return k, v
 
 
-__all__ = ["TILE", "KERNEL_TILE", "N_DIGITS", "LAUNCHES", "build",
+__all__ = ["TILE", "KERNEL_TILE", "N_DIGITS", "LAUNCHES",
            "radix_hist", "radix_scatter", "counting_sort_pass",
            "exclusive_offsets", "new_err", "read_err", "radix_hist_plain",
            "radix_scatter_plain", "counting_sort_pass_plain"]

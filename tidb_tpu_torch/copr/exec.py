@@ -7,12 +7,14 @@ batch.  Static shapes carry over: a shard is a fixed-capacity batch of
 columns and live rows ride a selection mask ``sel`` instead of being
 compacted.
 
-Subset of this slice: TableScan and Selection nodes, and the SCATTER
-aggregation's partial states.  Out-of-range scatter indices raise in
-torch where XLA drops them (``mode="drop"``), so every grouped
-reduction here scatters into a table one slot longer than the groups —
-the sink slot that dead and overflowing rows are parked at — and slices
-the sink off.
+Ported so far: the TableScan, Selection and Projection nodes, and the
+partial states of the SCALAR, DENSE and SCATTER aggregations.  Every
+grouped reduction goes through ``_reduce``, which is the hand-written
+``group_reduce`` kernel on a CUDA tensor and its plain version on a CPU
+tensor (copr/cuda/group_reduce.py).  Out-of-range scatter indices raise
+in torch where XLA drops them (``mode="drop"``), so a grouped reduction
+parks dead and overflowing rows at index ``num_groups``, the sink slot,
+which the reduction drops.
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ from ..expr.compile import Evaluator
 from ..ops.sortkeys import sortable_int64
 from ..types import dtypes as dt
 from . import dag as D
+from .cuda.group_reduce import group_reduce
 
 K = dt.TypeKind
 
@@ -51,7 +54,8 @@ def _ensure_array(v, n: int, device) -> torch.Tensor:
         return v.reshape(1).expand(n)
     if isinstance(v, bool):
         return torch.full((n,), v, dtype=torch.bool, device=device)
-    return torch.full((n,), v, dtype=torch.int64, device=device)
+    dtype = torch.float64 if isinstance(v, float) else torch.int64
+    return torch.full((n,), v, dtype=dtype, device=device)
 
 
 def _sel_array(sel, n: int, device) -> torch.Tensor:
@@ -64,44 +68,45 @@ def _sel_array(sel, n: int, device) -> torch.Tensor:
 # Aggregation partial states
 # --------------------------------------------------------------------- #
 
-_SCATTER_REDUCE = {"min": "amin", "max": "amax"}
+def _reduce(vals: torch.Tensor, mask: torch.Tensor, gids, num_groups: int,
+            how: str) -> torch.Tensor:
+    """Masked (optionally grouped) reduction.
+
+    how: 'sum' | 'min' | 'max'.  ``gids`` None => the SCALAR reduction,
+    a 0-d tensor; a narrow integer sum then comes back as int64, as
+    ``jnp.sum`` promotes it.  Grouped: the dense ``(num_groups,)`` table;
+    ``gids`` lie in ``[0, num_groups]`` and ``num_groups``, the sink
+    slot, is dropped."""
+    if gids is None:
+        if how == "sum" and Evaluator._is_narrow(vals):
+            vals = vals.to(torch.int64)
+        return group_reduce(vals, mask, None, 1, how).reshape(())
+    return group_reduce(vals, mask, gids, num_groups, how)
 
 
-def _reduce(vals: torch.Tensor, mask: torch.Tensor, gids: torch.Tensor,
-            num_groups: int, how: str) -> torch.Tensor:
-    """Masked grouped reduction into a dense ``(num_groups,)`` table.
-
-    how: 'sum' | 'min' | 'max'.  ``gids`` lie in ``[0, num_groups]``;
-    ``num_groups`` is the sink slot (dead rows, table overflow), which is
-    reduced into and then sliced off."""
-    neutral = {"sum": 0, "min": torch.iinfo(vals.dtype).max,
-               "max": torch.iinfo(vals.dtype).min}[how]
-    fill = torch.tensor(neutral, dtype=vals.dtype, device=vals.device)
-    v = torch.where(mask, vals, fill)
-    out = torch.full((num_groups + 1,), neutral, dtype=vals.dtype,
-                     device=vals.device)
-    if how == "sum":
-        out.index_add_(0, gids, v)
-    else:
-        out.scatter_reduce_(0, gids, v, reduce=_SCATTER_REDUCE[how],
-                            include_self=True)
-    return out[:num_groups]
-
-
-def _one_agg_state(a: D.AggDesc, av, am, sel, gids, num_groups, n) -> dict:
-    """Partial state for one AggDesc over grouped rows.
+def _one_agg_state(a: D.AggDesc, av, am, sel, gids, num_groups, n,
+                   narrow: bool = False) -> dict:
+    """Partial state for one AggDesc over (possibly grouped) rows.
 
     Layout: count -> {count}; int/decimal sum -> {hi, lo, cnt} (int64
-    limbs, exact when recombined on the host); min -> {min, cnt};
-    max -> {max, cnt}."""
-    if a.arg.dtype.is_float:
-        raise _unported("floating-point aggregates")
+    limbs, exact when recombined on the host); proven-narrow int/decimal
+    sum (``agg.narrow_sums``) -> {sum, cnt}, one int64 word; float sum
+    -> {sum, cnt}; min -> {min, cnt}; max -> {max, cnt}."""
     av = _ensure_array(av, n, sel.device)
     mask = sel if am is True else (sel & am)
     cnt = _reduce(mask.to(torch.int64), mask, gids, num_groups, "sum")
     if a.func == D.AggFunc.COUNT:
         return {"count": cnt}
     if a.func == D.AggFunc.SUM:
+        if a.arg.dtype.kind in (K.FLOAT64, K.FLOAT32):
+            return {"sum": _reduce(av.to(torch.float64), mask, gids,
+                                   num_groups, "sum"), "cnt": cnt}
+        if narrow:
+            # valueflow proved the whole table's sum stays inside int64,
+            # so one word per group cannot wrap: bit-identical to the
+            # limbs (sum(hi) << 32 + sum(lo) == sum(v) in two's complement)
+            return {"sum": _reduce(av.to(torch.int64), mask, gids,
+                                   num_groups, "sum"), "cnt": cnt}
         # (hi, lo) int64 limbs: per row |hi| < 2^32 and lo < 2^32, so with
         # n < 2^31 rows per batch neither limb sum can wrap int64
         if n >= 2 ** 31:
@@ -130,13 +135,60 @@ def agg_states(agg: D.Aggregation, scan_cols, row_count,
 
 def _agg_partial_states(agg: D.Aggregation, batch: DeviceBatch,
                         ev: Evaluator, memo: dict) -> dict:
-    """Per-device partial-state dict of an Aggregation node.  Only the
-    SCATTER strategy is ported: hash, multi-pass radix partition,
-    segment reduce (copr/radix.py)."""
+    """Per-device partial-state dict of an Aggregation node.
+
+    SCALAR/DENSE: a fixed group domain (one group, or the mixed-radix
+    dense gid), merged across devices by sum/min/max.  SCATTER: hash,
+    multi-pass radix partition, segment reduce (copr/radix.py), merged
+    on the host.  Adds ``__rows__`` (COUNT(*) per group) for occupancy;
+    a COUNT(*) aggregate reuses it."""
     if agg.strategy == D.GroupStrategy.SCATTER:
         from .radix import agg_scatter_states
         return agg_scatter_states(agg, batch, ev, memo)
-    raise _unported(f"the {agg.strategy.value.upper()} aggregation strategy")
+    if agg.strategy not in (D.GroupStrategy.SCALAR, D.GroupStrategy.DENSE):
+        raise _unported(
+            f"the {agg.strategy.value.upper()} aggregation strategy")
+
+    n = len(batch.cols[0][0]) if batch.cols else 0
+    sel = _sel_array(batch.sel, n, ev.device)
+
+    gids = None
+    num_groups = 1
+    if agg.strategy == D.GroupStrategy.DENSE:
+        gids = _dense_group_ids(agg, batch, ev, memo)
+        num_groups = agg.num_groups
+
+    states: dict[str, Any] = {}
+    states["__rows__"] = _reduce(sel.to(torch.int64), sel, gids, num_groups,
+                                 "sum")
+    for i, a in enumerate(agg.aggs):
+        if a.func == D.AggFunc.COUNT and a.arg is None:
+            states[f"a{i}"] = {"count": states["__rows__"]}
+            continue
+        av, am = ev.eval(a.arg, batch.cols, memo)
+        states[f"a{i}"] = _one_agg_state(a, av, am, sel, gids, num_groups, n,
+                                         narrow=(i in agg.narrow_sums))
+    return states
+
+
+def _dense_group_ids(agg: D.Aggregation, batch: DeviceBatch, ev: Evaluator,
+                     memo: dict) -> torch.Tensor:
+    """Mixed-radix dense group id from the group-by key codes, int32.
+
+    Key domain [0, size_i); nullable keys get slot 0 for NULL and codes
+    shifted by one (domain_sizes already include the NULL slot)."""
+    n = len(batch.cols[0][0])
+    gid = torch.zeros((n,), dtype=torch.int32, device=ev.device)
+    for e, size in zip(agg.group_by, agg.domain_sizes):
+        v, m = ev.eval(e, batch.cols, memo)
+        # a DENSE key domain is at most MAX_DENSE_GROUPS < 2^31
+        v = _ensure_array(v, n, ev.device).to(torch.int32)
+        if e.dtype.nullable:
+            code = v + 1 if m is True else torch.where(m, v + 1, 0)
+        else:
+            code = v
+        gid = gid * size + code
+    return gid
 
 
 def group_keyinfo(agg: D.Aggregation, batch: DeviceBatch, ev: Evaluator,
@@ -190,6 +242,16 @@ def _exec_node(node: D.CopNode, scan_cols: Sequence, row_count,
             keep = v if m is True else (v & m)  # NULL -> filtered out
             sel = keep if sel is True else (sel & keep)
         return DeviceBatch(batch.cols, sel)
+
+    if isinstance(node, D.Projection):
+        batch = _exec_node(node.child, scan_cols, row_count, ev)
+        memo = {}
+        n = len(batch.cols[0][0])
+        cols = []
+        for e in node.exprs:
+            v, m = ev.eval(e, batch.cols, memo)
+            cols.append((_ensure_array(v, n, ev.device), m))
+        return DeviceBatch(cols, batch.sel)
 
     raise _unported(f"the {type(node).__name__} node")
 

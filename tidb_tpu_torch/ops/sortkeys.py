@@ -2,7 +2,8 @@
 """Order-preserving int64 sort-key encodings: every orderable SQL value
 maps to an int64 whose natural order equals SQL order.  Signed integer
 lanes (ints, decimals, dates, dict codes) only so far; float and
-unsigned keys arrive with the main-path slice (ROADMAP.md, Queue 1)."""
+unsigned keys arrive with a later slice of the port (ROADMAP.md,
+Queue 1)."""
 
 from __future__ import annotations
 
@@ -17,8 +18,8 @@ def sortable_int64(val: torch.Tensor, kind_is_float: bool,
     """Map a device value tensor to order-preserving int64."""
     if kind_is_float or kind_is_unsigned:
         raise NotImplementedError(
-            "float and BIGINT UNSIGNED keys arrive with the main-path "
-            "slice (ROADMAP.md, Queue 1)")
+            "float and BIGINT UNSIGNED keys arrive with a later slice of "
+            "the port (ROADMAP.md, Queue 1)")
     return val.to(torch.int64)
 
 

@@ -4,10 +4,16 @@
 The JAX package runs one ``shard_map`` program over its mesh; the port
 runs the same device function once per logical device, each over its
 contiguous block of the stacked (S, C) shards, flattened into one batch
-of S/D * C rows with a live-row mask.  Of the JAX program kinds this is
-the aggregation kind with a host merge (the high-NDV strategies): each
-device returns its own group table, stacked along a leading device axis
-for the client's host merge.
+of S/D * C rows with a live-row mask.  Of the JAX program kinds these
+are the two aggregation kinds:
+
+- ``merge_kind == "psum"`` (SCALAR, DENSE): the devices' partial states
+  merge on the card, field by field, as ``psum``/``pmin``/``pmax`` merge
+  them over the mesh (``_collective_merge``), and one merged state dict
+  comes back;
+- ``merge_kind == "host"`` (the high-NDV strategies): each device
+  returns its own group table, stacked along a leading device axis for
+  the client's host merge.
 """
 
 from __future__ import annotations
@@ -17,8 +23,29 @@ from typing import Sequence
 import torch
 
 from ..copr import dag as D
+from ..copr.aggregate import _MERGE
 from ..copr.exec import agg_states
 from ..expr.compile import Evaluator
+from ..types.dtypes import TypeKind as K
+
+
+def _collective_merge(per_dev: Sequence[dict]) -> dict:
+    """Merge the devices' partial-state dicts on the card: sum for the
+    count/limb/sum fields, min and max for MIN/MAX (a NaN is kept)."""
+    def go(name, arrs):
+        g = torch.stack(arrs)
+        how = _MERGE[name]
+        if how == "sum":
+            return g.sum(0, dtype=g.dtype)
+        return g.amin(0) if how == "min" else g.amax(0)
+
+    out: dict = {}
+    for k, v in per_dev[0].items():
+        if isinstance(v, dict):
+            out[k] = {f: go(f, [st[k][f] for st in per_dev]) for f in v}
+        else:
+            out[k] = go(k, [st[k] for st in per_dev])
+    return out
 
 
 def _flatten_block(cols, counts):
@@ -40,20 +67,29 @@ def _stack(trees: list):
 
 
 class ShardedCopProgram:
-    """The aggregation program of a host-merged strategy over the
-    devices: ``__call__(stacked_cols, counts)`` -> per-device partial
-    states with a leading device axis."""
+    """The aggregation program over the devices:
+    ``__call__(stacked_cols, counts)`` -> the merged partial states
+    (``merge_kind == "psum"``) or the per-device states with a leading
+    device axis (``merge_kind == "host"``)."""
 
     def __init__(self, dag_root: D.CopNode, devices: Sequence[torch.device]):
-        if not isinstance(dag_root, D.Aggregation) \
-                or dag_root.strategy not in D.HOST_MERGE_STRATEGIES:
+        if not isinstance(dag_root, D.Aggregation):
             raise NotImplementedError(
-                "only host-merged aggregations run on the port so far; "
-                "other program kinds arrive with later slices (ROADMAP.md, "
-                "Queue 1)")
+                "row-returning programs arrive with a later slice of the "
+                "port (ROADMAP.md, Queue 1)")
         self.agg = dag_root
         self.devices = tuple(devices)
-        self.host_merge = True
+        self.host_merge = dag_root.strategy in D.HOST_MERGE_STRATEGIES
+        self.merge_kind = "host" if self.host_merge else "psum"
+        # int/decimal SUMs produce (hi, lo) limb states whose summed merge
+        # is int64-exact only below 2^31 global rows; float sums, counts,
+        # host-merged (object-int) programs and proven-narrow SUMs (one
+        # int64 word, with a whole-table no-wrap proof) are exempt
+        self._psum_limb_fence = not self.host_merge and any(
+            a.func == D.AggFunc.SUM and a.arg is not None
+            and a.arg.dtype.kind not in (K.FLOAT64, K.FLOAT32)
+            and i not in dag_root.narrow_sums
+            for i, a in enumerate(dag_root.aggs))
 
     def _device_fn(self, cols, counts, device):
         flat, base_sel = _flatten_block(cols, counts)
@@ -61,6 +97,15 @@ class ShardedCopProgram:
         return agg_states(self.agg, flat, base_sel, Evaluator(device))
 
     def __call__(self, stacked_cols: Sequence, counts: torch.Tensor) -> dict:
+        if self._psum_limb_fence and stacked_cols:
+            s, c = stacked_cols[0][0].shape[:2]
+            # the limb-exactness fence of the merge: summed (hi, lo) SUM
+            # limbs stay int64-exact only while the global row capacity
+            # is < 2^31 (see copr/exec._one_agg_state)
+            if s * c >= 2 ** 31:
+                raise OverflowError(
+                    f"global capacity {s}x{c} exceeds the 2^31 limb-exact "
+                    "SUM bound for the merge across devices")
         n_dev = len(self.devices)
         s = counts.shape[0]
         if s % n_dev:
@@ -72,7 +117,7 @@ class ShardedCopProgram:
             cols = [(v[blk], None if m is None else m[blk])
                     for v, m in stacked_cols]
             outs.append(self._device_fn(cols, counts[blk], device))
-        return _stack(outs)
+        return _stack(outs) if self.host_merge else _collective_merge(outs)
 
 
 __all__ = ["ShardedCopProgram"]
