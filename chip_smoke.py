@@ -2,8 +2,9 @@
 """Drive the PyTorch port (tidb_tpu_torch) on one CUDA GPU and check it.
 
     python3 chip_smoke.py            # SCATTER queries at SF=1, the
-                                     # DENSE/SCALAR main path at SF=10
-    python3 chip_smoke.py --sf 0.05 --main-sf 0.1   # a quicker run
+                                     # DENSE/SCALAR main path at SF=10,
+                                     # the slice-4 statements at SF=1
+    python3 chip_smoke.py --sf 0.05 --main-sf 0.1 --s4-sf 0.05   # quicker
     python3 chip_smoke.py --perm-of DIR   # only scatter_permutation's
                                           # time, of DIR/tidb_tpu_torch
 
@@ -20,6 +21,13 @@ script exits non-zero without printing a result:
    library-yardstick and memory-bound times at the kernel's tile; the
    whole pass; ``scatter_permutation`` (4 passes) for B = 2^22 and
    2^23 against the plain partition;
+3b. sort kernels: the int64 instantiation of both kernels on a uniform
+   64-bit key at the same row count, exactly against its plain
+   versions, with the same times; then ``stable_argsort`` on one
+   uniform 64-bit key (8 passes), on a 23-bit key (3 passes after the
+   digit skip) and on TopN's key set, exactly against its plain version
+   and the library sort (``torch.sort(stable=True)`` a key, LSD), with
+   kernel, plain, library and bound times;
 4. group_reduce: the kernel at the main path's row count (67,108,864,
    one SF=10 device batch) on a random mask, for G in {1, 12, 4096,
    1,000,000, 2^23 with rows in the sink slot}, sum/min/max over int64
@@ -29,8 +37,10 @@ script exits non-zero without printing a result:
    launches), with kernel, plain, library-yardstick (``index_add_``,
    ``scatter_reduce_``) and memory-bound times;
 5. reference: a small lineitem through the port on the GPU and through
-   its plain path on the CPU, for the SCATTER queries A and B and for
-   TPC-H Q1, Q6 and Q19, whose states and results must be equal;
+   its plain path on the CPU, for the SCATTER queries A and B, TPC-H Q1,
+   Q6 and Q19, and the slice-4 statements (SORT and SEGMENT also over a
+   DOUBLE key with -0.0 and NaN), whose states (or compacted rows) and
+   results must be equal;
 6. SCATTER slice: TPC-H lineitem at ``--sf`` and the two high-NDV GROUP
    BY queries through ``CopClient(device="cuda").execute_agg``, results
    equal to a numpy oracle, the radix kernel launches equal to the radix
@@ -42,7 +52,12 @@ script exits non-zero without printing a result:
    oracle with the predicates of bench.py's np_q1 / np_q6 / np_q19 and
    exact Python-int sums, and the group_reduce launches of each query
    equal to what ``_agg_partial_states`` implies;
-8. the ``kernels`` JSON line, then the last line
+8. slice 4: lineitem at ``--s4-sf`` (five columns) and the five
+   statements of ``build_s4`` through ``CopClient(device="cuda")``
+   (SORT and SEGMENT by ``execute_agg``, TopN, Limit and a filtered
+   projection by ``execute_rows``), each equal to a numpy oracle, the
+   int64 kernels' launches equal to the passes ``stable_argsort`` ran;
+9. the ``kernels`` JSON line, then the last line
    ``{"ok": true, "device": {...}}``.
 
 Query A is the grouping inside TPC-H Q18; query B is a corpus query of
@@ -52,12 +67,15 @@ the JAX package's TPC-H plan set:
     B: select l_orderkey, l_suppkey, max(l_extendedprice) from lineitem
        where l_quantity < 45 group by l_orderkey, l_suppkey
 Q1, Q6 and Q19 are the DAGs of __graft_entry__._q1_dag, bench._q6_dag
-and bench._q19_dag, built with the port's builders.
+and bench._q19_dag, built with the port's builders.  The slice-4
+statements are the corpus's SORT, SEGMENT, TopN, Limit and
+row-returning statements (see ``build_s4``).
 """
 
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import statistics
 import subprocess
@@ -144,9 +162,13 @@ def main_path_keys(torch, dev, dist: str, seed: int = 1):
 def time_kernels(torch, rk, key, val, flush) -> dict:
     """Each kernel at shift 0 against its plain version, exactly, with
     kernel, plain and library-yardstick times and the memory bound at
-    the kernel's tile."""
+    the kernel's tile, for an int32 or int64 key (the result's names end
+    in ``64`` for int64)."""
     n = key.numel()
-    tiles = rk.n_tiles(n)
+    w = key.element_size()
+    tile = rk.KERNEL_TILE
+    tiles = rk.n_tiles(n, tile)
+    sfx = "64" if w == 8 else ""
     err = rk.new_err(key.device)
     out = {}
 
@@ -154,25 +176,25 @@ def time_kernels(torch, rk, key, val, flush) -> dict:
     plain = rk.radix_hist_plain(key, 0)
     torch.cuda.synchronize()
     err_hist = int((hist - plain).abs().max())
-    check(torch.equal(hist, plain), "radix_hist != radix_hist_plain")
+    check(torch.equal(hist, plain), f"radix_hist{sfx} != radix_hist_plain")
     h2 = torch.empty_like(hist)
     ms = cuda_ms(torch, lambda: rk.launch_hist(key, 0, h2, err), flush=flush)
     plain_ms = cuda_ms(torch, lambda: rk.radix_hist_plain(key, 0),
                        flush=flush)
     dig = key & (rk.N_DIGITS - 1)
     flat_key = (torch.arange(n, device=key.device, dtype=torch.int64)
-                // rk.KERNEL_TILE) * rk.N_DIGITS + dig
+                // tile) * rk.N_DIGITS + dig
     lib = torch.bincount(flat_key, minlength=tiles * rk.N_DIGITS)
     check(torch.equal(lib.view(tiles, rk.N_DIGITS).to(torch.int32), hist),
-          "bincount yardstick != radix_hist")
+          f"bincount yardstick != radix_hist{sfx}")
     lib_ms = cuda_ms(torch, lambda: torch.bincount(
         flat_key, minlength=tiles * rk.N_DIGITS), flush=flush)
-    b_ms, b_by = bound_ms(4 * n + 4 * rk.N_DIGITS * tiles, n)
-    out["radix_hist"] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                             bound_ms=b_ms, bound_by=b_by,
-                             max_abs_err=err_hist,
-                             clean_ms=cuda_ms(torch, lambda: rk.launch_hist(
-                                 key, 0, h2, err), flush=flush, clean=True))
+    b_ms, b_by = bound_ms(w * n + 4 * rk.N_DIGITS * tiles, n)
+    out["radix_hist" + sfx] = dict(
+        ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
+        bound_by=b_by, max_abs_err=err_hist,
+        clean_ms=cuda_ms(torch, lambda: rk.launch_hist(key, 0, h2, err),
+                         flush=flush, clean=True))
 
     # radix_scatter, given the exclusive offsets of that histogram
     offs = rk.exclusive_offsets(hist)
@@ -181,7 +203,7 @@ def time_kernels(torch, rk, key, val, flush) -> dict:
     torch.cuda.synchronize()
     err_sc = max(int((g - p).abs().max()) for g, p in zip(got, plain))
     check(torch.equal(got[0], plain[0]) and torch.equal(got[1], plain[1]),
-          "radix_scatter != radix_scatter_plain")
+          f"radix_scatter{sfx} != radix_scatter_plain")
     k2, v2 = torch.empty_like(key), torch.empty_like(val)
     ms = cuda_ms(torch, lambda: rk.launch_scatter(key, val, offs, 0, k2, v2,
                                                   err), flush=flush)
@@ -189,16 +211,15 @@ def time_kernels(torch, rk, key, val, flush) -> dict:
                                                              0), flush=flush)
     lib = torch.sort(dig, stable=True).indices
     check(torch.equal(val[lib], got[1]),
-          "stable sort yardstick != radix_scatter")
+          f"stable sort yardstick != radix_scatter{sfx}")
     lib_ms = cuda_ms(torch, lambda: torch.sort(dig, stable=True),
                      flush=flush)
-    b_ms, b_by = bound_ms(16 * n + 4 * rk.N_DIGITS * tiles, 4 * n)
-    out["radix_scatter"] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                                bound_ms=b_ms, bound_by=b_by,
-                                max_abs_err=err_sc,
-                                clean_ms=cuda_ms(torch, lambda: rk.launch_scatter(
-                                    key, val, offs, 0, k2, v2, err),
-                                    flush=flush, clean=True))
+    b_ms, b_by = bound_ms(2 * (w + 4) * n + 4 * rk.N_DIGITS * tiles, 4 * n)
+    out["radix_scatter" + sfx] = dict(
+        ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
+        bound_by=b_by, max_abs_err=err_sc,
+        clean_ms=cuda_ms(torch, lambda: rk.launch_scatter(
+            key, val, offs, 0, k2, v2, err), flush=flush, clean=True))
     check(int(err.item()) == 0, "a timed launch reported an error")
 
     # the whole pass: wrapper (hist, cumsum, scatter, one error
@@ -206,7 +227,7 @@ def time_kernels(torch, rk, key, val, flush) -> dict:
     full = rk.counting_sort_pass(key, val, 0)
     ref = rk.counting_sort_pass_plain(key, val, 0)
     check(torch.equal(full[0], ref[0]) and torch.equal(full[1], ref[1]),
-          "counting_sort_pass != counting_sort_pass_plain")
+          f"counting_sort_pass{sfx} != counting_sort_pass_plain")
     out["pass_ms"] = cuda_ms(torch, lambda: rk.counting_sort_pass(key, val,
                                                                   0),
                              flush=flush)
@@ -264,6 +285,99 @@ def kernel_phase(torch, rk, radix, dev) -> dict:
     time_scatter_permutation(torch, radix, dev, flush)
     return {name: runs["uniform"][name]
             for name in ("radix_hist", "radix_scatter")}
+
+
+# --------------------------------------------------------------------- #
+# phase 3b: the int64 instantiation and stable_argsort
+# --------------------------------------------------------------------- #
+
+SORT_PASS_BYTES = 32    # a row a pass: 8 read by radix_hist64, 12 read
+                        # and 12 written by radix_scatter64
+SORT_GATHER_BYTES = 20  # a row a key gather: index, key read, key written
+
+
+def sort_cases(torch, dev) -> dict:
+    """Key sets of one SF=1 device batch (8,388,608 rows): one uniform
+    64-bit key (8 passes), a 23-bit key such as l_orderkey (3 passes
+    after the skip), and TopN's keys (dead flag with query A's share of
+    dead rows, then per ORDER BY key a null flag and the key: ~price and
+    l_orderkey, at lineitem's ranges)."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(5)
+    n = KERNEL_ROWS
+
+    def ints(lo, hi):
+        return torch.randint(lo, hi, (n,), generator=gen, device=dev,
+                             dtype=torch.int64)
+    dead = (torch.rand(n, generator=gen, device=dev)
+            >= LIVE_SHARE_A).to(torch.int32)
+    zeros = torch.zeros(n, dtype=torch.int32, device=dev)
+    return {"uniform 64-bit": [ints(-(1 << 63), (1 << 63) - 1)],
+            "23-bit": [ints(0, 1 << 23)],
+            "TopN keys": [dead, zeros, ~ints(90_000, 10_500_000), zeros,
+                          ints(1, 6_000_000)]}
+
+
+def library_argsort(torch, keys):
+    """The library yardstick: ``torch.sort(stable=True)`` once a key,
+    LSD, each key gathered by the permutation so far."""
+    perm = None
+    for k in reversed(keys):
+        kk = k if perm is None else k[perm]
+        order = torch.sort(kk, stable=True).indices
+        perm = order if perm is None else perm[order]
+    return perm
+
+
+def sort_phase(torch, rk, S, dev) -> dict:
+    """The int64 kernels at shift 0 on the uniform key against their
+    plain versions (the ``kernels`` line's int64 entries), then
+    ``stable_argsort`` on each key set, exactly against its plain
+    version and the library sort on the card, with kernel, plain,
+    library and bound times."""
+    flush = torch.empty(64 << 20, dtype=torch.int32, device=dev)  # 256 MiB
+    cases = sort_cases(torch, dev)
+    val = torch.arange(KERNEL_ROWS, dtype=torch.int32, device=dev)
+    r = time_kernels(torch, rk, cases["uniform 64-bit"][0], val, flush)
+    for name in ("radix_hist64", "radix_scatter64"):
+        k = r[name]
+        print(f"kernel {name} [uniform 64-bit]: n={KERNEL_ROWS} "
+              f"tile={rk.KERNEL_TILE} exact=True "
+              f"kernel_ms={k['ms']:.4f} plain_ms={k['plain_ms']:.4f} "
+              f"library_ms={k['library_ms']:.4f} "
+              f"bound_ms={k['bound_ms']:.4f} ({k['bound_by']}) "
+              f"of_bound={k['bound_ms'] / k['ms']:.3f} "
+              f"kernel_ms_clean_l2={k['clean_ms']:.4f}")
+    print(f"pass counting_sort_pass int64 [uniform 64-bit]: "
+          f"n={KERNEL_ROWS} exact=True ms={r['pass_ms']:.4f} "
+          f"plain_1bit_ms={r['pass_plain_ms']:.4f}")
+    for name, keys in cases.items():
+        plan = S.plan_passes(keys)
+        passes = sum(plan)
+        gathers = max(sum(1 for p in plan if p) - 1, 0)
+        before = dict(rk.LAUNCHES)
+        got = S.stable_argsort(keys)
+        launched = rk.LAUNCHES["radix_hist64"] - before["radix_hist64"]
+        check(launched == passes, f"stable_argsort [{name}]: {launched} "
+              f"launches for {passes} passes")
+        check(torch.equal(got, S.stable_argsort_plain(keys)),
+              f"stable_argsort [{name}] != stable_argsort_plain")
+        check(torch.equal(got, library_argsort(torch, keys)),
+              f"stable_argsort [{name}] != the library sort")
+        ms = cuda_ms(torch, lambda: S.stable_argsort(keys), flush=flush)
+        plain_ms = cuda_ms(torch, lambda: S.stable_argsort_plain(keys),
+                           reps=3, flush=flush)
+        lib_ms = cuda_ms(torch, lambda: library_argsort(torch, keys),
+                         flush=flush)
+        b_ms, b_by = bound_ms((SORT_PASS_BYTES * passes
+                               + SORT_GATHER_BYTES * gathers) * KERNEL_ROWS,
+                              KERNEL_ROWS * passes)
+        print(f"sort stable_argsort [{name}]: n={KERNEL_ROWS} "
+              f"keys={len(keys)} passes={passes} gathers={gathers} "
+              f"exact=True ms={ms:.4f} plain_ms={plain_ms:.4f} "
+              f"library_ms={lib_ms:.4f} bound_ms={b_ms:.4f} ({b_by}) "
+              f"of_bound={b_ms / ms:.3f}")
+    return {name: r[name] for name in ("radix_hist64", "radix_scatter64")}
 
 
 # --------------------------------------------------------------------- #
@@ -675,6 +789,9 @@ def reset(counters) -> None:
             launches[name] = 0
 
 
+RADIX32 = ("radix_hist", "radix_scatter")   # the SCATTER partition's
+
+
 def slice_phase(torch, rk, gr, sf: float) -> dict:
     from tidb_tpu_torch.copr import dag as D
     from tidb_tpu_torch.store import CopClient, snapshot_from_columns
@@ -699,7 +816,7 @@ def slice_phase(torch, rk, gr, sf: float) -> dict:
         wall = time.perf_counter() - t0
         t = client.timings
         passes = [D.radix_passes(b) for b in t["buckets"]]
-        for name in rk.LAUNCHES:
+        for name in RADIX32:
             got = rk.LAUNCHES[name] - before[name]
             check(got == sum(passes),
                   f"query {which}: {name} launched {got} times for "
@@ -726,9 +843,10 @@ def slice_phase(torch, rk, gr, sf: float) -> dict:
               f"device_ms={t['device'] * 1e3:.1f} "
               f"transfer_ms={t['transfer'] * 1e3:.1f} "
               f"merge_ms={t['merge'] * 1e3:.1f} exact=True")
-    counts = dict(rk.LAUNCHES)
+    counts = {name: rk.LAUNCHES[name] for name in RADIX32}
     for name, c in counts.items():
         check(c == expected and c > 0, f"{name}: {c} main-path launches")
+    check(rk.LAUNCHES["radix_hist64"] == 0, "SCATTER ran an int64 pass")
     check(gr.LAUNCHES["group_reduce"] == reduces,
           f"group_reduce: {gr.LAUNCHES['group_reduce']} SCATTER launches")
     return counts
@@ -781,6 +899,282 @@ def main_path_phase(torch, gr, sf: float) -> int:
     return total
 
 
+# --------------------------------------------------------------------- #
+# slice 4: SORT, SEGMENT and the row-returning path
+# --------------------------------------------------------------------- #
+
+S4_COLS = ["l_orderkey", "l_partkey", "l_quantity", "l_extendedprice",
+           "l_discount"]
+S4_QUERIES = ("SORT", "SEGMENT", "TopN", "Limit", "rows")
+TOPN_LIMIT = 10
+LIMIT = 5
+
+
+def build_s4(which: str, cap: int = 0, float_key: bool = False):
+    """(kind, root, key metas) of a slice-4 statement over the S4_COLS
+    layout (a DOUBLE key ``l_dkey`` appended when ``float_key``), built
+    with the port's builders; ``cap`` is the SORT/SEGMENT table's
+    capacity (0: the client's default, then regrown).
+        SORT:    select l_orderkey, sum(l_extendedprice) from lineitem
+                 group by l_orderkey
+        SEGMENT: select l_orderkey, l_partkey, count(*), sum(l_quantity)
+                 from lineitem group by l_orderkey, l_partkey
+        TopN:    select l_orderkey, l_extendedprice from lineitem
+                 order by l_extendedprice desc, l_orderkey limit 10
+        Limit:   select l_partkey from lineitem limit 5
+        rows:    select l_orderkey, l_extendedprice * (1 - l_discount)
+                 from lineitem where l_quantity < 5
+    With ``float_key``, SORT groups by l_dkey and SEGMENT by (l_dkey,
+    l_orderkey)."""
+    from tidb_tpu_torch.copr import dag as D
+    from tidb_tpu_torch.copr.aggregate import GroupKeyMeta, sum_out_dtype
+    from tidb_tpu_torch.expr import builders as b
+    from tidb_tpu_torch.expr.ir import ColumnRef
+    from tidb_tpu_torch.types import dtypes as dt
+    i64, dec2, f64 = dt.bigint(False), dt.decimal(15, 2), dt.double(False)
+    types = (i64, i64, dec2, dec2, dec2) + ((f64,) if float_key else ())
+    scan = D.TableScan(tuple(range(len(types))), types)
+    ok, pk = ColumnRef(i64, 0), ColumnRef(i64, 1)
+    qty, price, disc = (ColumnRef(dec2, i) for i in (2, 3, 4))
+    if which == "SORT":
+        keys = (ColumnRef(f64, 5),) if float_key else (ok,)
+        return "agg", D.Aggregation(
+            scan, keys, (D.AggDesc(D.AggFunc.SUM, price,
+                                   sum_out_dtype(dec2)),),
+            D.GroupStrategy.SORT, group_capacity=cap), \
+            [GroupKeyMeta(k.dtype, 0) for k in keys]
+    if which == "SEGMENT":
+        keys = (ColumnRef(f64, 5), ok) if float_key else (ok, pk)
+        return "agg", D.Aggregation(
+            scan, keys, (D.AggDesc(D.AggFunc.COUNT, None, i64),
+                         D.AggDesc(D.AggFunc.SUM, qty, sum_out_dtype(dec2))),
+            D.GroupStrategy.SEGMENT, num_buckets=cap), \
+            [GroupKeyMeta(k.dtype, 0) for k in keys]
+    if which == "TopN":
+        return "rows", D.TopN(D.Projection(scan, (ok, price)),
+                              sort_keys=((ColumnRef(dec2, 1), True),
+                                         (ColumnRef(i64, 0), False)),
+                              limit=TOPN_LIMIT), None
+    if which == "Limit":
+        return "rows", D.Limit(D.Projection(scan, (pk,)), LIMIT), None
+    sel = D.Selection(scan, (b.compare("lt", qty, b.lit(5)),))
+    return "rows", D.Projection(sel, (ok, b.arith(
+        "mul", price, b.arith("sub", b.lit(1), disc)))), None
+
+
+def s4_snapshot(sf: float, seed: int, float_key: bool = False):
+    """(snapshot, {name: Column}) of lineitem's S4_COLS at ``sf``, with
+    a DOUBLE key l_dkey (l_discount / 100, every 7th row -0.0 and every
+    13th NaN) appended when ``float_key``."""
+    from tidb_tpu_torch.chunk.column import Column
+    from tidb_tpu_torch.store import snapshot_from_columns
+    from tidb_tpu_torch.testing.tpch import gen_lineitem
+    from tidb_tpu_torch.types import dtypes as dt
+    names, cols = gen_lineitem(sf, seed=seed, columns=S4_COLS)
+    if float_key:
+        d = cols[names.index("l_discount")].data / 100.0
+        d[::7] = -0.0
+        d[::13] = np.nan
+        names = names + ["l_dkey"]
+        cols = cols + [Column.from_numpy(dt.double(False), d)]
+    return snapshot_from_columns(names, cols), dict(zip(names, cols))
+
+
+def _cell(x):
+    """One result cell as a comparable Python value: ints exact, floats
+    with NaN as the string "nan" and -0.0 as 0.0."""
+    if isinstance(x, (float, np.floating)):
+        return "nan" if np.isnan(x) else float(x) + 0.0
+    return int(x)
+
+
+def agg_map(res) -> dict:
+    """{key tuple: value tuple} of an aggregation's CopResult."""
+    out = {}
+    for i in range(len(res.columns[0].data)):
+        key = tuple(_cell(c.data[i]) if c.validity[i] else None
+                    for c in res.key_columns)
+        out[key] = tuple(_cell(c.data[i]) if c.validity[i] else None
+                         for c in res.columns)
+    check(len(out) == len(res.columns[0].data), "duplicate result groups")
+    return out
+
+
+def rows_map(cols) -> list:
+    """The rows of ``execute_rows``' columns, in order."""
+    return [tuple(_cell(c.data[i]) if c.validity[i] else None for c in cols)
+            for i in range(len(cols[0].data))]
+
+
+def reference_cases(sf: float, seed: int = 3) -> list:
+    """(name, kind, root, snapshot, key metas) of the slice-4 statements
+    on a small lineitem, plus SORT and SEGMENT over a DOUBLE key with
+    -0.0 and NaN."""
+    snap, _ = s4_snapshot(sf, seed)
+    fsnap, _ = s4_snapshot(sf, seed, float_key=True)
+    out = []
+    for which in S4_QUERIES:
+        kind, root, meta = build_s4(which, cap=1 << 16)
+        out.append((which, kind, root, snap, meta))
+    for which in ("SORT", "SEGMENT"):
+        kind, root, meta = build_s4(which, cap=1 << 16, float_key=True)
+        out.append((f"{which} DOUBLE key", kind, root, fsnap, meta))
+    return out
+
+
+def reference_phase4(torch, dev) -> None:
+    """Each reference case through the GPU path and the plain CPU path:
+    the per-device states (or compacted rows and counts) and the
+    client's results must be equal."""
+    from tidb_tpu_torch.copr import dag as D
+    from tidb_tpu_torch.parallel.spmd import ShardedCopProgram
+    from tidb_tpu_torch.store import CopClient
+    for name, kind, root, snap, meta in reference_cases(0.01):
+        cap = 1 << 14
+        st = {}
+        for side, d in (("cuda", dev), ("cpu", torch.device("cpu"))):
+            cols_d, counts = snap.device_cols((d,))
+            out = ShardedCopProgram(root, (d,), row_capacity=cap)(cols_d,
+                                                                  counts)
+            if kind == "rows":
+                out_cols, n = out
+                out = {"count": n}
+                for j, (v, m) in enumerate(out_cols):
+                    out[f"c{j}"] = {"data": v, "valid": m}
+            st[side] = dict(leaves(out))
+        check(st["cuda"].keys() == st["cpu"].keys(), f"{name}: state names")
+        for k, want in st["cpu"].items():
+            got = st["cuda"][k].cpu()
+            if want.is_floating_point():
+                got, want = got.view(torch.int64), want.view(torch.int64)
+            check(torch.equal(got, want),
+                  f"{name}: GPU {k} != CPU plain {k}")
+        if kind == "agg":
+            gpu, cpu = (agg_map(CopClient(d).execute_agg(root, snap, meta))
+                        for d in ("cuda", "cpu"))
+        else:
+            gpu, cpu = (rows_map(CopClient(d).execute_rows(
+                root, snap, D.output_dtypes(root))) for d in ("cuda", "cpu"))
+        check(gpu == cpu, f"{name}: GPU result != CPU result")
+        print(f"reference {name}: rows={snap.num_rows} results={len(gpu)} "
+              f"gpu_states==cpu_states=True gpu==cpu=True")
+
+
+def s4_oracle(which: str, c: dict):
+    """numpy answer of a slice-4 statement: (key arrays, value arrays) in
+    key order for SORT and SEGMENT, the rows' columns for the rest (the
+    top 10 for TopN, the table's first rows for Limit)."""
+    ok, pk = c["l_orderkey"].data, c["l_partkey"].data
+    qty, price = c["l_quantity"].data, c["l_extendedprice"].data
+    if which == "SORT":
+        u, inv = np.unique(ok, return_inverse=True)
+        s = np.zeros(len(u), np.int64)
+        np.add.at(s, inv, price)
+        return [u], [s]
+    if which == "SEGMENT":
+        both = ok * (1 << 20) + pk
+        u, inv, cnt = np.unique(both, return_inverse=True,
+                                return_counts=True)
+        s = np.zeros(len(u), np.int64)
+        np.add.at(s, inv, qty)
+        return [u >> 20, u & ((1 << 20) - 1)], [cnt, s]
+    if which == "TopN":
+        order = np.lexsort((ok, -price))[:TOPN_LIMIT]
+        return [ok[order], price[order]]
+    if which == "Limit":
+        return [pk[:LIMIT]]
+    keep = qty < 500
+    return [ok[keep], price[keep] * (100 - c["l_discount"].data[keep])]
+
+
+def _rows_arrays(cols) -> list:
+    for c in cols:
+        check(bool(np.asarray(c.validity).all()), "unexpected NULL output")
+    return [np.array([int(x) for x in c.data], dtype=np.int64)
+            if c.data.dtype == object else np.asarray(c.data) for c in cols]
+
+
+def slice4_phase(torch, rk, gr, S, sf: float) -> dict:
+    """The five slice-4 statements on one 8-shard lineitem snapshot at
+    ``sf`` through ``CopClient(device="cuda")``: SORT and SEGMENT by
+    ``execute_agg``, TopN, Limit and the filtered projection by
+    ``execute_rows``, each equal to the numpy oracle (TopN re-trimmed to
+    its top 10, as the root does); the int64 kernels' launches equal the
+    passes ``stable_argsort`` ran, and group_reduce's the reductions the
+    aggregations' programs imply.  Returns the launch counts."""
+    from tidb_tpu_torch.copr import dag as D
+    from tidb_tpu_torch.store import CopClient
+    t0 = time.perf_counter()
+    snap, bycol = s4_snapshot(sf, 0)
+    n_rows = snap.num_rows
+    print(f"data: lineitem sf={sf} rows={n_rows} columns={len(S4_COLS)} "
+          f"gen_s={time.perf_counter() - t0:.2f}")
+    reset((rk.LAUNCHES, gr.LAUNCHES, S.PASSES))  # counts of this path only
+    reduces = 0
+    res = None
+    for which in S4_QUERIES:
+        kind, root, meta = build_s4(which)
+        client = CopClient(device="cuda")
+        # the previous statement's result (up to 6,000,000 groups of
+        # Python ints) is freed and collected outside the timed window
+        del res
+        gc.collect()
+        before = S.PASSES["stable_argsort"]
+        before_gr = gr.LAUNCHES["group_reduce"]
+        t0 = time.perf_counter()
+        if kind == "agg":
+            res = client.execute_agg(root, snap, meta)
+        else:
+            res = client.execute_rows(root, snap, D.output_dtypes(root))
+        wall = time.perf_counter() - t0
+        t = client.timings
+        passes = S.PASSES["stable_argsort"] - before
+        got_gr = gr.LAUNCHES["group_reduce"] - before_gr
+        want = s4_oracle(which, bycol)
+        if kind == "agg":
+            want_gr = expected_reduces(root) * len(t["buckets"])
+            check(got_gr == want_gr, f"{which}: group_reduce launched "
+                  f"{got_gr} times, its programs imply {want_gr}")
+            reduces += want_gr
+            got = result_arrays(res)
+            check(len(got[0][0]) == len(want[0][0]),
+                  f"{which}: {len(got[0][0])} groups, want "
+                  f"{len(want[0][0])}")
+            for g, w in zip(got[0] + got[1], want[0] + want[1]):
+                check(np.array_equal(g, w), f"{which}: result != numpy")
+            size = f"groups={len(want[0][0])} capacity={t['buckets']}"
+            split = f"merge_ms={t['merge'] * 1e3:.1f}"
+        else:
+            got = _rows_arrays(res)
+            if which == "TopN":      # the root's re-trim of the union
+                order = np.lexsort((got[0], -got[1]))[:TOPN_LIMIT]
+                got = [g[order] for g in got]
+            for g, w in zip(got, want):
+                check(np.array_equal(g, w), f"{which}: rows != numpy")
+            size = f"out_rows={len(res[0].data)} pages={t['pages']}"
+            split = f"assemble_ms={t['assemble'] * 1e3:.1f}"
+        print(f"slice4 query {which}: rows={n_rows} {size} "
+              f"ms={wall * 1e3:.1f} rows_per_s={n_rows / wall:.0f} "
+              f"sort_passes={passes} group_reduce_launches={got_gr} "
+              f"place_ms={t['place'] * 1e3:.1f} "
+              f"hash_ms={t.get('hash', 0.0) * 1e3:.1f} "
+              f"device_ms={t['device'] * 1e3:.1f} "
+              f"transfer_ms={t['transfer'] * 1e3:.1f} {split} exact=True")
+    counts = {k: rk.LAUNCHES[k] for k in ("radix_hist64", "radix_scatter64")}
+    for name, c in counts.items():
+        check(c == S.PASSES["stable_argsort"] and c > 0,
+              f"{name}: {c} launches for {S.PASSES['stable_argsort']} "
+              "stable_argsort passes")
+    check(rk.LAUNCHES["radix_hist"] == 0, "slice 4 ran an int32 pass")
+    check(gr.LAUNCHES["group_reduce"] == reduces,
+          f"group_reduce: {gr.LAUNCHES['group_reduce']} slice-4 launches")
+    print(f"slice4 launches: radix_hist64={counts['radix_hist64']} "
+          f"radix_scatter64={counts['radix_scatter64']} "
+          f"stable_argsort_passes={S.PASSES['stable_argsort']} "
+          f"group_reduce={reduces}")
+    return counts
+
+
 def build_phase(rk, gr) -> None:
     """Both kernel libraries from the checkout's sources, one nvcc each,
     started together."""
@@ -804,6 +1198,9 @@ def main() -> int:
     ap.add_argument("--main-sf", type=float, default=10.0,
                     help="TPC-H scale factor of the DENSE/SCALAR main "
                          "path (Q1, Q6, Q19)")
+    ap.add_argument("--s4-sf", type=float, default=1.0,
+                    help="TPC-H scale factor of the slice-4 statements "
+                         "(SORT, SEGMENT, TopN, Limit, filtered rows)")
     ap.add_argument("--perm-of", metavar="DIR",
                     help="only time scatter_permutation of the "
                          "tidb_tpu_torch package found in DIR (e.g. an "
@@ -833,19 +1230,34 @@ def main() -> int:
         time_scatter_permutation(torch, radix, dev, flush)
         return 0
     from tidb_tpu_torch.copr.cuda import group_reduce as gr
+    from tidb_tpu_torch.ops import sort as S
 
     build_phase(rk, gr)
     kern = kernel_phase(torch, rk, radix, dev)
+    kern.update(sort_phase(torch, rk, S, dev))
     kern["group_reduce"] = group_reduce_phase(torch, gr, dev)
     reference_phase(torch, dev)
+    reference_phase4(torch, dev)
     counts = slice_phase(torch, rk, gr, args.sf)
     counts["group_reduce"] = main_path_phase(torch, gr, args.main_sf)
+    counts.update(slice4_phase(torch, rk, gr, S, args.s4_sf))
 
-    sources = {"radix_hist": "tidb_tpu_torch/copr/cuda/radix_kernel.cu",
-               "radix_scatter": "tidb_tpu_torch/copr/cuda/radix_kernel.cu",
-               "group_reduce": "tidb_tpu_torch/copr/cuda/group_reduce.cu"}
+    cu = "tidb_tpu_torch/copr/cuda/"
+    sources = {"radix_hist": cu + "radix_kernel.cu",
+               "radix_scatter": cu + "radix_kernel.cu",
+               "radix_hist64": cu + "radix_kernel.cu",
+               "radix_scatter64": cu + "radix_kernel.cu",
+               "group_reduce": cu + "group_reduce.cu"}
     replaces = {"radix_hist": "tidb_tpu/copr/pallas/radix_kernel.py:92",
                 "radix_scatter": "tidb_tpu/copr/pallas/radix_kernel.py:105",
+                "radix_hist64": "tidb_tpu/copr/pallas/radix_kernel.py:92 "
+                                "(the pass under lax.sort at "
+                                "tidb_tpu/copr/exec.py:340, :579 and "
+                                "tidb_tpu/copr/segment.py:178)",
+                "radix_scatter64": "tidb_tpu/copr/pallas/radix_kernel.py:105 "
+                                   "(the pass under lax.sort at "
+                                   "tidb_tpu/copr/exec.py:340, :579 and "
+                                   "tidb_tpu/copr/segment.py:178)",
                 "group_reduce":
                     "tidb_tpu/copr/exec.py:87 _reduce (XLA-fused)"}
     print(json.dumps({"kernels": [

@@ -1,6 +1,9 @@
 """The port's CUDA kernels on a GPU, against their plain PyTorch versions.
 
-The radix counting-sort kernels equal their plain versions bit for bit;
+The radix counting-sort kernels (int32 and int64 keys) and
+``stable_argsort`` equal their plain versions bit for bit, and the
+slice-4 statements (SORT, SEGMENT, TopN, Limit, filtered rows) through
+``CopClient(device="cuda")`` equal the plain CPU path;
 ``group_reduce`` equals its plain version (computed on the CPU, whose
 scatter propagates NaN as the JAX package's does) exactly for integers
 and float min/max, and within ``FSUM_RTOL`` of the slot's sum of |v|
@@ -178,6 +181,110 @@ def test_client_on_gpu_equals_plain_path(dev):
     for x, y in zip(r_gpu.key_columns + r_gpu.columns,
                     r_cpu.key_columns + r_cpu.columns):
         assert (x.data == y.data).all() and (x.validity == y.validity).all()
+
+
+# ------------------------------------------------------------------ #
+# the int64 instantiation and stable_argsort
+# ------------------------------------------------------------------ #
+
+I64_MIN, I64_MAX = -(2 ** 63), 2 ** 63 - 1
+
+
+def _keys64(n, seed, dist, dev):
+    """int64 sort keys: uniform over all 64 bits, one value for every
+    row, 23-bit non-negative (an orderkey), or SEGMENT's hashes with
+    28.5% of the rows parked at INT64_MAX."""
+    rng = np.random.default_rng(seed)
+    if dist == "one value":
+        k = np.full(n, -0x2A5A5A5A5A5A5A5A, np.int64)
+    elif dist == "23-bit":
+        k = rng.integers(0, 1 << 23, n, dtype=np.int64)
+    else:
+        k = rng.integers(I64_MIN, I64_MAX, n, dtype=np.int64)
+        if dist == "dead rows":
+            k[rng.random(n) < 0.285] = I64_MAX
+    return torch.from_numpy(k).to(dev)
+
+
+@pytest.mark.parametrize("dist", ["uniform", "one value", "23-bit",
+                                  "dead rows"])
+@pytest.mark.parametrize("shift", [0, 8, 24, 56])
+@pytest.mark.parametrize("n", [1, 4095, 4097, 3 * 4096 + 17, 8193,
+                               1 << 20, 8_388_608])
+def test_int64_kernels_equal_plain(dev, n, shift, dist):
+    """The int64 instantiation at ragged and whole tiles, every digit
+    position (the top one flips the sign bit), and the slice's key
+    shapes; each wrapper launched its int64 kernel."""
+    key = _keys64(n, n + shift, dist, dev)
+    val = torch.randperm(n, device=dev).to(torch.int32)
+    before = dict(rk.LAUNCHES)
+    hist = rk.radix_hist(key, shift)
+    assert hist.shape == (rk.n_tiles(n), rk.N_DIGITS)
+    assert torch.equal(hist, rk.radix_hist_plain(key, shift))
+    offs = rk.exclusive_offsets(hist)
+    got = rk.radix_scatter(key, val, offs, shift)
+    want = rk.radix_scatter_plain(key, val, offs, shift)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    full = rk.counting_sort_pass(key, val, shift)
+    plain = rk.counting_sort_pass_plain(key, val, shift)
+    assert torch.equal(full[0], plain[0]) and torch.equal(full[1], plain[1])
+    assert rk.LAUNCHES["radix_hist64"] == before["radix_hist64"] + 2
+    assert rk.LAUNCHES["radix_scatter64"] == before["radix_scatter64"] + 2
+    assert rk.LAUNCHES["radix_hist"] == before["radix_hist"]
+
+
+def test_int64_unaligned_tensors_take_the_scalar_loads(dev):
+    n = 3 * 4096 + 5
+    key = _keys64(n + 1, 3, "uniform", dev)[1:]
+    val = torch.arange(n + 1, dtype=torch.int32, device=dev)[1:]
+    assert key.data_ptr() % 16 and val.data_ptr() % 16
+    got = rk.counting_sort_pass(key, val, 56)
+    want = rk.counting_sort_pass_plain(key, val, 56)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("n", [1, 5000, 1 << 20])
+def test_stable_argsort_on_gpu_equals_plain(dev, n):
+    """The TopN key set (dead flag, null flags, ~price, orderkey), the
+    SORT key set and one uniform 64-bit key: the permutation on the card
+    equals the plain path's on the CPU, and the int64 kernels launched
+    once each a pass."""
+    from tidb_tpu_torch.ops import sort as S
+    rng = np.random.default_rng(n)
+    flag = torch.from_numpy(rng.integers(0, 2, n).astype(np.int32))
+    zeros = torch.zeros(n, dtype=torch.int32)
+    price = torch.from_numpy(rng.integers(90_000, 10_500_000, n))
+    okey = torch.from_numpy(rng.integers(1, 6_000_000, n))
+    sets = {"TopN": [flag, zeros, ~price, zeros, okey],
+            "SORT": [flag, zeros, torch.from_numpy(rng.integers(-9, 9, n))],
+            "uniform": [torch.from_numpy(rng.integers(
+                I64_MIN, I64_MAX, n, dtype=np.int64))]}
+    for name, keys in sets.items():
+        want = S.stable_argsort(keys)
+        before = dict(rk.LAUNCHES)
+        passes = S.PASSES["stable_argsort"]
+        got = S.stable_argsort([k.to(dev) for k in keys])
+        ran = S.PASSES["stable_argsort"] - passes
+        assert torch.equal(got.cpu(), want), name
+        assert rk.LAUNCHES["radix_hist64"] - before["radix_hist64"] == ran
+        assert rk.LAUNCHES["radix_scatter64"] - before["radix_scatter64"] \
+            == ran
+
+
+def test_slice4_paths_on_gpu_equal_cpu(dev):
+    """SORT and SEGMENT aggregations (a DOUBLE key with -0.0 and NaN
+    among them) and the TopN, Limit and filtered-projection rows through
+    CopClient(device="cuda") equal the plain CPU path."""
+    import chip_smoke as cs
+    for _name, kind, root, snap, meta in cs.reference_cases(0.01):
+        if kind == "agg":
+            r = [CopClient(d).execute_agg(root, snap, meta)
+                 for d in ("cuda", "cpu")]
+            a, b_ = (cs.agg_map(x) for x in r)
+        else:
+            a, b_ = (cs.rows_map(CopClient(d).execute_rows(
+                root, snap, D.output_dtypes(root))) for d in ("cuda", "cpu"))
+        assert a == b_, kind
 
 
 # ------------------------------------------------------------------ #

@@ -269,7 +269,11 @@ def _bad_inputs():
     d = torch.zeros(4096, dtype=torch.int32)
     off = torch.zeros((1, 256), dtype=torch.int32)
     return {
-        "int64 digits": (rk.radix_hist, (d.to(torch.int64), 0), TypeError),
+        # int64 keys are taken (the sort's instantiation); their values
+        # are int32 all the same
+        "int64 digits": (rk.radix_scatter, (d.to(torch.int64),
+                                            d.to(torch.int64), off, 0),
+                         TypeError),
         "2-d digits": (rk.radix_hist, (d.view(8, 512), 0), ValueError),
         "strided digits": (rk.radix_hist, (d[::2], 0), ValueError),
         "meta device": (rk.radix_hist, (d.to("meta"), 0), ValueError),

@@ -489,15 +489,21 @@ def _unported_cases():
         return D.Aggregation(child, group_by, aggs,
                              D.GroupStrategy[strategy], num_buckets=16,
                              group_capacity=16)
+    def keyed(op):
+        return agg(child=D.Selection(scan, (b.compare(
+            "lt", b.arith(op, ColumnRef(i64, 0), b.lit(2)), b.lit(3)),)))
     return {
-        "SORT strategy": agg(strategy="SORT"),
-        "SEGMENT strategy": agg(strategy="SEGMENT"),
+        "LookupJoin node": agg(child=D.LookupJoin(
+            scan, ColumnRef(i64, 0), "inner", (i64,), True)),
+        "Expand under SORT": agg(child=D.Expand(scan, key, 2),
+                                 strategy="SORT"),
         "Expand node": agg(child=D.Expand(scan, key, 2), group_by=(),
                            strategy="SCALAR"),
-        "Limit node": agg(child=D.Limit(scan, 5), group_by=(),
-                          strategy="SCALAR"),
-        "float key": agg(group_by=(ColumnRef(f64, 1),)),
-        "unsigned key": agg(group_by=(ColumnRef(u64, 2),)),
+        "MOD": keyed("mod"),
+        "integer DIV": keyed("intdiv"),
+        "unsigned arithmetic": agg(child=D.Selection(scan, (b.compare(
+            "lt", b.arith("add", ColumnRef(u64, 2), b.lit(1)),
+            b.lit(3)),))),
         "unsigned compare": agg(child=D.Selection(scan, (b.compare(
             "lt", ColumnRef(u64, 2), b.lit(3)),))),
         "division": agg(child=D.Selection(scan, (b.compare(

@@ -32,7 +32,7 @@ class GroupKeyMeta:
     """How to decode one group key back into values."""
     dtype: dt.DataType
     size: int                      # dense domain size incl. the NULL slot
-                                   # if nullable; 0 for SCATTER keys
+                                   # if nullable; 0 for high-NDV keys
     dictionary: Optional[StringDict] = None
 
 
@@ -74,11 +74,21 @@ def merge_states(states_list: Sequence[dict]) -> dict:
     return out
 
 
-def _np_key_code(val: np.ndarray, valid: np.ndarray) -> np.ndarray:
-    """int64 representation of (integer-lane) group-key values for
-    host-side equality grouping; NULLs zeroed — the null flag column
-    disambiguates."""
-    return np.where(np.asarray(valid), np.asarray(val).astype(np.int64), 0)
+def _np_key_code(val: np.ndarray, valid: np.ndarray,
+                 dtype: dt.DataType) -> np.ndarray:
+    """Bit-stable int64 representation of group-key values for host-side
+    equality grouping: floats through the order-preserving bitcast, so
+    NaN groups with NaN and -0.0 with +0.0 (SQL equality); uint64 on its
+    bits; NULLs zeroed (the null flag column disambiguates)."""
+    v = np.asarray(val)
+    if dtype.is_float:
+        f = v.astype(np.float64)
+        f = np.where(f == 0, 0.0, f)
+        b = np.ascontiguousarray(f).view(np.int64)
+        c = np.where(b < 0, -(b + 1) + (-2 ** 63), b)
+    else:
+        c = v.astype(np.int64)
+    return np.where(np.asarray(valid), c, 0)
 
 
 def merge_sorted_states(agg: D.Aggregation,
@@ -106,13 +116,13 @@ def merge_sorted_states(agg: D.Aggregation,
 
     mat = np.empty((len(cat(("__rows__",))), 2 * k), np.int64)
     key_vals, key_valids = [], []
-    for j in range(k):
+    for j, e in enumerate(agg.group_by):
         val = cat((f"k{j}", "val"))
         valid = cat((f"k{j}", "valid")).astype(bool)
         key_vals.append(val)
         key_valids.append(valid)
         mat[:, 2 * j] = (~valid).astype(np.int64)
-        mat[:, 2 * j + 1] = _np_key_code(val, valid)
+        mat[:, 2 * j + 1] = _np_key_code(val, valid, e.dtype)
 
     uniq, first_idx, inv = np.unique(mat, axis=0, return_index=True,
                                      return_inverse=True)

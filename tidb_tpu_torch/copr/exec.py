@@ -7,14 +7,19 @@ batch.  Static shapes carry over: a shard is a fixed-capacity batch of
 columns and live rows ride a selection mask ``sel`` instead of being
 compacted.
 
-Ported so far: the TableScan, Selection and Projection nodes, and the
-partial states of the SCALAR, DENSE and SCATTER aggregations.  Every
-grouped reduction goes through ``_reduce``, which is the hand-written
-``group_reduce`` kernel on a CUDA tensor and its plain version on a CPU
-tensor (copr/cuda/group_reduce.py).  Out-of-range scatter indices raise
-in torch where XLA drops them (``mode="drop"``), so a grouped reduction
-parks dead and overflowing rows at index ``num_groups``, the sink slot,
-which the reduction drops.
+Ported so far: the TableScan, Selection, Projection, Limit and TopN
+nodes, the device-side compaction of a row-returning program
+(``compact``), and the partial states of the SCALAR, DENSE, SORT,
+SEGMENT and SCATTER aggregations.  Every grouped reduction goes through
+``_reduce``, which is the hand-written ``group_reduce`` kernel on a CUDA
+tensor and its plain version on a CPU tensor (copr/cuda/group_reduce.py);
+every device sort (SORT, SEGMENT, TopN) goes through ``stable_argsort``
+(ops/sort.py), the counting-sort kernels' multi-key LSD radix sort, in
+place of the JAX package's stable ``lax.sort``.  Out-of-range scatter
+indices raise in torch where XLA drops them (``mode="drop"``), so a
+grouped reduction parks dead and overflowing rows at index
+``num_groups`` and a compaction its rows past the capacity at index
+``capacity``: the sink slot, which is sliced off.
 """
 
 from __future__ import annotations
@@ -25,7 +30,8 @@ from typing import Any, Sequence
 import torch
 
 from ..expr.compile import Evaluator
-from ..ops.sortkeys import sortable_int64
+from ..ops.sort import stable_argsort
+from ..ops.sortkeys import as_int64_bits, sortable_int64
 from ..types import dtypes as dt
 from . import dag as D
 from .cuda.group_reduce import group_reduce
@@ -59,9 +65,11 @@ def _ensure_array(v, n: int, device) -> torch.Tensor:
 
 
 def _sel_array(sel, n: int, device) -> torch.Tensor:
+    """A selection or validity mask as a length-``n`` bool tensor (a
+    projected NULL literal's mask is the scalar False)."""
     if sel is True:
         return torch.ones((n,), dtype=torch.bool, device=device)
-    return sel
+    return _ensure_array(sel, n, device)
 
 
 # --------------------------------------------------------------------- #
@@ -138,16 +146,21 @@ def _agg_partial_states(agg: D.Aggregation, batch: DeviceBatch,
     """Per-device partial-state dict of an Aggregation node.
 
     SCALAR/DENSE: a fixed group domain (one group, or the mixed-radix
-    dense gid), merged across devices by sum/min/max.  SCATTER: hash,
-    multi-pass radix partition, segment reduce (copr/radix.py), merged
-    on the host.  Adds ``__rows__`` (COUNT(*) per group) for occupancy;
-    a COUNT(*) aggregate reuses it."""
+    dense gid), merged across devices by sum/min/max.  The high-NDV
+    strategies build a per-device group table, merged on the host: SORT
+    sorts the rows by the key tuple (``_agg_sort_states``), SEGMENT by
+    the key hash (copr/segment.py), SCATTER partitions them by the
+    hash's top bits (copr/radix.py), and each segment-reduces.  Adds
+    ``__rows__`` (COUNT(*) per group) for occupancy; a COUNT(*)
+    aggregate reuses it."""
     if agg.strategy == D.GroupStrategy.SCATTER:
         from .radix import agg_scatter_states
         return agg_scatter_states(agg, batch, ev, memo)
-    if agg.strategy not in (D.GroupStrategy.SCALAR, D.GroupStrategy.DENSE):
-        raise _unported(
-            f"the {agg.strategy.value.upper()} aggregation strategy")
+    if agg.strategy == D.GroupStrategy.SEGMENT:
+        from .segment import agg_segment_states
+        return agg_segment_states(agg, batch, ev, memo)
+    if agg.strategy == D.GroupStrategy.SORT:
+        return _agg_sort_states(agg, batch, ev, memo)
 
     n = len(batch.cols[0][0]) if batch.cols else 0
     sel = _sel_array(batch.sel, n, ev.device)
@@ -194,8 +207,10 @@ def _dense_group_ids(agg: D.Aggregation, batch: DeviceBatch, ev: Evaluator,
 def group_keyinfo(agg: D.Aggregation, batch: DeviceBatch, ev: Evaluator,
                   memo: dict, n: int) -> list:
     """Canonical per-group-key (zeroed value, mask, null flag, order-
-    preserving int64 code) tuples.  NULL values are zeroed so all NULLs
-    share one group."""
+    preserving int64 code) tuples, the key representation of the
+    high-NDV strategies.  NULL values are zeroed so all NULLs share one
+    group; -0.0 groups with +0.0 (SQL equality, not bit equality).  A
+    uint64 key keeps its dtype, and is zeroed on its int64 bits."""
     keyinfo = []
     for e in agg.group_by:
         v, m = ev.eval(e, batch.cols, memo)
@@ -204,12 +219,111 @@ def group_keyinfo(agg: D.Aggregation, batch: DeviceBatch, ev: Evaluator,
             v = v.to(torch.int64)
         nullf = (torch.zeros(n, dtype=torch.int32, device=v.device)
                  if m is True else (~m).to(torch.int32))
-        zero = torch.zeros((), dtype=v.dtype, device=v.device)
-        vz = v if m is True else torch.where(m, v, zero)
+        bits = as_int64_bits(v)
+        zero = torch.zeros((), dtype=bits.dtype, device=v.device)
+        vz = v if m is True else torch.where(m, bits, zero).view(v.dtype)
+        if e.dtype.is_float:
+            vz = torch.where(vz == 0, torch.zeros((), dtype=vz.dtype,
+                                                  device=v.device), vz)
         code = sortable_int64(vz, e.dtype.is_float,
                               e.dtype.kind == K.UINT64)
         keyinfo.append((vz, m, nullf, code))
     return keyinfo
+
+
+def _agg_sort_states(agg: D.Aggregation, batch: DeviceBatch, ev: Evaluator,
+                     memo: dict) -> dict:
+    """SORT-strategy grouped aggregation: one stable multi-key sort of
+    the rows by (dead flag, then per key its null flag and code), then
+    the shared segment reduce (copr/segment.py) into a (group_capacity,)
+    state table.  ``__ngroups__`` is the true distinct-group count, so
+    the client can regrow the capacity and re-run when it exceeds
+    ``group_capacity``; the live rows of groups past the table park at
+    the sink slot with the dead rows."""
+    from .segment import states_from_partition
+    G = agg.group_capacity
+    if G <= 0:
+        raise ValueError(f"SORT aggregation needs a group_capacity, got {G}")
+    n = len(batch.cols[0][0]) if batch.cols else 0
+    sel = _sel_array(batch.sel, n, ev.device)
+    keyinfo = group_keyinfo(agg, batch, ev, memo, n)
+    keys = [(~sel).to(torch.int32)]
+    for _vz, _m, nullf, code in keyinfo:
+        keys += [nullf, code]
+    idx = stable_argsort(keys)
+    return states_from_partition(agg, batch, ev, keyinfo, None, idx,
+                                 sel[idx], n)
+
+
+# --------------------------------------------------------------------- #
+# Row output: device-side compaction (the paging analog)
+# --------------------------------------------------------------------- #
+
+def _gather(v: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``v[idx]``, a uint64 column through its int64 bits."""
+    return as_int64_bits(v)[idx].view(v.dtype)
+
+
+def compact(batch: DeviceBatch, capacity: int) -> tuple[list, torch.Tensor]:
+    """Pack live rows to the front of fixed-size ``capacity`` buffers by
+    a cumsum and a scatter.  Returns ``(cols, count)``, every column
+    ``(data, valid)``; rows past ``capacity`` park at the sink slot and
+    are dropped, and callers compare ``count`` with ``capacity`` and
+    re-run bigger."""
+    n = len(batch.cols[0][0]) if batch.cols else 0
+    dev = batch.cols[0][0].device if batch.cols else None
+    sel = _sel_array(batch.sel, n, dev)
+    pos = torch.cumsum(sel, 0) - 1
+    idx = torch.where(sel & (pos < capacity), pos, capacity)
+    out_cols = []
+    for v, m in batch.cols:
+        v = _ensure_array(v, n, dev)
+        if v.dtype == torch.bool:
+            v = v.to(torch.int64)
+        bits = as_int64_bits(v)
+        data = torch.zeros((capacity + 1,), dtype=bits.dtype, device=dev)
+        data.index_put_((idx,), bits)
+        valid = torch.zeros((capacity + 1,), dtype=torch.bool, device=dev)
+        valid.index_put_((idx,), _sel_array(m, n, dev))
+        out_cols.append((data[:capacity].view(v.dtype), valid[:capacity]))
+    return out_cols, sel.sum(dtype=torch.int64)
+
+
+def _exec_topn(node: D.TopN, batch: DeviceBatch, ev: Evaluator
+               ) -> DeviceBatch:
+    """Per-shard TopN: a stable multi-key sort, then the first k rows.
+
+    Sort keys, ascending, in priority order: (1) the dead-row flag, so
+    filtered rows sort last; then per ORDER BY key (2) the NULL flag in
+    MySQL order (NULLs first ASC, last DESC) and (3) the order-preserving
+    int64 key, bitwise-NOT for DESC (an exact reversal with no
+    overflow)."""
+    memo: dict = {}
+    n = len(batch.cols[0][0])
+    sel = _sel_array(batch.sel, n, ev.device)
+    keys = [(~sel).to(torch.int32)]
+    for e, desc in (node.sort_keys or ((node.sort_key, node.desc),)):
+        v, m = ev.eval(e, batch.cols, memo)
+        v = _ensure_array(v, n, ev.device)
+        key = sortable_int64(v, e.dtype.is_float, e.dtype.kind == K.UINT64)
+        if desc:
+            key = ~key
+        if m is True:
+            nullflag = torch.zeros(n, dtype=torch.int32, device=ev.device)
+        else:
+            valid = _sel_array(m, n, ev.device)
+            nullflag = (~valid if desc else valid).to(torch.int32)
+        keys += [nullflag, key]
+    k = min(node.limit, n)
+    idx = stable_argsort(keys)[:k]
+    live = sel.sum(dtype=torch.int64)
+    out_sel = torch.arange(k, device=ev.device) < torch.clamp(live, max=k)
+    cols = []
+    for cv, cm in batch.cols:
+        cv = _ensure_array(cv, n, ev.device)
+        cols.append((_gather(cv, idx), True if cm is True
+                     else _sel_array(cm, n, ev.device)[idx]))
+    return DeviceBatch(cols, out_sel)
 
 
 # --------------------------------------------------------------------- #
@@ -253,7 +367,18 @@ def _exec_node(node: D.CopNode, scan_cols: Sequence, row_count,
             cols.append((_ensure_array(v, n, ev.device), m))
         return DeviceBatch(cols, batch.sel)
 
+    if isinstance(node, D.Limit):
+        batch = _exec_node(node.child, scan_cols, row_count, ev)
+        n = len(batch.cols[0][0])
+        sel = _sel_array(batch.sel, n, ev.device)
+        return DeviceBatch(batch.cols,
+                           sel & (torch.cumsum(sel, 0) <= node.limit))
+
+    if isinstance(node, D.TopN):
+        batch = _exec_node(node.child, scan_cols, row_count, ev)
+        return _exec_topn(node, batch, ev)
+
     raise _unported(f"the {type(node).__name__} node")
 
 
-__all__ = ["DeviceBatch", "agg_states", "group_keyinfo"]
+__all__ = ["DeviceBatch", "agg_states", "group_keyinfo", "compact"]

@@ -1,5 +1,6 @@
 # ported from tidb_tpu/copr/segment.py @ a9e9482
-"""Key hash and the partition-to-states suffix of the radix strategies.
+"""Key hash, the SEGMENT strategy, and the partition-to-states suffix of
+the high-NDV strategies.
 
 1. Group keys lower to canonical (zeroed value, null flag, order-
    preserving int64 code) triples (copr/exec.group_keyinfo).
@@ -7,19 +8,25 @@
    key) into one 64-bit word.  torch has no uint64 ``>>``, so the hash is
    carried as int64 with masked logical shifts; ``*`` and ``^`` wrap
    two's-complement, which gives the uint64 bits exactly.
-3. After the rows are permuted bucket-major (copr/radix.py), segment
-   boundaries fall where the hash or any true key code/null flag changes
-   between adjacent live rows, so a 64-bit collision yields duplicate
-   partial groups (merged by true key on the host), never a wrong merge.
-4. Rows segment-reduce into a ``(num_buckets,)`` state table;
-   ``__ngroups__`` reports the observed segment count so the client can
-   regrow ``num_buckets`` and re-run on overflow.
+3. SEGMENT (``agg_segment_states``) orders rows by the full hash with one
+   single-key ``stable_argsort`` (ops/sort.py), dead rows parked at
+   INT64_MAX; SCATTER (copr/radix.py) by a radix partition on its top
+   bits; SORT (copr/exec.py) by the key tuple itself.
+4. After the rows are permuted, segment boundaries fall where the hash
+   (when there is one) or any true key code/null flag changes between
+   adjacent live rows, so a 64-bit collision yields duplicate partial
+   groups (merged by true key on the host), never a wrong merge.
+5. Rows segment-reduce into a state table of the aggregation's
+   ``state_capacity``; ``__ngroups__`` reports the observed segment
+   count so the client can regrow the capacity and re-run on overflow.
 """
 
 from __future__ import annotations
 
 import torch
 
+from ..ops.sort import stable_argsort
+from ..ops.sortkeys import INT64_MAX, as_int64_bits
 from . import dag as D
 
 
@@ -77,16 +84,18 @@ def batch_hash(agg: D.Aggregation, batch, keyinfo, n: int, device
 
 def states_from_partition(agg: D.Aggregation, batch, ev, keyinfo,
                           hv_s, idx, sel_s, n) -> dict:
-    """Given rows permuted bucket-major by ``idx`` (with the permuted
-    hash ``hv_s`` and live mask ``sel_s``), detect segment boundaries
-    where the hash or any true key code/null flag changes and
-    scatter-reduce each segment into a (num_buckets,) state table.
-    Dead rows, and segments past the table, park at the sink slot B."""
-    from .exec import _ensure_array, _one_agg_state, _reduce
-    B = agg.num_buckets
-    dev = hv_s.device
+    """Given rows permuted by ``idx`` so that equal keys are adjacent
+    (with the permuted hash ``hv_s``, None for SORT, and live mask
+    ``sel_s``), detect segment boundaries where the hash or any true key
+    code/null flag changes and scatter-reduce each segment into a
+    (state_capacity,) table.  Dead rows, and live rows of segments past
+    the table, park at the sink slot (the capacity itself)."""
+    from .exec import _ensure_array, _gather, _one_agg_state, _reduce
+    B = agg.state_capacity
+    dev = idx.device
     diff = torch.arange(n, device=dev) == 0
-    diff = diff | (hv_s != torch.roll(hv_s, 1))
+    if hv_s is not None:
+        diff = diff | (hv_s != torch.roll(hv_s, 1))
     for _vz, m, nullf, code in keyinfo:
         cd_s = code[idx]
         diff = diff | (cd_s != torch.roll(cd_s, 1))
@@ -99,9 +108,10 @@ def states_from_partition(agg: D.Aggregation, batch, ev, keyinfo,
     gids = torch.where(sel_s & (gid < B), gid, B)
 
     def keep(src: torch.Tensor) -> torch.Tensor:
-        out = torch.zeros((B + 1,), dtype=src.dtype, device=dev)
-        out.index_put_((gids,), src)
-        return out[:B]
+        bits = as_int64_bits(src)          # uint64 keys on their bits
+        out = torch.zeros((B + 1,), dtype=bits.dtype, device=dev)
+        out.index_put_((gids,), bits)
+        return out[:B].view(src.dtype)
 
     states: dict = {"__ngroups__": ngroups}
     states["__rows__"] = _reduce(sel_s.to(torch.int64), sel_s, gids, B,
@@ -109,10 +119,11 @@ def states_from_partition(agg: D.Aggregation, batch, ev, keyinfo,
     for j, (vz, m, _nf, _cd) in enumerate(keyinfo):
         valid_src = (torch.ones(n, dtype=torch.bool, device=dev)
                      if m is True else m[idx])
-        states[f"k{j}"] = {"val": keep(vz[idx]), "valid": keep(valid_src)}
+        states[f"k{j}"] = {"val": keep(_gather(vz, idx)),
+                           "valid": keep(valid_src)}
 
     # aggregate over the permuted batch so arg rows line up with gids
-    pcols = [(_ensure_array(v, n, dev)[idx],
+    pcols = [(_gather(_ensure_array(v, n, dev), idx),
               True if m is True else m[idx]) for v, m in batch.cols]
     pmemo: dict = {}
     for i, a in enumerate(agg.aggs):
@@ -124,5 +135,27 @@ def states_from_partition(agg: D.Aggregation, batch, ev, keyinfo,
     return states
 
 
-__all__ = ["key_hash", "batch_hash", "states_from_partition", "shr64",
-           "HASH_CALLS"]
+def agg_segment_states(agg: D.Aggregation, batch, ev, memo) -> dict:
+    """SEGMENT-strategy per-device partial states: rows ordered by the
+    full 64-bit key hash (bucket id = top bits, residual = low bits) with
+    one single-key ``stable_argsort``, then the shared segment reduce
+    into a (num_buckets,) group table."""
+    from .exec import _sel_array, group_keyinfo
+    B = agg.num_buckets
+    if B <= 0 or B & (B - 1):
+        raise ValueError(f"SEGMENT aggregation needs a power-of-two "
+                         f"num_buckets, got {B}")
+    n = len(batch.cols[0][0]) if batch.cols else 0
+    sel = _sel_array(batch.sel, n, ev.device)
+    keyinfo = group_keyinfo(agg, batch, ev, memo, n)
+    hv = batch_hash(agg, batch, keyinfo, n, ev.device)
+    # dead rows park at the tail; a live row hashing to INT64_MAX merely
+    # interleaves with them, and its gids stay correct through sel_s
+    hv = torch.where(sel, hv, torch.tensor(INT64_MAX, device=hv.device))
+    idx = stable_argsort([hv])
+    return states_from_partition(agg, batch, ev, keyinfo, hv[idx], idx,
+                                 sel[idx], n)
+
+
+__all__ = ["key_hash", "batch_hash", "states_from_partition",
+           "agg_segment_states", "shr64", "HASH_CALLS"]

@@ -5,15 +5,19 @@ The JAX package runs one ``shard_map`` program over its mesh; the port
 runs the same device function once per logical device, each over its
 contiguous block of the stacked (S, C) shards, flattened into one batch
 of S/D * C rows with a live-row mask.  Of the JAX program kinds these
-are the two aggregation kinds:
+are the two aggregation kinds and the rows kind:
 
 - ``merge_kind == "psum"`` (SCALAR, DENSE): the devices' partial states
   merge on the card, field by field, as ``psum``/``pmin``/``pmax`` merge
   them over the mesh (``_collective_merge``), and one merged state dict
   comes back;
-- ``merge_kind == "host"`` (the high-NDV strategies): each device
+- ``merge_kind == "host"`` (SORT, SEGMENT, SCATTER): each device
   returns its own group table, stacked along a leading device axis for
-  the client's host merge.
+  the client's host merge;
+- ``kind == "rows"`` (a root that is not an Aggregation): each device
+  runs the DAG and compacts its live rows into ``row_capacity`` slots
+  (``copr/exec.compact``); the per-device ``(cols, count)`` come back
+  stacked along a leading device axis, for the client's paging loop.
 """
 
 from __future__ import annotations
@@ -24,7 +28,7 @@ import torch
 
 from ..copr import dag as D
 from ..copr.aggregate import _MERGE
-from ..copr.exec import agg_states
+from ..copr.exec import _exec_node, agg_states, compact
 from ..expr.compile import Evaluator
 from ..types.dtypes import TypeKind as K
 
@@ -59,44 +63,55 @@ def _flatten_block(cols, counts):
 
 
 def _stack(trees: list):
-    """Stack per-device state dicts leaf by leaf along a new axis 0."""
+    """Stack per-device outputs (state dicts, or the rows kind's
+    ``(cols, count)``) leaf by leaf along a new axis 0."""
     first = trees[0]
     if isinstance(first, dict):
         return {k: _stack([t[k] for t in trees]) for k in first}
+    if isinstance(first, (list, tuple)):
+        return type(first)(_stack([t[i] for t in trees])
+                           for i in range(len(first)))
     return torch.stack(trees)
 
 
 class ShardedCopProgram:
-    """The aggregation program over the devices:
-    ``__call__(stacked_cols, counts)`` -> the merged partial states
-    (``merge_kind == "psum"``) or the per-device states with a leading
-    device axis (``merge_kind == "host"``)."""
+    """The program over the devices: ``__call__(stacked_cols, counts)``
+    -> the merged partial states (``merge_kind == "psum"``), the
+    per-device states with a leading device axis (``merge_kind ==
+    "host"``), or for a row-returning DAG (``kind == "rows"``)
+    ``([(data (D, cap), valid (D, cap)), ...], count (D,))``."""
 
-    def __init__(self, dag_root: D.CopNode, devices: Sequence[torch.device]):
-        if not isinstance(dag_root, D.Aggregation):
-            raise NotImplementedError(
-                "row-returning programs arrive with a later slice of the "
-                "port (ROADMAP.md, Queue 1)")
-        self.agg = dag_root
+    def __init__(self, dag_root: D.CopNode, devices: Sequence[torch.device],
+                 row_capacity: int = 0):
+        self.root = dag_root
+        self.row_capacity = row_capacity
+        self.agg = dag_root if isinstance(dag_root, D.Aggregation) else None
+        self.kind = "agg" if self.agg is not None else "rows"
         self.devices = tuple(devices)
-        self.host_merge = dag_root.strategy in D.HOST_MERGE_STRATEGIES
+        self.host_merge = (self.agg is not None
+                           and self.agg.strategy in D.HOST_MERGE_STRATEGIES)
         self.merge_kind = "host" if self.host_merge else "psum"
         # int/decimal SUMs produce (hi, lo) limb states whose summed merge
         # is int64-exact only below 2^31 global rows; float sums, counts,
         # host-merged (object-int) programs and proven-narrow SUMs (one
         # int64 word, with a whole-table no-wrap proof) are exempt
-        self._psum_limb_fence = not self.host_merge and any(
-            a.func == D.AggFunc.SUM and a.arg is not None
-            and a.arg.dtype.kind not in (K.FLOAT64, K.FLOAT32)
-            and i not in dag_root.narrow_sums
-            for i, a in enumerate(dag_root.aggs))
+        self._psum_limb_fence = (
+            self.agg is not None and not self.host_merge and any(
+                a.func == D.AggFunc.SUM and a.arg is not None
+                and a.arg.dtype.kind not in (K.FLOAT64, K.FLOAT32)
+                and i not in self.agg.narrow_sums
+                for i, a in enumerate(self.agg.aggs)))
 
     def _device_fn(self, cols, counts, device):
         flat, base_sel = _flatten_block(cols, counts)
         flat = [(v, True if m is None else m) for v, m in flat]
-        return agg_states(self.agg, flat, base_sel, Evaluator(device))
+        ev = Evaluator(device)
+        if self.agg is not None:
+            return agg_states(self.agg, flat, base_sel, ev)
+        batch = _exec_node(self.root, flat, base_sel, ev)
+        return compact(batch, self.row_capacity)
 
-    def __call__(self, stacked_cols: Sequence, counts: torch.Tensor) -> dict:
+    def __call__(self, stacked_cols: Sequence, counts: torch.Tensor):
         if self._psum_limb_fence and stacked_cols:
             s, c = stacked_cols[0][0].shape[:2]
             # the limb-exactness fence of the merge: summed (hi, lo) SUM
@@ -117,7 +132,9 @@ class ShardedCopProgram:
             cols = [(v[blk], None if m is None else m[blk])
                     for v, m in stacked_cols]
             outs.append(self._device_fn(cols, counts[blk], device))
-        return _stack(outs) if self.host_merge else _collective_merge(outs)
+        if self.agg is None or self.host_merge:
+            return _stack(outs)
+        return _collective_merge(outs)
 
 
 __all__ = ["ShardedCopProgram"]
