@@ -21,13 +21,21 @@ script exits non-zero without printing a result:
    library-yardstick and memory-bound times at the kernel's tile; the
    whole pass; ``scatter_permutation`` (4 passes) for B = 2^22 and
    2^23 against the plain partition;
-3b. sort kernels: the int64 instantiation of both kernels on a uniform
-   64-bit key at the same row count, exactly against its plain
-   versions, with the same times; then ``stable_argsort`` on one
-   uniform 64-bit key (8 passes), on a 23-bit key (3 passes after the
-   digit skip) and on TopN's key set, exactly against its plain version
-   and the library sort (``torch.sort(stable=True)`` a key, LSD), with
-   kernel, plain, library and bound times;
+3b. sort kernels: the int64 instantiation of both radix kernels on a
+   uniform 64-bit key at the same row count, exactly against its plain
+   versions (the per-pass reference, on no query path); the onesweep
+   kernels ``radix_hist_all64`` (8 digits) and ``radix_onesweep64``
+   (shift 0) on a uniform 64-bit key, on query A's skew (28.5% of the
+   rows at INT64_MAX) and on one value everywhere, each exactly against
+   its plain version and the per-pass kernels, with kernel, plain, library
+   (``torch.bincount`` once a digit; ``torch.sort`` of the digit) and
+   bound times; then ``stable_argsort`` on one uniform 64-bit key (8
+   passes), on a 23-bit key (3 passes after the digit skip) and on
+   TopN's key set, exactly against its plain version, the library sort
+   (``torch.sort(stable=True)`` a key, LSD) and the per-pass sort (one
+   ``counting_sort_pass`` a digit), with their times and the bound at
+   24 bytes a row a pass, its launches one ``radix_hist_all64`` a key
+   and one ``radix_onesweep64`` a pass;
 4. group_reduce: the kernel at the main path's row count (67,108,864,
    one SF=10 device batch) on a random mask, for G in {1, 12, 4096,
    1,000,000, 2^23 with rows in the sink slot}, sum/min/max over int64
@@ -35,7 +43,10 @@ script exits non-zero without printing a result:
    on the card (integers and float min/max exactly, float sums within
    ``FSUM_RTOL`` of the slot's sum of |v|, and bit-equal between two
    launches), with kernel, plain, library-yardstick (``index_add_``,
-   ``scatter_reduce_``) and memory-bound times;
+   ``scatter_reduce_``) and memory-bound times; then at the high-NDV
+   paths' shape (8,388,608 rows, 6,000,000 live, G = 2^22 and 2^23,
+   int64 gids in segment order and in a random order), int64 sum and
+   count, measured only;
 5. reference: a small lineitem through the port on the GPU and through
    its plain path on the CPU, for the SCATTER queries A and B, TPC-H Q1,
    Q6 and Q19, and the slice-4 statements (SORT and SEGMENT also over a
@@ -55,8 +66,11 @@ script exits non-zero without printing a result:
 8. slice 4: lineitem at ``--s4-sf`` (five columns) and the five
    statements of ``build_s4`` through ``CopClient(device="cuda")``
    (SORT and SEGMENT by ``execute_agg``, TopN, Limit and a filtered
-   projection by ``execute_rows``), each equal to a numpy oracle, the
-   int64 kernels' launches equal to the passes ``stable_argsort`` ran;
+   projection by ``execute_rows``), each equal to a numpy oracle,
+   ``radix_onesweep64``'s launches (counted by the C entry where it
+   issues each one) equal to the passes ``stable_argsort`` planned,
+   ``radix_hist_all64``'s to the keys it sorted, and no per-pass radix
+   kernel launched;
 9. the ``kernels`` JSON line, then the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -105,16 +119,19 @@ def nvidia_smi() -> str:
 
 
 def cuda_ms(torch, fn, reps: int = REPS, flush=None,
-            clean: bool = False) -> float:
+            clean: bool = False, prep=None) -> float:
     """Median milliseconds of ``fn`` by CUDA events, one launch per
     sample after a warm-up; ``flush`` (a large tensor) is overwritten
     before each sample so inputs come from HBM, not the 50 MB L2.  The
     overwrite leaves the L2 full of dirty lines, which the sample writes
     back as it evicts them, as a pass meets the lines the previous pass
     wrote; ``clean=True`` reads ``flush`` instead, so the L2 holds clean
-    lines and the sample pays for its own bytes only."""
+    lines and the sample pays for its own bytes only.  ``prep`` runs
+    before each sample, outside the timed window (a workspace to zero)."""
     times = []
     for i in range(reps + 1):
+        if prep is not None:
+            prep()
         if flush is not None and clean:
             flush.sum()
         elif flush is not None:
@@ -288,12 +305,105 @@ def kernel_phase(torch, rk, radix, dev) -> dict:
 
 
 # --------------------------------------------------------------------- #
-# phase 3b: the int64 instantiation and stable_argsort
+# phase 3b: the onesweep kernels and stable_argsort
 # --------------------------------------------------------------------- #
 
-SORT_PASS_BYTES = 32    # a row a pass: 8 read by radix_hist64, 12 read
-                        # and 12 written by radix_scatter64
+SORT_PASS_BYTES = 24    # a row a onesweep pass: 8 + 4 read, 8 + 4 written
+SORT_HIST_BYTES = 8     # a row a key: radix_hist_all64 reads the key once
+SORT_LAST_BYTES = 8     # a row a key: its last pass stores no key
 SORT_GATHER_BYTES = 20  # a row a key gather: index, key read, key written
+PER_PASS_BYTES = 32     # a row a per-pass pass: 8 read by radix_hist64, 12
+                        # read and 12 written by radix_scatter64
+I64_MIN, I64_MAX = -(1 << 63), (1 << 63) - 1
+
+
+def onesweep_keys(torch, dev) -> dict:
+    """int64 keys of one SF=1 device batch for the onesweep kernels: one
+    uniform 64-bit key, query A's skew on SEGMENT's hash (28.5% of the
+    rows, the dead ones, at INT64_MAX) and one value everywhere (a
+    single digit at every shift)."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(6)
+    n = KERNEL_ROWS
+    uni = torch.randint(I64_MIN, I64_MAX, (n,), generator=gen, device=dev,
+                        dtype=torch.int64)
+    skew = uni.clone()
+    skew[torch.rand(n, generator=gen, device=dev) >= LIVE_SHARE_A] = I64_MAX
+    return {"uniform 64-bit": uni, "tail skew": skew,
+            "one value": torch.full((n,), -0x2A5A5A5A5A5A5A5A,
+                                    dtype=torch.int64, device=dev)}
+
+
+def time_onesweep(torch, os1, rk, key, val, flush) -> dict:
+    """``radix_hist_all64`` (8 digits) and ``radix_onesweep64`` (shift 0)
+    exactly against their plain versions and the per-pass kernels,
+    with kernel, plain, library and bound times."""
+    n = key.numel()
+    dev = key.device
+    out = {}
+    hist = os1.radix_hist_all64(key, 8)
+    plain = os1.radix_hist_all64_plain(key, 8)
+    torch.cuda.synchronize()
+    err_h = int((hist - plain).abs().max())
+    check(torch.equal(hist, plain), "radix_hist_all64 != its plain version")
+    for p in range(8):
+        check(torch.equal(hist[p], rk.radix_hist(key, 8 * p).sum(
+            0, dtype=torch.int32)), f"radix_hist_all64 digit {p} != the "
+              "radix_hist64 summed")
+    h2 = torch.empty_like(hist)
+    digits = [(key ^ I64_MIN) >> (8 * p) & 255 for p in range(8)]
+    for p in range(8):
+        check(torch.equal(torch.bincount(digits[p], minlength=256).to(
+            torch.int32), hist[p]), "bincount yardstick != radix_hist_all64")
+    b_ms, b_by = bound_ms(8 * n + 8 * 256 * 4, 8 * n)
+    out["radix_hist_all64"] = dict(
+        ms=cuda_ms(torch, lambda: os1.launch_hist_all(key, 8, h2),
+                   flush=flush, prep=h2.zero_),
+        plain_ms=cuda_ms(torch, lambda: os1.radix_hist_all64_plain(key, 8),
+                         reps=3, flush=flush),
+        library_ms=cuda_ms(torch, lambda: [torch.bincount(
+            d, minlength=256) for d in digits], flush=flush),
+        bound_ms=b_ms, bound_by=b_by, max_abs_err=err_h)
+    del digits
+
+    hp = hist[0]
+    got = os1.radix_onesweep64(key, val, hp, 0)
+    plain = os1.radix_onesweep64_plain(key, val, hp, 0)
+    ref = rk.counting_sort_pass(key, val, 0)
+    torch.cuda.synchronize()
+    err_p = max(int((g - q).abs().max()) for g, q in zip(got, plain))
+    check(torch.equal(got[0], plain[0]) and torch.equal(got[1], plain[1]),
+          "radix_onesweep64 != its plain version")
+    check(torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1]),
+          "radix_onesweep64 != counting_sort_pass")
+    _, v_only = os1.radix_onesweep64(key, val, hp, 0, store_key=False)
+    check(torch.equal(v_only, ref[1]), "radix_onesweep64 without the key "
+          "store != counting_sort_pass")
+    dig = (key ^ I64_MIN) & 255
+    check(torch.equal(val[torch.sort(dig, stable=True).indices], got[1]),
+          "stable sort yardstick != radix_onesweep64")
+    status = torch.zeros(os1.status_words(n), dtype=torch.int64, device=dev)
+    counter = torch.zeros(1, dtype=torch.int32, device=dev)
+    k2, v2 = torch.empty_like(key), torch.empty_like(val)
+    err = rk.new_err(dev)
+
+    def zero():
+        status.zero_()
+        counter.zero_()
+    b_ms, b_by = bound_ms(SORT_PASS_BYTES * n + 256 * 4, 4 * n)
+    out["radix_onesweep64"] = dict(
+        ms=cuda_ms(torch, lambda: os1.launch_pass(
+            key, val, hp, status, counter, 0, k2, v2, err), flush=flush,
+            prep=zero),
+        plain_ms=cuda_ms(torch, lambda: os1.radix_onesweep64_plain(
+            key, val, hp, 0), reps=3, flush=flush),
+        library_ms=cuda_ms(torch, lambda: torch.sort(dig, stable=True),
+                           flush=flush),
+        bound_ms=b_ms, bound_by=b_by, max_abs_err=err_p)
+    check(int(err.item()) == 0, "a timed onesweep launch reported an error")
+    out["per_pass_ms"] = cuda_ms(torch, lambda: rk.counting_sort_pass(
+        key, val, 0), flush=flush)
+    return out
 
 
 def sort_cases(torch, dev) -> dict:
@@ -312,7 +422,7 @@ def sort_cases(torch, dev) -> dict:
     dead = (torch.rand(n, generator=gen, device=dev)
             >= LIVE_SHARE_A).to(torch.int32)
     zeros = torch.zeros(n, dtype=torch.int32, device=dev)
-    return {"uniform 64-bit": [ints(-(1 << 63), (1 << 63) - 1)],
+    return {"uniform 64-bit": [ints(I64_MIN, I64_MAX)],
             "23-bit": [ints(0, 1 << 23)],
             "TopN keys": [dead, zeros, ~ints(90_000, 10_500_000), zeros,
                           ints(1, 6_000_000)]}
@@ -329,16 +439,41 @@ def library_argsort(torch, keys):
     return perm
 
 
-def sort_phase(torch, rk, S, dev) -> dict:
-    """The int64 kernels at shift 0 on the uniform key against their
-    plain versions (the ``kernels`` line's int64 entries), then
-    ``stable_argsort`` on each key set, exactly against its plain
-    version and the library sort on the card, with kernel, plain,
-    library and bound times."""
+def per_pass_argsort(torch, rk, S, keys):
+    """The second yardstick, the per-pass ``stable_argsort``: the same LSD sort
+    with one ``counting_sort_pass`` (``radix_hist64``, the offsets'
+    torch ops, ``radix_scatter64``) a digit and one error read."""
+    n, dev = keys[0].numel(), keys[0].device
+    err = rk.new_err(dev)
+    perm = None
+    for key, passes in zip(reversed(keys), reversed(S.plan_passes(keys))):
+        if passes == 0:
+            continue
+        k = (key if perm is None else key[perm]).to(torch.int64)
+        v = (torch.arange(n, dtype=torch.int32, device=dev)
+             if perm is None else perm)
+        for p in range(passes):
+            k, v = rk.counting_sort_pass(k.contiguous(), v, 8 * p, err)
+        perm = v
+    rk.read_err(err, "per_pass_argsort")
+    if perm is None:
+        return torch.arange(n, dtype=torch.int64, device=dev)
+    return perm.to(torch.int64)
+
+
+def sort_phase(torch, rk, os1, S, dev) -> dict:
+    """The int64 per-pass kernels at shift 0 on the uniform key against
+    their plain versions; the onesweep kernels on three keys against
+    theirs and the per-pass kernels (the ``kernels`` line takes the
+    uniform key's); then ``stable_argsort`` on each key set, exactly
+    against its plain version, the library sort and the per-pass sort
+    on the card, with kernel, plain, library, per-pass and bound times,
+    and its launches: one ``radix_hist_all64`` a key with passes, one
+    ``radix_onesweep64`` a pass, none of the per-pass kernels."""
     flush = torch.empty(64 << 20, dtype=torch.int32, device=dev)  # 256 MiB
-    cases = sort_cases(torch, dev)
     val = torch.arange(KERNEL_ROWS, dtype=torch.int32, device=dev)
-    r = time_kernels(torch, rk, cases["uniform 64-bit"][0], val, flush)
+    keys64 = onesweep_keys(torch, dev)
+    r = time_kernels(torch, rk, keys64["uniform 64-bit"], val, flush)
     for name in ("radix_hist64", "radix_scatter64"):
         k = r[name]
         print(f"kernel {name} [uniform 64-bit]: n={KERNEL_ROWS} "
@@ -351,33 +486,66 @@ def sort_phase(torch, rk, S, dev) -> dict:
     print(f"pass counting_sort_pass int64 [uniform 64-bit]: "
           f"n={KERNEL_ROWS} exact=True ms={r['pass_ms']:.4f} "
           f"plain_1bit_ms={r['pass_plain_ms']:.4f}")
-    for name, keys in cases.items():
+    kern = {name: r[name] for name in ("radix_hist64", "radix_scatter64")}
+    for dist, key in keys64.items():
+        o = time_onesweep(torch, os1, rk, key, val, flush)
+        for name in ("radix_hist_all64", "radix_onesweep64"):
+            k = o[name]
+            print(f"kernel {name} [{dist}]: n={KERNEL_ROWS} "
+                  f"tile={os1.KERNEL_TILE} exact=True "
+                  f"equals_per_pass=True kernel_ms={k['ms']:.4f} "
+                  f"plain_ms={k['plain_ms']:.4f} "
+                  f"library_ms={k['library_ms']:.4f} "
+                  f"bound_ms={k['bound_ms']:.4f} ({k['bound_by']}) "
+                  f"of_bound={k['bound_ms'] / k['ms']:.3f}")
+        print(f"pass counting_sort_pass int64 (per-pass kernels) [{dist}]: "
+              f"n={KERNEL_ROWS} ms={o['per_pass_ms']:.4f}")
+        if dist == "uniform 64-bit":
+            kern.update({name: o[name] for name in ("radix_hist_all64",
+                                                    "radix_onesweep64")})
+    del keys64
+    for name, keys in sort_cases(torch, dev).items():
         plan = S.plan_passes(keys)
         passes = sum(plan)
-        gathers = max(sum(1 for p in plan if p) - 1, 0)
-        before = dict(rk.LAUNCHES)
+        sorted_keys = sum(1 for p in plan if p)
+        gathers = max(sorted_keys - 1, 0)
+        before, before_os = dict(rk.LAUNCHES), dict(os1.LAUNCHES)
         got = S.stable_argsort(keys)
-        launched = rk.LAUNCHES["radix_hist64"] - before["radix_hist64"]
-        check(launched == passes, f"stable_argsort [{name}]: {launched} "
-              f"launches for {passes} passes")
+        ran = {k: os1.LAUNCHES[k] - before_os[k] for k in os1.LAUNCHES}
+        check(ran == {"radix_hist_all64": sorted_keys,
+                      "radix_onesweep64": passes},
+              f"stable_argsort [{name}]: launches {ran} for {sorted_keys} "
+              f"keys and {passes} passes")
+        check(rk.LAUNCHES == before,
+              f"stable_argsort [{name}] launched a per-pass kernel")
         check(torch.equal(got, S.stable_argsort_plain(keys)),
               f"stable_argsort [{name}] != stable_argsort_plain")
         check(torch.equal(got, library_argsort(torch, keys)),
               f"stable_argsort [{name}] != the library sort")
+        check(torch.equal(got, per_pass_argsort(torch, rk, S, keys)),
+              f"stable_argsort [{name}] != the per-pass sort")
         ms = cuda_ms(torch, lambda: S.stable_argsort(keys), flush=flush)
         plain_ms = cuda_ms(torch, lambda: S.stable_argsort_plain(keys),
                            reps=3, flush=flush)
         lib_ms = cuda_ms(torch, lambda: library_argsort(torch, keys),
                          flush=flush)
-        b_ms, b_by = bound_ms((SORT_PASS_BYTES * passes
-                               + SORT_GATHER_BYTES * gathers) * KERNEL_ROWS,
-                              KERNEL_ROWS * passes)
+        pp_ms = cuda_ms(torch, lambda: per_pass_argsort(torch, rk, S, keys),
+                         flush=flush)
+        nbytes = (SORT_PASS_BYTES * passes
+                  + (SORT_HIST_BYTES - SORT_LAST_BYTES) * sorted_keys
+                  + SORT_GATHER_BYTES * gathers) * KERNEL_ROWS
+        b_ms, b_by = bound_ms(nbytes, KERNEL_ROWS * passes)
+        pp_b_ms, _ = bound_ms((PER_PASS_BYTES * passes
+                                + SORT_GATHER_BYTES * gathers) * KERNEL_ROWS,
+                               KERNEL_ROWS * passes)
         print(f"sort stable_argsort [{name}]: n={KERNEL_ROWS} "
               f"keys={len(keys)} passes={passes} gathers={gathers} "
               f"exact=True ms={ms:.4f} plain_ms={plain_ms:.4f} "
-              f"library_ms={lib_ms:.4f} bound_ms={b_ms:.4f} ({b_by}) "
-              f"of_bound={b_ms / ms:.3f}")
-    return {name: r[name] for name in ("radix_hist64", "radix_scatter64")}
+              f"library_ms={lib_ms:.4f} per_pass_ms={pp_ms:.4f} "
+              f"bound_ms={b_ms:.4f} ({b_by}) of_bound={b_ms / ms:.3f} "
+              f"per_pass_bound_ms={pp_b_ms:.4f} "
+              f"launches=hist_all:{sorted_keys},onesweep:{passes}")
+    return kern
 
 
 # --------------------------------------------------------------------- #
@@ -509,6 +677,83 @@ def group_reduce_phase(torch, gr, dev) -> dict:
     main = dict(results[(12, "int64", "sum")])
     main["max_abs_err"] = max_err
     return main
+
+
+# the high-NDV paths' shape: one SF=1 batch; 6,000,000 live rows in
+# 3,793,365 groups (SORT's table of 4,194,304) or 5,999,988 (SEGMENT's
+# of 8,388,608)
+GR_HIGH = ((1 << 22, 3_793_365), (1 << 23, 5_999_988))
+GR_HIGH_LIVE = 6_000_000
+
+
+def gr_high_inputs(torch, dev, G: int, groups: int, order: str):
+    """Mask and int64 gids of the segment reduce at the high-NDV shape:
+    the live rows first, in segment order (every group of ``[0, groups)``
+    present, sorted, as ``states_from_partition`` receives them after
+    ``stable_argsort``), the dead rows after them in the sink slot G; or
+    the same rows in a random order."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(G + len(order))
+    n, live = KERNEL_ROWS, GR_HIGH_LIVE
+    extra = torch.randint(0, groups, (live - groups,), generator=gen,
+                          device=dev, dtype=torch.int64)
+    gids = torch.full((n,), G, dtype=torch.int64, device=dev)
+    gids[:live] = torch.sort(torch.cat([torch.arange(
+        groups, device=dev, dtype=torch.int64), extra])).values
+    mask = torch.arange(n, device=dev) < live
+    if order == "random":
+        perm = torch.randperm(n, generator=gen, device=dev)
+        gids, mask = gids[perm], mask[perm]
+    return mask, gids
+
+
+def group_reduce_high_ndv(torch, gr, dev) -> dict:
+    """``group_reduce`` at the high-NDV paths' shape (measured, not part
+    of the main path's kernel entry): int64 sum and count over
+    8,388,608 rows for G = 2^22 and 2^23, gids in segment order and in
+    a random order, each equal to its plain version and to the
+    ``index_add_`` yardstick, with kernel, plain, library and bound
+    times."""
+    flush = torch.empty(64 << 20, dtype=torch.int32, device=dev)  # 256 MiB
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(11)
+    vals = torch.randint(-(1 << 62), 1 << 62, (KERNEL_ROWS,), generator=gen,
+                         device=dev, dtype=torch.int64)
+    out = {}
+    for G, groups in GR_HIGH:
+        for order in ("sorted", "random"):
+            mask, gids = gr_high_inputs(torch, dev, G, groups, order)
+            for what in ("sum", "count"):
+                v = vals if what == "sum" else mask.to(torch.int64)
+                got = gr.group_reduce(v, mask, gids, G, "sum")
+                want = gr.group_reduce_plain(v, mask, gids, G, "sum")
+                check(torch.equal(got, want), f"group_reduce high-NDV G={G} "
+                      f"{order} {what} != plain")
+                gsink = torch.where(mask, gids, G)
+
+                def lib():
+                    return torch.zeros(G + 1, dtype=torch.int64,
+                                       device=dev).index_add_(0, gsink, v)
+                check(torch.equal(lib()[:G], got), f"index_add_ G={G} "
+                      f"{order} {what} != group_reduce")
+                ms = cuda_ms(torch, lambda: gr.group_reduce(
+                    v, mask, gids, G, "sum"), flush=flush)
+                plain_ms = cuda_ms(torch, lambda: gr.group_reduce_plain(
+                    v, mask, gids, G, "sum"), flush=flush)
+                lib_ms = cuda_ms(torch, lib, flush=flush)
+                b_ms, b_by = bound_ms(KERNEL_ROWS * (8 + 1 + 8) + G * 8,
+                                      KERNEL_ROWS)
+                out[(G, order, what)] = dict(ms=ms, plain_ms=plain_ms,
+                                             library_ms=lib_ms,
+                                             bound_ms=b_ms)
+                print(f"kernel group_reduce high-NDV [G={G} {order} gids "
+                      f"int64 {what}]: n={KERNEL_ROWS} live={GR_HIGH_LIVE} "
+                      f"groups={groups} table={gr.table_mode(G)} exact=True "
+                      f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
+                      f"library_ms={lib_ms:.4f} bound_ms={b_ms:.4f} "
+                      f"({b_by}) of_bound={b_ms / ms:.3f}")
+            del mask, gids
+    return out
 
 
 def expected_reduces(agg) -> int:
@@ -1094,14 +1339,16 @@ def _rows_arrays(cols) -> list:
             if c.data.dtype == object else np.asarray(c.data) for c in cols]
 
 
-def slice4_phase(torch, rk, gr, S, sf: float) -> dict:
+def slice4_phase(torch, rk, os1, gr, S, sf: float) -> dict:
     """The five slice-4 statements on one 8-shard lineitem snapshot at
     ``sf`` through ``CopClient(device="cuda")``: SORT and SEGMENT by
     ``execute_agg``, TopN, Limit and the filtered projection by
     ``execute_rows``, each equal to the numpy oracle (TopN re-trimmed to
-    its top 10, as the root does); the int64 kernels' launches equal the
-    passes ``stable_argsort`` ran, and group_reduce's the reductions the
-    aggregations' programs imply.  Returns the launch counts."""
+    its top 10, as the root does); ``radix_onesweep64``'s launches equal
+    the passes ``stable_argsort`` ran, ``radix_hist_all64``'s the keys it
+    sorted, none of the per-pass radix kernels ran, and group_reduce's
+    launches equal the reductions the aggregations' programs imply.
+    Returns the launch counts."""
     from tidb_tpu_torch.copr import dag as D
     from tidb_tpu_torch.store import CopClient
     t0 = time.perf_counter()
@@ -1109,7 +1356,7 @@ def slice4_phase(torch, rk, gr, S, sf: float) -> dict:
     n_rows = snap.num_rows
     print(f"data: lineitem sf={sf} rows={n_rows} columns={len(S4_COLS)} "
           f"gen_s={time.perf_counter() - t0:.2f}")
-    reset((rk.LAUNCHES, gr.LAUNCHES, S.PASSES))  # counts of this path only
+    reset((rk.LAUNCHES, os1.LAUNCHES, gr.LAUNCHES, S.PASSES))  # this path's
     reduces = 0
     res = None
     for which in S4_QUERIES:
@@ -1160,29 +1407,36 @@ def slice4_phase(torch, rk, gr, S, sf: float) -> dict:
               f"hash_ms={t.get('hash', 0.0) * 1e3:.1f} "
               f"device_ms={t['device'] * 1e3:.1f} "
               f"transfer_ms={t['transfer'] * 1e3:.1f} {split} exact=True")
-    counts = {k: rk.LAUNCHES[k] for k in ("radix_hist64", "radix_scatter64")}
-    for name, c in counts.items():
-        check(c == S.PASSES["stable_argsort"] and c > 0,
-              f"{name}: {c} launches for {S.PASSES['stable_argsort']} "
-              "stable_argsort passes")
-    check(rk.LAUNCHES["radix_hist"] == 0, "slice 4 ran an int32 pass")
+    counts = dict(os1.LAUNCHES)
+    check(counts["radix_onesweep64"] == S.PASSES["stable_argsort"]
+          and counts["radix_onesweep64"] > 0,
+          f"radix_onesweep64: {counts['radix_onesweep64']} launches for "
+          f"{S.PASSES['stable_argsort']} stable_argsort passes")
+    check(counts["radix_hist_all64"] == S.PASSES["stable_argsort_keys"]
+          and counts["radix_hist_all64"] > 0,
+          f"radix_hist_all64: {counts['radix_hist_all64']} launches for "
+          f"{S.PASSES['stable_argsort_keys']} sorted keys")
+    check(not any(rk.LAUNCHES.values()),
+          f"slice 4 launched a per-pass radix kernel: {rk.LAUNCHES}")
     check(gr.LAUNCHES["group_reduce"] == reduces,
           f"group_reduce: {gr.LAUNCHES['group_reduce']} slice-4 launches")
-    print(f"slice4 launches: radix_hist64={counts['radix_hist64']} "
-          f"radix_scatter64={counts['radix_scatter64']} "
+    print(f"slice4 launches: radix_hist_all64={counts['radix_hist_all64']} "
+          f"radix_onesweep64={counts['radix_onesweep64']} "
+          f"stable_argsort_keys={S.PASSES['stable_argsort_keys']} "
           f"stable_argsort_passes={S.PASSES['stable_argsort']} "
-          f"group_reduce={reduces}")
+          f"radix_hist64=0 radix_scatter64=0 group_reduce={reduces}")
+    counts.update(radix_hist64=0, radix_scatter64=0)
     return counts
 
 
-def build_phase(rk, gr) -> None:
-    """Both kernel libraries from the checkout's sources, one nvcc each,
-    started together."""
+def build_phase(*modules) -> None:
+    """The kernel libraries of ``modules`` from the checkout's sources,
+    one nvcc each, started together."""
     from tidb_tpu_torch.copr.cuda import build as kb
     t0 = time.perf_counter()
-    sos = kb.build_all([rk.LIBRARY.src, gr.LIBRARY.src])
-    rk.LIBRARY.get()
-    gr.LIBRARY.get()
+    sos = kb.build_all([m.LIBRARY.src for m in modules])
+    for m in modules:
+        m.LIBRARY.get()
     regs = [ln.strip() for log in kb.BUILD_LOG for ln in log.splitlines()
             if "registers" in ln or "spill" in ln]
     print(f"build: {' '.join(so.name for so in sos)} "
@@ -1230,36 +1484,43 @@ def main() -> int:
         time_scatter_permutation(torch, radix, dev, flush)
         return 0
     from tidb_tpu_torch.copr.cuda import group_reduce as gr
+    from tidb_tpu_torch.copr.cuda import onesweep as os1
     from tidb_tpu_torch.ops import sort as S
 
-    build_phase(rk, gr)
+    build_phase(rk, gr, os1)
     kern = kernel_phase(torch, rk, radix, dev)
-    kern.update(sort_phase(torch, rk, S, dev))
+    kern.update(sort_phase(torch, rk, os1, S, dev))
     kern["group_reduce"] = group_reduce_phase(torch, gr, dev)
+    group_reduce_high_ndv(torch, gr, dev)
     reference_phase(torch, dev)
     reference_phase4(torch, dev)
     counts = slice_phase(torch, rk, gr, args.sf)
     counts["group_reduce"] = main_path_phase(torch, gr, args.main_sf)
-    counts.update(slice4_phase(torch, rk, gr, S, args.s4_sf))
+    counts.update(slice4_phase(torch, rk, os1, gr, S, args.s4_sf))
 
     cu = "tidb_tpu_torch/copr/cuda/"
     sources = {"radix_hist": cu + "radix_kernel.cu",
                "radix_scatter": cu + "radix_kernel.cu",
                "radix_hist64": cu + "radix_kernel.cu",
                "radix_scatter64": cu + "radix_kernel.cu",
-               "group_reduce": cu + "group_reduce.cu"}
+               "group_reduce": cu + "group_reduce.cu",
+               "radix_hist_all64": cu + "onesweep.cu",
+               "radix_onesweep64": cu + "onesweep.cu"}
+    sort_sites = ("lax.sort at tidb_tpu/copr/exec.py:340, :579 and "
+                  "tidb_tpu/copr/segment.py:178")
     replaces = {"radix_hist": "tidb_tpu/copr/pallas/radix_kernel.py:92",
                 "radix_scatter": "tidb_tpu/copr/pallas/radix_kernel.py:105",
                 "radix_hist64": "tidb_tpu/copr/pallas/radix_kernel.py:92 "
-                                "(the pass under lax.sort at "
-                                "tidb_tpu/copr/exec.py:340, :579 and "
-                                "tidb_tpu/copr/segment.py:178)",
+                                f"(the per-pass reference of the {sort_sites}"
+                                "; on no query path)",
                 "radix_scatter64": "tidb_tpu/copr/pallas/radix_kernel.py:105 "
-                                   "(the pass under lax.sort at "
-                                   "tidb_tpu/copr/exec.py:340, :579 and "
-                                   "tidb_tpu/copr/segment.py:178)",
+                                   "(the per-pass reference of the "
+                                   f"{sort_sites}; on no query path)",
                 "group_reduce":
-                    "tidb_tpu/copr/exec.py:87 _reduce (XLA-fused)"}
+                    "tidb_tpu/copr/exec.py:87 _reduce (XLA-fused)",
+                "radix_hist_all64": f"{sort_sites} (the histograms of a "
+                                    "key's passes)",
+                "radix_onesweep64": f"{sort_sites} (a pass)"}
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": sources[name],
          "replaces": replaces[name], "launches": counts[name],

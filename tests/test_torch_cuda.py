@@ -1,7 +1,9 @@
 """The port's CUDA kernels on a GPU, against their plain PyTorch versions.
 
-The radix counting-sort kernels (int32 and int64 keys) and
-``stable_argsort`` equal their plain versions bit for bit, and the
+The radix counting-sort kernels (int32 and int64 keys), the onesweep
+kernels (``radix_hist_all64``, ``radix_onesweep64``) and
+``stable_argsort`` equal their plain versions bit for bit, the onesweep
+pass equals the int64 ``counting_sort_pass`` too, and the
 slice-4 statements (SORT, SEGMENT, TopN, Limit, filtered rows) through
 ``CopClient(device="cuda")`` equal the plain CPU path;
 ``group_reduce`` equals its plain version (computed on the CPU, whose
@@ -23,6 +25,7 @@ from tidb_tpu_torch.copr import dag as D
 from tidb_tpu_torch.copr import radix
 from tidb_tpu_torch.copr.aggregate import GroupKeyMeta
 from tidb_tpu_torch.copr.cuda import group_reduce as gr
+from tidb_tpu_torch.copr.cuda import onesweep as os1
 from tidb_tpu_torch.copr.cuda import radix_kernel as rk
 from tidb_tpu_torch.expr.ir import ColumnRef
 from tidb_tpu_torch.parallel.spmd import ShardedCopProgram
@@ -247,8 +250,9 @@ def test_int64_unaligned_tensors_take_the_scalar_loads(dev):
 def test_stable_argsort_on_gpu_equals_plain(dev, n):
     """The TopN key set (dead flag, null flags, ~price, orderkey), the
     SORT key set and one uniform 64-bit key: the permutation on the card
-    equals the plain path's on the CPU, and the int64 kernels launched
-    once each a pass."""
+    equals the plain path's on the CPU; the onesweep kernels launched
+    once a key with passes and once a pass, and the per-pass
+    kernels not at all."""
     from tidb_tpu_torch.ops import sort as S
     rng = np.random.default_rng(n)
     flag = torch.from_numpy(rng.integers(0, 2, n).astype(np.int32))
@@ -262,13 +266,145 @@ def test_stable_argsort_on_gpu_equals_plain(dev, n):
     for name, keys in sets.items():
         want = S.stable_argsort(keys)
         before = dict(rk.LAUNCHES)
-        passes = S.PASSES["stable_argsort"]
+        before_os = dict(os1.LAUNCHES)
+        passes = dict(S.PASSES)
         got = S.stable_argsort([k.to(dev) for k in keys])
-        ran = S.PASSES["stable_argsort"] - passes
+        ran = S.PASSES["stable_argsort"] - passes["stable_argsort"]
+        sorted_keys = S.PASSES["stable_argsort_keys"] \
+            - passes["stable_argsort_keys"]
         assert torch.equal(got.cpu(), want), name
-        assert rk.LAUNCHES["radix_hist64"] - before["radix_hist64"] == ran
-        assert rk.LAUNCHES["radix_scatter64"] - before["radix_scatter64"] \
-            == ran
+        assert sorted_keys == sum(1 for p in S.plan_passes(keys) if p)
+        assert os1.LAUNCHES["radix_onesweep64"] \
+            - before_os["radix_onesweep64"] == ran
+        assert os1.LAUNCHES["radix_hist_all64"] \
+            - before_os["radix_hist_all64"] == sorted_keys
+        assert rk.LAUNCHES == before, name
+
+
+# ------------------------------------------------------------------ #
+# the onesweep kernels
+# ------------------------------------------------------------------ #
+
+def _onesweep_rows(n, dev):
+    """A row count, or "4x SMs": a ragged count of at least four tiles an
+    SM, so that blocks wait on each other's look-back."""
+    if n != "4x SMs":
+        return n
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    return 4 * sms * os1.KERNEL_TILE + 77
+
+
+def _assert_onesweep_equals_plain(key, val, shifts):
+    """The histogram of every digit equals its plain version and the
+    per-tile histograms summed; each pass at ``shifts`` equals its plain
+    version and the per-pass ``counting_sort_pass`` bit for bit, with and
+    without the key store; each wrapper launched its kernel."""
+    before = dict(os1.LAUNCHES)
+    hist = os1.radix_hist_all64(key, 8)
+    assert hist.shape == (8, rk.N_DIGITS) and hist.dtype == torch.int32
+    assert torch.equal(hist, os1.radix_hist_all64_plain(key, 8))
+    for p in range(8):
+        assert torch.equal(hist[p], rk.radix_hist_plain(key, 8 * p).sum(
+            0, dtype=torch.int32))
+    for shift in shifts:
+        hp = hist[shift // 8].contiguous()
+        k_out, v_out = os1.radix_onesweep64(key, val, hp, shift)
+        pk, pv = os1.radix_onesweep64_plain(key, val, hp, shift)
+        ref = rk.counting_sort_pass(key, val, shift)
+        assert torch.equal(k_out, pk) and torch.equal(v_out, pv)
+        assert torch.equal(k_out, ref[0]) and torch.equal(v_out, ref[1])
+        none, v_only = os1.radix_onesweep64(key, val, hp, shift,
+                                            store_key=False)
+        assert none is None and torch.equal(v_only, ref[1])
+    assert os1.LAUNCHES["radix_hist_all64"] == before["radix_hist_all64"] + 1
+    assert os1.LAUNCHES["radix_onesweep64"] \
+        == before["radix_onesweep64"] + 2 * len(shifts)
+
+
+@pytest.mark.parametrize("dist", ["uniform", "one value", "23-bit",
+                                  "dead rows"])
+@pytest.mark.parametrize("n", [1, 8191, 8193, 3 * 8192 + 5, "4x SMs",
+                               8_388_608])
+def test_onesweep_kernels_equal_plain(dev, n, dist):
+    """Ragged and whole tiles, blocks that wait on each other, the
+    slice's batch, every digit skew: one value everywhere (one digit at
+    every shift, the longest look-back chains), an orderkey's 23 bits,
+    SEGMENT's dead rows at INT64_MAX."""
+    n = _onesweep_rows(n, dev)
+    key = _keys64(n, n + 1, dist, dev)
+    val = torch.randperm(n, device=dev).to(torch.int32)
+    _assert_onesweep_equals_plain(key, val, (0, 16, 56))
+
+
+@pytest.mark.parametrize("dist", ["uniform", "one value", "dead rows"])
+@pytest.mark.parametrize("n", [1, 8193, "4x SMs", 8_388_608])
+def test_onesweep_sort_equals_per_pass_sort(dev, n, dist):
+    """One C call a key (memset, histogram, passes, no key store on the
+    last) equals the per-pass sort chained, for every number of passes, with
+    values given and with the row indices made by the kernel."""
+    n = _onesweep_rows(n, dev)
+    key = _keys64(n, n + 2, dist, dev)
+    val = torch.arange(n, dtype=torch.int32, device=dev)
+    k, v = key, val
+    for passes in range(1, 9):
+        k, v = rk.counting_sort_pass(k, v, 8 * (passes - 1))
+        before = dict(os1.LAUNCHES)
+        got = os1.onesweep_sort(key, val, passes)
+        assert torch.equal(got, v), passes
+        # the row indices made by the first pass, the int64 permutation
+        # written by the last
+        wide = os1.onesweep_sort(key, None, passes, wide=True)
+        assert wide.dtype == torch.int64 and torch.equal(wide, v.long())
+        assert os1.LAUNCHES["radix_onesweep64"] \
+            == before["radix_onesweep64"] + 2 * passes
+        assert os1.LAUNCHES["radix_hist_all64"] \
+            == before["radix_hist_all64"] + 2
+
+
+def test_onesweep_unaligned_tensors_take_the_scalar_loads(dev):
+    n = 3 * 8192 + 5
+    key = _keys64(n + 1, 4, "uniform", dev)[1:]
+    val = torch.arange(n + 1, dtype=torch.int32, device=dev)[1:]
+    assert key.data_ptr() % 16 and val.data_ptr() % 16
+    _assert_onesweep_equals_plain(key, val, (0, 56))
+
+
+def test_onesweep_status_word_holds_counts_past_2_30(dev):
+    """One pass whose single digit counts more than 2^30 rows: a 30-bit
+    count in the status word would wrap; the 64-bit word does not.  The
+    last 8193 rows take other digits, so they land past 2^30."""
+    n = (1 << 30) + 8193
+    if torch.cuda.get_device_properties(dev).total_memory < 40 * 2 ** 30:
+        pytest.skip("needs 40 GiB on the card")
+    key = torch.zeros(n, dtype=torch.int64, device=dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(7)
+    key[-8193:] = torch.randint(0, 256, (8193,), generator=gen, device=dev,
+                                dtype=torch.int64) ^ I64_MIN
+    val = torch.arange(n, dtype=torch.int32, device=dev)
+    hist = os1.radix_hist_all64(key, 1)
+    assert int(hist.max()) > 1 << 30
+    want = rk.counting_sort_pass(key, val, 0)[1]
+    got = os1.radix_onesweep64(key, val, hist[0], 0, store_key=False)[1]
+    assert torch.equal(got, want)
+    del got
+    assert torch.equal(os1.onesweep_sort(key, val, 1), want)
+
+
+def test_onesweep_reports_positions_outside_n(dev):
+    """A histogram that does not describe the key sends rows past n: the
+    kernel skips their stores and sets the error flag, which raises."""
+    n = 3 * 8192 + 5
+    key = _keys64(n, 5, "uniform", dev)
+    val = torch.arange(n, dtype=torch.int32, device=dev)
+    hist = os1.radix_hist_all64(key, 1)[0].clone()
+    hist[0] += 1
+    with pytest.raises(ValueError, match="outside"):
+        os1.radix_onesweep64(key, val, hist, 0)
+    with pytest.raises(ValueError):
+        os1.radix_onesweep64(key, val, hist.cpu(), 0)
+    with pytest.raises(ValueError):
+        os1.radix_onesweep64(key, val, hist, 4)
 
 
 def test_slice4_paths_on_gpu_equal_cpu(dev):

@@ -5,8 +5,9 @@ The counterpart of the JAX package's native-library loader
 (``copr/nativeops.py``: make, then ctypes).  Each ``.cu`` source of this
 directory has a plain C interface; it is compiled with ``nvcc`` for
 sm_90a into a shared library in ``tidb_tpu_torch/_build/``, named by the
-hash of the source so that a stale library is never reused, and loaded
-with ctypes.  ``build_all`` starts one ``nvcc`` per source at once.
+hash of the source and of the directory's shared headers (``*.cuh``)
+so that a stale library is never reused, and loaded with ctypes.
+``build_all`` starts one ``nvcc`` per source at once.
 
 ``nvcc`` comes from the CUDA toolkit that torch finds (``CUDA_HOME``).
 Nothing here runs when a module is imported: a kernel library is built
@@ -25,9 +26,11 @@ from typing import Callable, Sequence
 
 import torch
 
-BUILD_DIR = Path(__file__).resolve().parents[2] / "_build"
+SRC_DIR = Path(__file__).resolve().parent
+BUILD_DIR = SRC_DIR.parents[1] / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+              "-I", str(SRC_DIR))
 
 BUILD_LOG: list = []     # nvcc/ptxas output of the builds in this process
 
@@ -41,8 +44,11 @@ def nvcc() -> str:
 
 
 def library_path(src: Path) -> Path:
-    """Where the library of this exact source is built."""
-    tag = hashlib.sha256(Path(src).read_bytes()).hexdigest()[:16]
+    """Where the library of this exact source (and headers) is built."""
+    h = hashlib.sha256(Path(src).read_bytes())
+    for header in sorted(SRC_DIR.glob("*.cuh")):
+        h.update(header.read_bytes())
+    tag = h.hexdigest()[:16]
     return BUILD_DIR / f"lib{Path(src).stem}-{tag}.so"
 
 
@@ -105,5 +111,5 @@ def raise_on(rc: int, name: str) -> None:
         raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
 
 
-__all__ = ["BUILD_DIR", "NVCC_FLAGS", "BUILD_LOG", "Library", "build_all",
-           "library_path", "nvcc", "stream_of", "raise_on"]
+__all__ = ["SRC_DIR", "BUILD_DIR", "NVCC_FLAGS", "BUILD_LOG", "Library",
+           "build_all", "library_path", "nvcc", "stream_of", "raise_on"]
