@@ -36,17 +36,23 @@ script exits non-zero without printing a result:
    ``counting_sort_pass`` a digit), with their times and the bound at
    24 bytes a row a pass, its launches one ``radix_hist_all64`` a key
    and one ``radix_onesweep64`` a pass;
-4. group_reduce: the kernel at the main path's row count (67,108,864,
-   one SF=10 device batch) on a random mask, for G in {1, 12, 4096,
-   1,000,000, 2^23 with rows in the sink slot}, sum/min/max over int64
-   and float64 and min/max over int16, each against its plain version
-   on the card (integers and float min/max exactly, float sums within
-   ``FSUM_RTOL`` of the slot's sum of |v|, and bit-equal between two
-   launches), with kernel, plain, library-yardstick (``index_add_``,
-   ``scatter_reduce_``) and memory-bound times; then at the high-NDV
-   paths' shape (8,388,608 rows, 6,000,000 live, G = 2^22 and 2^23,
-   int64 gids in segment order and in a random order), int64 sum and
-   count, measured only;
+4. group_reduce: the one-lane call (``group_reduce``, one lane of the
+   lanes kernel) at the main path's row count (67,108,864, one SF=10
+   device batch) on a random mask, for G in {1, 12, 4096, 1,000,000,
+   2^23 with rows in the sink slot}, sum/min/max over int64 and float64
+   and min/max over int16, each against its plain version on the card
+   (integers and float min/max exactly, float sums within ``FSUM_RTOL``
+   of the slot's sum of |v|, and bit-equal between two launches), with
+   kernel, plain, library-yardstick (``index_add_``,
+   ``scatter_reduce_``) and memory-bound times; then the lane sets of
+   the paths, each one launch (``group_reduce_lanes``): Q1's nine lanes
+   (G = 12, its sources at their placed dtypes), Q6's three (SCALAR),
+   SORT's and SEGMENT's three (8,388,608 rows, 6,000,000 live, G = 2^22
+   and 2^23, int64 gids in segment order and in a random order), each
+   exactly against ``group_reduce_lanes_plain``, with kernel, plain,
+   library (one ``index_add_`` of the stacked lane matrix), bound and
+   a one-lane launch a state field with its eager transforms, as the
+   callers made them before the lane sets;
 5. reference: a small lineitem through the port on the GPU and through
    its plain path on the CPU, for the SCATTER queries A and B, TPC-H Q1,
    Q6 and Q19, and the slice-4 statements (SORT and SEGMENT also over a
@@ -55,22 +61,22 @@ script exits non-zero without printing a result:
 6. SCATTER slice: TPC-H lineitem at ``--sf`` and the two high-NDV GROUP
    BY queries through ``CopClient(device="cuda").execute_agg``, results
    equal to a numpy oracle, the radix kernel launches equal to the radix
-   passes the client ran and the group_reduce launches to the
-   reductions its programs imply;
+   passes the client ran and the group_reduce launches to one a
+   program run (every lane of a state table in one launch);
 7. main path: lineitem at ``--main-sf`` (the nine columns Q1, Q6 and
    Q19 read) and TPC-H Q1, Q6 and Q19 through
    ``CopClient(device="cuda").execute_agg``, results equal to a numpy
    oracle with the predicates of bench.py's np_q1 / np_q6 / np_q19 and
-   exact Python-int sums, and the group_reduce launches of each query
-   equal to what ``_agg_partial_states`` implies;
+   exact Python-int sums, and one group_reduce launch a query (Q1's nine
+   lanes, Q6's and Q19's three);
 8. slice 4: lineitem at ``--s4-sf`` (five columns) and the five
    statements of ``build_s4`` through ``CopClient(device="cuda")``
    (SORT and SEGMENT by ``execute_agg``, TopN, Limit and a filtered
    projection by ``execute_rows``), each equal to a numpy oracle,
    ``radix_onesweep64``'s launches (counted by the C entry where it
    issues each one) equal to the passes ``stable_argsort`` planned,
-   ``radix_hist_all64``'s to the keys it sorted, and no per-pass radix
-   kernel launched;
+   ``radix_hist_all64``'s to the keys it sorted, no per-pass radix
+   kernel launched, and one group_reduce launch a regrow round;
 9. the ``kernels`` JSON line, then the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -613,13 +619,12 @@ def gr_check(torch, gr, got, want, vals, mask, gids, G, how) -> float:
     return 0.0
 
 
-def group_reduce_phase(torch, gr, dev) -> dict:
-    """Every case exact (or within FSUM_RTOL) against the plain version
+def group_reduce_phase(torch, gr, dev) -> float:
+    """The one-lane call (``group_reduce``, one lane of the lanes kernel)
+    in every case exact (or within FSUM_RTOL) against the plain version
     on the card, float sums bit-equal between two launches, with kernel,
-    plain, library and bound times; returns the main path's case
-    (G = 12, int64 sum: Q1's shape) and the largest error."""
+    plain, library and bound times; returns the largest error."""
     flush = torch.empty(64 << 20, dtype=torch.int32, device=dev)  # 256 MiB
-    results = {}
     max_err = 0.0
     inputs = {}
     for G, dtype, how in gr_cases():
@@ -664,19 +669,16 @@ def group_reduce_phase(torch, gr, dev) -> dict:
         nbytes = MAIN_ROWS * (vals.element_size() + 1 + gid_bytes) \
             + G * vals.element_size()
         b_ms, b_by = bound_ms(nbytes, MAIN_ROWS)
-        r = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
-                 bound_by=b_by, max_abs_err=err)
-        results[(G, dtype, how)] = r
+        cols = gr.lane_cols("fsum" if how == "sum" and dtype == "float64"
+                            else how)
         print(f"kernel group_reduce [G={G} {dtype} {how}]: n={MAIN_ROWS} "
-              f"table={gr.table_mode(G)} exact={err == 0.0} "
+              f"table={gr.table_mode(G, cols)} exact={err == 0.0} "
               f"max_abs_err={err:.3g} two_launches_equal={same} "
               f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
               f"library_ms={lib_ms:.4f} bound_ms={b_ms:.4f} ({b_by}) "
               f"of_bound={b_ms / ms:.3f}")
         del vals, got, want, gsink, lib_out
-    main = dict(results[(12, "int64", "sum")])
-    main["max_abs_err"] = max_err
-    return main
+    return max_err
 
 
 # the high-NDV paths' shape: one SF=1 batch; 6,000,000 live rows in
@@ -684,6 +686,11 @@ def group_reduce_phase(torch, gr, dev) -> dict:
 # of 8,388,608)
 GR_HIGH = ((1 << 22, 3_793_365), (1 << 23, 5_999_988))
 GR_HIGH_LIVE = 6_000_000
+# TPC-H Q1's dense gids: four of the twelve slots, with lineitem's shares
+# of (A, F), (R, F), (N, O) and (N, F); the shipdate filter keeps 98.6%
+Q1_SLOTS = ((0, 0.247), (3, 0.247), (7, 0.493), (6, 0.013))
+Q1_LIVE = 0.986
+Q6_LIVE = 0.019             # rows Q6's predicates keep
 
 
 def gr_high_inputs(torch, dev, G: int, groups: int, order: str):
@@ -707,71 +714,191 @@ def gr_high_inputs(torch, dev, G: int, groups: int, order: str):
     return mask, gids
 
 
-def group_reduce_high_ndv(torch, gr, dev) -> dict:
-    """``group_reduce`` at the high-NDV paths' shape (measured, not part
-    of the main path's kernel entry): int64 sum and count over
-    8,388,608 rows for G = 2^22 and 2^23, gids in segment order and in
-    a random order, each equal to its plain version and to the
-    ``index_add_`` yardstick, with kernel, plain, library and bound
-    times."""
-    flush = torch.empty(64 << 20, dtype=torch.int32, device=dev)  # 256 MiB
+def q1_lane_inputs(torch, dev, n: int, dist: str = "Q1"):
+    """TPC-H Q1's reduction inputs at their placed dtypes: int32 dense
+    gids (Q1's four slots, or uniform over the twelve), the filter's
+    mask, int8 quantity, int32 price and the two int64 products
+    (price x (100 - disc), x (100 + tax))."""
     gen = torch.Generator(device=dev)
-    gen.manual_seed(11)
-    vals = torch.randint(-(1 << 62), 1 << 62, (KERNEL_ROWS,), generator=gen,
-                         device=dev, dtype=torch.int64)
-    out = {}
-    for G, groups in GR_HIGH:
+    gen.manual_seed(7)
+    if dist == "uniform":
+        gid = torch.randint(0, 12, (n,), generator=gen, device=dev,
+                            dtype=torch.int32)
+    else:
+        u = torch.rand(n, generator=gen, device=dev)
+        gid = torch.full((n,), Q1_SLOTS[-1][0], dtype=torch.int32,
+                         device=dev)
+        acc = 0.0
+        for slot, share in Q1_SLOTS[:-1]:
+            gid[(u >= acc) & (u < acc + share)] = slot
+            acc += share
+    mask = torch.rand(n, generator=gen, device=dev) < Q1_LIVE
+    qty = torch.randint(1, 51, (n,), generator=gen, device=dev,
+                        dtype=torch.int8)
+    price = torch.randint(90_000, 10_500_000, (n,), generator=gen,
+                          device=dev, dtype=torch.int32)
+    disc = torch.randint(0, 11, (n,), generator=gen, device=dev)
+    tax = torch.randint(0, 9, (n,), generator=gen, device=dev)
+    dp = price.to(torch.int64) * (100 - disc)
+    ch = dp * (100 + tax)
+    return gid, mask, qty, price, dp, ch
+
+
+def limb_lanes(gr, mask, srcs):
+    """The lanes of a state table of COUNT(*) and one (hi, lo) limb SUM a
+    source, over one mask: ``__rows__`` and each SUM's count are one lane
+    (the mask is the selection), then hi and lo a source."""
+    lanes = [gr.Lane("count", None, mask)]
+    for s in srcs:
+        lanes += [gr.Lane("sum_hi32", s, mask), gr.Lane("sum_lo32", s, mask)]
+    return lanes
+
+
+def per_lane_states(torch, gr, mask, srcs, gids, G):
+    """The same states as one-lane launches, as the callers made them
+    before the lane sets: one launch a state field, each after its eager
+    transform (``__rows__``, then a SUM's cnt from ``mask.to(int64)``,
+    its widening and its ``>> 32`` and ``& 0xFFFFFFFF`` passes)."""
+    out = [gr.group_reduce(mask.to(torch.int64), mask, gids, G, "sum")]
+    for s in srcs:
+        out.append(gr.group_reduce(mask.to(torch.int64), mask, gids, G,
+                                   "sum"))
+        v = s.to(torch.int64)
+        out.append(gr.group_reduce(v >> 32, mask, gids, G, "sum"))
+        out.append(gr.group_reduce(v & 0xFFFFFFFF, mask, gids, G, "sum"))
+    return out
+
+
+def lane_sets(torch, dev):
+    """(name, gids, G, mask, sources, path) of the lane sets of the main
+    path and the high-NDV paths, at their shapes: Q1 (67,108,864 rows,
+    G = 12, int32 gids, int8/int32/int64/int64 sources), Q6 (SCALAR, one
+    int64 product), SORT (8,388,608 rows, 6,000,000 live, G = 2^22,
+    int64 gids, the int32 price) and SEGMENT (G = 2^23, the int8
+    quantity), the high-NDV gids in segment order and in a random
+    order."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(5)
+    gid, mask, qty, price, dp, ch = q1_lane_inputs(torch, dev, MAIN_ROWS)
+    yield "Q1", gid, 12, mask, [qty, price, dp, ch], "main"
+    del gid, mask, qty, dp, ch
+    sel = torch.rand(MAIN_ROWS, generator=gen, device=dev) < Q6_LIVE
+    rev = price.to(torch.int64) * torch.randint(
+        0, 11, (MAIN_ROWS,), generator=gen, device=dev)
+    del price
+    yield "Q6", None, 1, sel, [rev], "main"
+    del sel, rev
+    for (G, groups), what, dt in zip(GR_HIGH, ("SORT", "SEGMENT"),
+                                     (torch.int32, torch.int8)):
+        lo, hi = (90_000, 10_500_000) if dt == torch.int32 else (1, 51)
+        src = torch.randint(lo, hi, (KERNEL_ROWS,), generator=gen,
+                            device=dev).to(dt)
         for order in ("sorted", "random"):
             mask, gids = gr_high_inputs(torch, dev, G, groups, order)
-            for what in ("sum", "count"):
-                v = vals if what == "sum" else mask.to(torch.int64)
-                got = gr.group_reduce(v, mask, gids, G, "sum")
-                want = gr.group_reduce_plain(v, mask, gids, G, "sum")
-                check(torch.equal(got, want), f"group_reduce high-NDV G={G} "
-                      f"{order} {what} != plain")
-                gsink = torch.where(mask, gids, G)
-
-                def lib():
-                    return torch.zeros(G + 1, dtype=torch.int64,
-                                       device=dev).index_add_(0, gsink, v)
-                check(torch.equal(lib()[:G], got), f"index_add_ G={G} "
-                      f"{order} {what} != group_reduce")
-                ms = cuda_ms(torch, lambda: gr.group_reduce(
-                    v, mask, gids, G, "sum"), flush=flush)
-                plain_ms = cuda_ms(torch, lambda: gr.group_reduce_plain(
-                    v, mask, gids, G, "sum"), flush=flush)
-                lib_ms = cuda_ms(torch, lib, flush=flush)
-                b_ms, b_by = bound_ms(KERNEL_ROWS * (8 + 1 + 8) + G * 8,
-                                      KERNEL_ROWS)
-                out[(G, order, what)] = dict(ms=ms, plain_ms=plain_ms,
-                                             library_ms=lib_ms,
-                                             bound_ms=b_ms)
-                print(f"kernel group_reduce high-NDV [G={G} {order} gids "
-                      f"int64 {what}]: n={KERNEL_ROWS} live={GR_HIGH_LIVE} "
-                      f"groups={groups} table={gr.table_mode(G)} exact=True "
-                      f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
-                      f"library_ms={lib_ms:.4f} bound_ms={b_ms:.4f} "
-                      f"({b_by}) of_bound={b_ms / ms:.3f}")
+            yield f"{what} G=2^{G.bit_length() - 1} {order}", gids, G, mask, \
+                [src], "slice4"
             del mask, gids
+
+
+def group_reduce_lanes_phase(torch, gr, dev) -> dict:
+    """Every lane set in one launch, equal to ``group_reduce_lanes_plain``
+    on the card exactly, timed as kernel, plain, library (one
+    ``index_add_`` of the stacked (n, L) int64 lane matrix into a
+    (G + 1, L) table, the matrix built outside the timing) and bound (the
+    distinct sources' bytes at their widths, the gids and the mask once,
+    and the L x G x 8 B table), and against one-lane launches for the
+    same states (``per_lane_states``).  Returns the JSON entries by
+    name."""
+    flush = torch.empty(64 << 20, dtype=torch.int32, device=dev)  # 256 MiB
+    out = {}
+    for name, gids, G, mask, srcs, path in lane_sets(torch, dev):
+        lanes = limb_lanes(gr, mask, srcs)
+        n = mask.shape[0]
+        before = gr.LAUNCHES["group_reduce"]
+        got = gr.group_reduce_lanes(gids, G, lanes)
+        check(gr.LAUNCHES["group_reduce"] == before + 1,
+              f"lane set {name}: {gr.LAUNCHES['group_reduce'] - before} "
+              "launches")
+        want = gr.group_reduce_lanes_plain(gids, G, lanes)
+        for ln, g, w in zip(lanes, got, want):
+            check(torch.equal(g, w), f"lane set {name}: {ln.kind} lane != "
+                                     "plain")
+        old = per_lane_states(torch, gr, mask, srcs, gids, G)
+        # the old states (rows, then cnt, hi, lo a source) hold the same
+        # tables: cnt is the rows lane
+        check(all(torch.equal(old[k], got[0])
+                  for k in [0] + [1 + 3 * i for i in range(len(srcs))])
+              and all(torch.equal(old[2 + 3 * i + j], got[1 + 2 * i + j])
+                      for i in range(len(srcs)) for j in (0, 1)),
+              f"lane set {name}: per-lane states != lane set")
+        # the library yardstick: the stacked lane matrix, dead rows in the
+        # sink slot G
+        gsink = torch.where(mask, torch.zeros((), dtype=torch.int64,
+                                              device=dev)
+                            if gids is None else gids.to(torch.int64), G)
+        mat = torch.stack([gr.lane_values(ln)[0] for ln in lanes], 1)
+
+        def lib():
+            return torch.zeros((G + 1, len(lanes)), dtype=torch.int64,
+                               device=dev).index_add_(0, gsink, mat)
+        check(torch.equal(lib()[:G].t(), torch.stack(got)),
+              f"lane set {name}: index_add_ != lanes")
+        ms = cuda_ms(torch, lambda: gr.group_reduce_lanes(gids, G, lanes),
+                     flush=flush)
+        plain_ms = cuda_ms(torch, lambda: gr.group_reduce_lanes_plain(
+            gids, G, lanes), flush=flush)
+        lib_ms = cuda_ms(torch, lib, flush=flush)
+        per_lane_ms = cuda_ms(torch, lambda: per_lane_states(
+            torch, gr, mask, srcs, gids, G), flush=flush)
+        del mat, gsink
+        nbytes = n + sum(s.element_size() for s in srcs) * n \
+            + (0 if gids is None else gids.element_size() * n) \
+            + len(lanes) * G * 8
+        b_ms, b_by = bound_ms(nbytes, n * len(lanes))
+        key = "group_reduce" if name == "Q1" else f"group_reduce[{name}]"
+        out[key] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                        bound_ms=b_ms, bound_by=b_by, max_abs_err=0.0,
+                        path=path)
+        print(f"kernel group_reduce lanes [{name}]: n={n} G={G} "
+              f"lanes={len(lanes)} sources="
+              f"{'/'.join(str(s.dtype).split('.')[-1] for s in srcs)} "
+              f"table={gr.table_mode(G, len(lanes))} exact=True launches=1 "
+              f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
+              f"library_ms={lib_ms:.4f} bound_ms={b_ms:.4f} ({b_by}) "
+              f"of_bound={b_ms / ms:.3f} per_lane_ms={per_lane_ms:.4f} "
+              f"per_lane_launches={len(old)} "
+              f"per_lane_over_lanes={per_lane_ms / ms:.2f}")
+        del lanes, got, want, old, gids, mask, srcs
+        gc.collect()
     return out
 
 
 def expected_reduces(agg) -> int:
     """group_reduce launches of one device program run of ``agg`` on one
-    logical device, as copr/exec._agg_partial_states and _one_agg_state
-    (and the SCATTER segment reduce) imply: one for ``__rows__``, none
-    for COUNT(*), which reuses it, one for COUNT(x), two for MIN/MAX and
-    float or proven-narrow SUMs, three for a (hi, lo) limb SUM."""
+    logical device: one, for every lane of its state table
+    (copr/exec.reduce_states over the lanes _agg_partial_states or
+    states_from_partition plan), as long as they fit one launch, which
+    every statement here does (``expected_lanes``)."""
+    from tidb_tpu_torch.copr.cuda import group_reduce as gr
+    check(expected_lanes(agg) <= gr.MAX_LANES,
+          f"{expected_lanes(agg)} lanes need more than one launch")
+    return 1
+
+
+def expected_lanes(agg) -> int:
+    """Distinct lanes of ``agg``'s state table when no aggregate's
+    argument is nullable: ``__rows__`` (COUNT(*) and every COUNT reuse
+    it), two for a (hi, lo) limb SUM, one for MIN, MAX and a float or
+    proven-narrow SUM.  One-lane launches took one reduction a lane, and
+    one more for the count of each SUM, MIN and MAX."""
     from tidb_tpu_torch.copr import dag as D
     n = 1
     for i, a in enumerate(agg.aggs):
-        if a.func == D.AggFunc.COUNT:
-            n += 0 if a.arg is None else 1
-        elif a.func == D.AggFunc.SUM and not a.arg.dtype.is_float \
+        if a.func == D.AggFunc.SUM and not a.arg.dtype.is_float \
                 and i not in agg.narrow_sums:
-            n += 3
-        else:
             n += 2
+        elif a.func != D.AggFunc.COUNT:
+            n += 1
     return n
 
 
@@ -1425,7 +1552,8 @@ def slice4_phase(torch, rk, os1, gr, S, sf: float) -> dict:
           f"stable_argsort_keys={S.PASSES['stable_argsort_keys']} "
           f"stable_argsort_passes={S.PASSES['stable_argsort']} "
           f"radix_hist64=0 radix_scatter64=0 group_reduce={reduces}")
-    counts.update(radix_hist64=0, radix_scatter64=0)
+    counts.update(radix_hist64=0, radix_scatter64=0,
+                  group_reduce_slice4=reduces)
     return counts
 
 
@@ -1490,8 +1618,10 @@ def main() -> int:
     build_phase(rk, gr, os1)
     kern = kernel_phase(torch, rk, radix, dev)
     kern.update(sort_phase(torch, rk, os1, S, dev))
-    kern["group_reduce"] = group_reduce_phase(torch, gr, dev)
-    group_reduce_high_ndv(torch, gr, dev)
+    one_lane_err = group_reduce_phase(torch, gr, dev)
+    lane_sets_out = group_reduce_lanes_phase(torch, gr, dev)
+    lane_sets_out["group_reduce"]["max_abs_err"] = one_lane_err
+    kern.update(lane_sets_out)
     reference_phase(torch, dev)
     reference_phase4(torch, dev)
     counts = slice_phase(torch, rk, gr, args.sf)
@@ -1517,13 +1647,22 @@ def main() -> int:
                                    "(the per-pass reference of the "
                                    f"{sort_sites}; on no query path)",
                 "group_reduce":
-                    "tidb_tpu/copr/exec.py:87 _reduce (XLA-fused)",
+                    "tidb_tpu/copr/exec.py:87 _reduce (XLA-fused), as "
+                    "_one_agg_state :125 and _agg_partial_states :244 call "
+                    "it once a state lane",
                 "radix_hist_all64": f"{sort_sites} (the histograms of a "
                                     "key's passes)",
                 "radix_onesweep64": f"{sort_sites} (a pass)"}
+    # a lane set's launches are those of its path's run (main: Q1, Q6 and
+    # Q19; slice4: SORT and SEGMENT)
+    for name, r in kern.items():
+        if name.startswith("group_reduce"):
+            counts[name] = counts["group_reduce" if r["path"] == "main"
+                                  else "group_reduce_slice4"]
     print(json.dumps({"kernels": [
-        {"name": name, "route": "cuda", "source": sources[name],
-         "replaces": replaces[name], "launches": counts[name],
+        {"name": name, "route": "cuda",
+         "source": sources[name.split("[")[0]],
+         "replaces": replaces[name.split("[")[0]], "launches": counts[name],
          "max_abs_err": r["max_abs_err"], "ms": r["ms"],
          "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
          "bound_by": r["bound_by"], "library_ms": r["library_ms"]}

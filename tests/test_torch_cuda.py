@@ -6,10 +6,12 @@ kernels (``radix_hist_all64``, ``radix_onesweep64``) and
 pass equals the int64 ``counting_sort_pass`` too, and the
 slice-4 statements (SORT, SEGMENT, TopN, Limit, filtered rows) through
 ``CopClient(device="cuda")`` equal the plain CPU path;
-``group_reduce`` equals its plain version (computed on the CPU, whose
-scatter propagates NaN as the JAX package's does) exactly for integers
-and float min/max, and within ``FSUM_RTOL`` of the slot's sum of |v|
-for float sums, which it must return as the same bits on every launch.
+``group_reduce`` and its lane sets (``group_reduce_lanes``) equal their
+plain versions (computed on the CPU, whose scatter propagates NaN as the
+JAX package's does) exactly for integers and float min/max, and within
+``FSUM_RTOL`` of the slot's sum of |v| for float sums, which must come
+back as the same bits on every launch; an aggregation's state table is
+one launch a program run.
 
 Every test here needs a CUDA GPU and skips without one.  The file
 imports no JAX, so it also runs on a machine that has only PyTorch:
@@ -475,8 +477,9 @@ def _assert_gr_equal(got, want, vals, mask, gids, G, how):
 @pytest.mark.parametrize("G", [1, 12, 16, 17, 4096, 4097, 1 << 17])
 @pytest.mark.parametrize("n", [1, 1023, 70_001, 1 << 20])
 def test_group_reduce_equals_plain(dev, n, G, dtype, how):
-    """Every table mode (registers, shared, global) at ragged and large
-    n, every dtype: the kernel against the plain version on the CPU."""
+    """The one-lane call through the lanes kernel, in every table mode
+    (private up to 112 slots, shared, global) at ragged and large n,
+    every dtype: against the plain version on the CPU."""
     vals, mask, gids = _gr_inputs(n, G, dtype, n + G)
     before = gr.LAUNCHES["group_reduce"]
     got = gr.group_reduce(vals.to(dev), mask.to(dev),
@@ -542,3 +545,291 @@ def test_q6_on_gpu_equals_cpu(dev):
         assert got == cs.result_rows(CopClient("cpu", 8).execute_agg(
             agg, snap, meta))
         assert got == cs.main_oracle(which, names, cols)
+
+
+# ------------------------------------------------------------------ #
+# group_reduce_lanes: every lane of a state table in one launch
+# ------------------------------------------------------------------ #
+
+LANE_SRC_DTYPES = [torch.int8, torch.int16, torch.int32, torch.int64,
+                   torch.uint8, torch.float32, torch.float64]
+
+
+def _lane_set(n, seed, narrow_only=False):
+    """Sources of every stored dtype, two masks (the selection and one
+    that is not it), and a lane set over them: every kind, duplicates
+    included; on the CPU."""
+    rng = np.random.default_rng(seed)
+    srcs = {}
+    for dt_ in LANE_SRC_DTYPES:
+        if dt_.is_floating_point:
+            v = rng.normal(0.0, 1e5, n)
+            v[rng.random(n) < 0.002] = np.nan
+            v[rng.random(n) < 0.001] = -np.inf
+            srcs[dt_] = torch.from_numpy(v).to(dt_)
+        else:
+            info = torch.iinfo(dt_)
+            srcs[dt_] = torch.from_numpy(rng.integers(
+                info.min, info.max, n, endpoint=True)).to(dt_)
+    sel = torch.from_numpy(rng.random(n) < 0.8)
+    other = sel & torch.from_numpy(rng.random(n) < 0.7)
+    S = srcs
+    lanes = [gr.Lane("count", None, sel), gr.Lane("count", None, other),
+             gr.Lane("sum_hi32", S[torch.int8], sel),
+             gr.Lane("sum_lo32", S[torch.int8], sel),
+             gr.Lane("min", S[torch.int16], other),
+             gr.Lane("max", S[torch.int16], other),
+             gr.Lane("sum", S[torch.int32], sel),
+             gr.Lane("sum_lo32", S[torch.int32], sel),
+             gr.Lane("sum_hi32", S[torch.int64], other),
+             gr.Lane("sum_lo32", S[torch.int64], other),
+             gr.Lane("min", S[torch.int64], other),
+             gr.Lane("max", S[torch.uint8], sel),
+             gr.Lane("sum", S[torch.uint8], sel),
+             gr.Lane("count", None, sel)]
+    if not narrow_only:
+        lanes += [gr.Lane("fsum", S[torch.float32], other),
+                  gr.Lane("fmin", S[torch.float32], other),
+                  gr.Lane("fsum", S[torch.float64], sel),
+                  gr.Lane("fmax", S[torch.float64], sel)]
+    return lanes
+
+
+def _on(lanes, dev):
+    """The same lanes with their tensors on ``dev`` (one copy a tensor,
+    so identities are kept)."""
+    moved = {}
+
+    def mv(t):
+        if t is None:
+            return None
+        if id(t) not in moved:
+            moved[id(t)] = t.to(dev)
+        return moved[id(t)]
+    return [gr.Lane(ln.kind, mv(ln.src), mv(ln.mask)) for ln in lanes]
+
+
+def _assert_lanes_equal_plain(lanes, gids, G, dev, launches=1):
+    before = gr.LAUNCHES["group_reduce"]
+    got = gr.group_reduce_lanes(None if gids is None else gids.to(dev), G,
+                                _on(lanes, dev))
+    assert gr.LAUNCHES["group_reduce"] == before + launches
+    want = gr.group_reduce_lanes_plain(gids, G, lanes)
+    for ln, g, w in zip(lanes, got, want):
+        vals, how = gr.lane_values(ln)
+        _assert_gr_equal(g.cpu(), w, vals, ln.mask, gids, G, how)
+    return got
+
+
+@pytest.mark.parametrize("G", [1, 5, 12, 500, 4097, 1 << 17])
+@pytest.mark.parametrize("n", [1, 4097, 70_001, 1 << 20])
+def test_lane_sets_equal_plain(dev, n, G):
+    """Every kind over sources of every stored width, on two masks, with
+    sink rows and duplicate lanes, in one launch, in each table mode
+    (private at G = 1 and at G = 5 for the narrow set, shared, global):
+    equal to the plain version."""
+    rng = np.random.default_rng(G + n)
+    gids = None if G == 1 else torch.from_numpy(
+        rng.integers(0, G + 1, n)).to(torch.int32 if G < 4096
+                                      else torch.int64)
+    lanes = _lane_set(n, n + G, narrow_only=(G == 5))
+    _assert_lanes_equal_plain(lanes, gids, G, dev)
+
+
+@pytest.mark.parametrize("dist", ["Q1", "uniform"])
+def test_q1_lane_set_private_tables(dev, dist):
+    """TPC-H Q1's nine lanes (the count and the (hi, lo) limbs of an
+    int8, an int32 and two int64 columns) over G = 12: 108 entries, the
+    private tables, at ragged and large n."""
+    for n in (3, 4097, 1_000_003):
+        rng = np.random.default_rng(n)
+        g = rng.choice([0, 3, 6, 7], n, p=[.247, .247, .013, .493]) \
+            if dist == "Q1" else rng.integers(0, 13, n)
+        gids = torch.from_numpy(g.astype(np.int32))
+        sel = torch.from_numpy(rng.random(n) < 0.98)
+        cols = [torch.from_numpy(rng.integers(1, 51, n).astype(np.int8)),
+                torch.from_numpy(rng.integers(9e4, 1.05e7, n)
+                                 .astype(np.int32)),
+                torch.from_numpy(rng.integers(0, 1 << 40, n)),
+                torch.from_numpy(rng.integers(-(1 << 62), 1 << 62, n))]
+        lanes = [gr.Lane("count", None, sel)]
+        for c in cols:
+            lanes += [gr.Lane("sum_hi32", c, sel),
+                      gr.Lane("sum_lo32", c, sel),
+                      gr.Lane("count", None, sel)]
+        assert gr.table_mode(12, 9) == "private"
+        _assert_lanes_equal_plain(lanes, gids, 12, dev)
+
+
+@pytest.mark.parametrize("G", [1, 12, 4097, 1 << 17])
+def test_lane_sets_take_unaligned_narrow_sources(dev, G):
+    """Sources, masks and gids that are views one element into their
+    storage (not aligned for the vector loads) and a ragged tail take
+    the scalar loads and stay exact."""
+    n = 70_001
+    rng = np.random.default_rng(G)
+    lanes = _on(_lane_set(n + 1, G, narrow_only=True), dev)
+    views = {}
+
+    def off(t):
+        if t is None:
+            return None
+        if id(t) not in views:
+            views[id(t)] = t[1:]
+        return views[id(t)]
+    lanes = [gr.Lane(ln.kind, off(ln.src), off(ln.mask)) for ln in lanes]
+    for ln in lanes:
+        if ln.src is not None and ln.src.element_size() < 8:
+            assert ln.src.data_ptr() % 16
+    gids = None if G == 1 else torch.from_numpy(rng.integers(
+        0, G + 1, n + 1)).to(torch.int32).to(dev)[1:]
+    before = gr.LAUNCHES["group_reduce"]
+    got = gr.group_reduce_lanes(gids, G, lanes)
+    assert gr.LAUNCHES["group_reduce"] == before + 1
+    cpu = [gr.Lane(ln.kind, None if ln.src is None else ln.src.cpu(),
+                   ln.mask.cpu()) for ln in lanes]
+    want = gr.group_reduce_lanes_plain(None if gids is None else gids.cpu(),
+                                       G, cpu)
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+
+
+@pytest.mark.parametrize("gid_dtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("G", [12, 4097, 1 << 20])
+def test_runs_of_equal_gids_across_warp_and_block_edges(dev, G, gid_dtype):
+    """Gids in segment order with runs of 1 to 5000 rows, which cross the
+    warps' 32-row and the blocks' edges, the sink rows after them (the
+    segment reduce's layout), and a mask with holes inside the runs:
+    the run sums equal the plain version."""
+    rng = np.random.default_rng(G)
+    lens = rng.choice([1, 2, 31, 32, 33, 63, 257, 1000, 5000], 3000)
+    g = np.repeat(np.arange(len(lens)) % G, lens)
+    g = np.sort(g)
+    n = len(g) + 20_000
+    gids = torch.from_numpy(np.concatenate([g, np.full(20_000, G)])
+                            ).to(gid_dtype)
+    sel = torch.from_numpy(np.arange(n) < len(g))
+    hole = sel & torch.from_numpy(rng.random(n) < 0.9)
+    v = torch.from_numpy(rng.integers(-(1 << 62), 1 << 62, n))
+    f = torch.from_numpy(rng.normal(0.0, 1e3, n))
+    lanes = [gr.Lane("count", None, sel), gr.Lane("count", None, hole),
+             gr.Lane("sum_hi32", v, hole), gr.Lane("sum_lo32", v, hole),
+             gr.Lane("min", v, hole), gr.Lane("max", v, sel),
+             gr.Lane("fsum", f, hole), gr.Lane("fmax", f, sel)]
+    _assert_lanes_equal_plain(lanes, gids, G, dev)
+
+
+@pytest.mark.parametrize("G", [4097, 1 << 22])
+def test_random_gids_at_high_g(dev, G):
+    """Random int64 gids over a table past the shared-memory modes (the
+    segment reduce before a sort, the high-NDV tables): every run is one
+    row, so the warp's ballot finds no run and each row adds its own
+    atomics."""
+    n = 1 << 21
+    rng = np.random.default_rng(G)
+    gids = torch.from_numpy(rng.integers(0, G + 1, n))
+    sel = torch.from_numpy(rng.random(n) < 0.7)
+    v = torch.from_numpy(rng.integers(-(1 << 40), 1 << 40, n))
+    q = torch.from_numpy(rng.integers(1, 51, n).astype(np.int8))
+    lanes = [gr.Lane("count", None, sel), gr.Lane("sum_hi32", v, sel),
+             gr.Lane("sum_lo32", v, sel), gr.Lane("sum", q, sel)]
+    assert gr.table_mode(G, 4) == "global"
+    _assert_lanes_equal_plain(lanes, gids, G, dev)
+
+
+@pytest.mark.parametrize("G", [1, 12, 4096, 1 << 20])
+def test_lane_float_sums_are_deterministic(dev, G):
+    """Float sums of float32 and float64 sources among integer lanes: the
+    same bits on every launch."""
+    n = 3_000_017
+    rng = np.random.default_rng(G)
+    gids = None if G == 1 else torch.from_numpy(
+        rng.integers(0, G + 1, n)).to(dev)
+    sel = torch.from_numpy(rng.random(n) < 0.8).to(dev)
+    f64 = torch.from_numpy(rng.normal(0.0, 1e6, n)).to(dev)
+    f32 = f64.float()
+    v = torch.from_numpy(rng.integers(-(1 << 50), 1 << 50, n)).to(dev)
+    lanes = [gr.Lane("count", None, sel), gr.Lane("fsum", f64, sel),
+             gr.Lane("sum_hi32", v, sel), gr.Lane("fsum", f32, sel),
+             gr.Lane("sum_lo32", v, sel)]
+    first = gr.group_reduce_lanes(gids, G, lanes)
+    for _ in range(3):
+        for a, b_ in zip(gr.group_reduce_lanes(gids, G, lanes), first):
+            assert torch.equal(a, b_)
+
+
+def test_lanes_past_one_launch_take_more(dev):
+    """Lanes over more sources than one launch takes are cut into sets,
+    a launch each, and stay exact."""
+    n = 10_000
+    rng = np.random.default_rng(3)
+    gids = torch.from_numpy(rng.integers(0, 13, n).astype(np.int32))
+    sel = torch.from_numpy(rng.random(n) < 0.8)
+    lanes = [gr.Lane(k, torch.from_numpy(rng.integers(-99, 99, n)), sel)
+             for _ in range(gr.MAX_SRCS + 1) for k in ("sum",)]
+    _assert_lanes_equal_plain(lanes, gids, 12, dev, launches=2)
+
+
+@pytest.mark.parametrize("strategy", ["SORT", "SEGMENT", "SCATTER"])
+def test_one_launch_per_state_table_high_ndv(dev, strategy):
+    """``states_from_partition`` (SORT, SEGMENT, SCATTER) launches
+    group_reduce once a program run on the card, and its states equal
+    the plain CPU path's."""
+    rng = np.random.default_rng(9)
+    n = 60_000
+    k = rng.integers(0, 5000, n)
+    v = rng.integers(-10 ** 6, 10 ** 6, n)
+    f = rng.normal(0.0, 1e3, n)
+    snap = snapshot_from_numpy(["k", "v", "f"], [
+        {"kind": "INT64", "data": k, "validity": rng.random(n) < 0.95},
+        {"kind": "DECIMAL", "prec": 15, "scale": 2, "nullable": True,
+         "data": v, "validity": rng.random(n) < 0.9},
+        {"kind": "FLOAT64", "nullable": False, "data": f}])
+    dec = dt.decimal(15, 2)
+    agg = D.Aggregation(
+        D.TableScan((0, 1, 2), (dt.bigint(), dec, dt.double(False))),
+        (ColumnRef(dt.bigint(), 0),),
+        (D.AggDesc(D.AggFunc.SUM, ColumnRef(dec, 1), dt.decimal(37, 2)),
+         D.AggDesc(D.AggFunc.COUNT, ColumnRef(dec, 1), dt.bigint(False)),
+         D.AggDesc(D.AggFunc.MAX, ColumnRef(dec, 1), dec),
+         D.AggDesc(D.AggFunc.SUM, ColumnRef(dt.double(False), 2),
+                   dt.double()),
+         D.AggDesc(D.AggFunc.COUNT, None, dt.bigint(False))),
+        D.GroupStrategy[strategy], group_capacity=8192, num_buckets=8192)
+    got = {}
+    for d in (dev, torch.device("cpu")):
+        cols, counts = snap.device_cols((d,))
+        before = gr.LAUNCHES["group_reduce"]
+        got[d.type] = ShardedCopProgram(agg, (d,))(cols, counts)
+        if d.type == "cuda":
+            assert gr.LAUNCHES["group_reduce"] == before + 1
+    for key, w in got["cpu"].items():
+        for f_, wv in (w.items() if isinstance(w, dict) else [("", w)]):
+            gv = got["cuda"][key][f_] if f_ else got["cuda"][key]
+            if f_ == "sum" and wv.is_floating_point():
+                assert torch.allclose(gv.cpu(), wv, rtol=FSUM_RTOL), key
+            else:
+                assert torch.equal(gv.cpu(), wv), (key, f_)
+
+
+def test_one_launch_per_state_table_dense(dev):
+    """``_agg_partial_states`` launches group_reduce once for Q1's nine
+    lanes on the card (one-lane launches took 13) and the
+    states equal the plain CPU path's."""
+    import chip_smoke as cs
+    from tidb_tpu_torch.store import snapshot_from_columns
+    from tidb_tpu_torch.testing.tpch import gen_lineitem
+    names, cols = gen_lineitem(0.01, seed=2, columns=cs.Q_COLS)
+    snap = snapshot_from_columns(names, cols)
+    agg, _ = cs.build_main_query("Q1", names, cols)
+    got = {}
+    for d in (dev, torch.device("cpu")):
+        dcols, counts = snap.device_cols((d,))
+        before = gr.LAUNCHES["group_reduce"]
+        got[d.type] = ShardedCopProgram(agg, (d,))(dcols, counts)
+        if d.type == "cuda":
+            assert gr.LAUNCHES["group_reduce"] == before + 1
+    for key, w in got["cpu"].items():
+        for f_, wv in (w.items() if isinstance(w, dict) else [("", w)]):
+            gv = got["cuda"][key][f_] if f_ else got["cuda"][key]
+            assert torch.equal(gv.cpu(), wv), (key, f_)

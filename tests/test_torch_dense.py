@@ -53,6 +53,17 @@ from tidb_tpu_torch.parallel.spmd import ShardedCopProgram
 from tidb_tpu_torch.store import CopClient, snapshot_from_numpy
 from tidb_tpu_torch.types import dtypes as dt
 
+
+def _jclient():
+    """The JAX package's client with its admission scheduler bypassed
+    (``sched_enable``): it starts no ``sched-drain`` or
+    ``copforge-predict`` daemon thread, which can abort the test process
+    at exit."""
+    client = JClient(get_mesh())
+    client.sched_enable = False
+    return client
+
+
 SF = 0.002                       # 12,000 lineitem rows
 N_DEV = 8
 CPU8 = (torch.device("cpu"),) * N_DEV
@@ -361,7 +372,7 @@ def _run_both(jagg, agg, jsnap, snap, jmeta, meta):
     cols, counts = snap.device_cols(CPU8)
     got = ShardedCopProgram(agg, CPU8)(cols, counts)
     res = CopClient("cpu", N_DEV).execute_agg(agg, snap, meta)
-    jres = JClient(get_mesh()).execute_agg(jagg, jsnap, jmeta)
+    jres = _jclient().execute_agg(jagg, jsnap, jmeta)
     return got, want, _result_rows(res), _result_rows(jres)
 
 
@@ -613,3 +624,42 @@ def test_evaluator_lanes_equal_jax(name):
         assert tval.dtype == np.int64 and tval.max() > 2 ** 15
     if name == "charge":
         assert tval.dtype == np.int64 and tval.max() > 2 ** 31
+
+
+# ------------------------------------------------------------------ #
+# one reduction call a state table
+# ------------------------------------------------------------------ #
+
+# the distinct lanes of each program's state table: __rows__, then per
+# aggregate its state fields; a COUNT over the selection (or COUNT(*)) is
+# the __rows__ lane, and the aggregates of one nullable argument share
+# one mask, so one count lane
+_TABLE_LANES = {"Q1": 9, "Q6": 3, "Q19": 3, "nullable key": 4,
+                "narrow min/max": 6, "float sum": 4, "narrow sums": 4,
+                "projection": 13}
+
+
+@pytest.mark.parametrize("which", ["Q1", "Q6", "Q19"] + VARIANTS)
+def test_one_reduce_call_per_state_table(lineitem, which, monkeypatch):
+    """A program run makes one ``group_reduce_lanes`` call (one kernel
+    launch on the card) a logical device, over every lane of the state
+    table, where one-lane launches took one a lane (Q1: 13)."""
+    from tidb_tpu_torch.copr import exec as pexec
+    from tidb_tpu_torch.copr.cuda import group_reduce as gr
+    calls = []
+    real = pexec.group_reduce_lanes
+
+    def counted(gids, G, lanes):
+        calls.append(len(gr.unique_lanes(lanes)))
+        return real(gids, G, lanes)
+    monkeypatch.setattr(pexec, "group_reduce_lanes", counted)
+    if which in _TPCH:
+        names, cols = lineitem
+        snap = _snaps(names, cols)[1]
+        agg = _TPCH[which](_PortNS, names, cols)
+    else:
+        snap = _variant_snaps()[1]
+        agg = _variant(_PortNS, which)
+    dcols, counts = snap.device_cols(CPU8)
+    ShardedCopProgram(agg, CPU8)(dcols, counts)
+    assert calls == [_TABLE_LANES[which]] * N_DEV

@@ -48,6 +48,17 @@ from tidb_tpu_torch.parallel.spmd import ShardedCopProgram
 from tidb_tpu_torch.store import CopClient, snapshot_from_numpy
 from tidb_tpu_torch.types import dtypes as dt
 
+
+def _jclient():
+    """The JAX package's client with its admission scheduler bypassed
+    (``sched_enable``): it starts no ``sched-drain`` or
+    ``copforge-predict`` daemon thread, which can abort the test process
+    at exit."""
+    client = JClient(get_mesh())
+    client.sched_enable = False
+    return client
+
+
 SF = 0.005                       # 30,000 lineitem rows
 N_DEV = 8
 CPU8 = (torch.device("cpu"),) * N_DEV
@@ -266,7 +277,7 @@ def test_corpus_execute_agg_equals_jax_and_oracle(lineitem, which):
     agg, types = _corpus(which, _PortNS, 256)
     client = CopClient("cpu", N_DEV)
     res = client.execute_agg(agg, snap, [GroupKeyMeta(t, 0) for t in types])
-    jres = JClient(get_mesh()).execute_agg(
+    jres = _jclient().execute_agg(
         jagg, jsnap, [JMeta(t, 0) for t in jtypes])
     got = _as_map(res.key_columns, res.columns)
     assert got == _as_map(jres.key_columns, jres.columns)
@@ -304,7 +315,7 @@ def test_mixed_execute_agg_equals_jax_and_oracle(keys, strategy):
     agg, types = _mixed_agg(_PortNS, KEY_SETS[keys], strategy, 16)
     client = CopClient("cpu", N_DEV)
     res = client.execute_agg(agg, snap, [GroupKeyMeta(t, 0) for t in types])
-    jres = JClient(get_mesh()).execute_agg(
+    jres = _jclient().execute_agg(
         jagg, jsnap, [JMeta(t, 0) for t in jtypes])
     floats = (2, 4)
     got = _as_map(res.key_columns, res.columns, floats)
@@ -390,3 +401,27 @@ def test_np_key_code_groups_floats_as_sql():
     u = np.array([2 ** 63, 2 ** 63, 5], dtype=np.uint64)
     ucode = agg_mod._np_key_code(u, np.ones(3, bool), dt.ubigint())
     assert ucode[0] == ucode[1] != ucode[2]
+
+
+@pytest.mark.parametrize("strategy", ["SORT", "SEGMENT", "SCATTER"])
+def test_one_reduce_call_per_state_table(strategy, monkeypatch):
+    """The segment reduce that SORT, SEGMENT and SCATTER share
+    (``states_from_partition``) reduces every lane of a device's table
+    in one ``group_reduce_lanes`` call (one kernel launch on the card):
+    ``__rows__`` (COUNT(*) too), SUM(v)'s (hi, lo) limbs, MIN(fv),
+    MAX(v) and SUM(fv), six lanes, where one-lane launches took eight
+    reductions."""
+    from tidb_tpu_torch.copr import exec as pexec
+    from tidb_tpu_torch.copr.cuda import group_reduce as gr
+    calls = []
+    real = pexec.group_reduce_lanes
+
+    def counted(gids, G, lanes):
+        calls.append((G, len(gr.unique_lanes(lanes))))
+        return real(gids, G, lanes)
+    monkeypatch.setattr(pexec, "group_reduce_lanes", counted)
+    (_jsnap, snap), _ = _mixed_snaps(6000, 5)
+    agg, _ = _mixed_agg(_PortNS, KEY_SETS["all three"], strategy, 1024)
+    cols, counts = snap.device_cols(CPU8)
+    ShardedCopProgram(agg, CPU8)(cols, counts)
+    assert calls == [(1024, 6)] * N_DEV

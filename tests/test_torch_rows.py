@@ -41,6 +41,17 @@ from tidb_tpu_torch.parallel.spmd import ShardedCopProgram
 from tidb_tpu_torch.store import CopClient, snapshot_from_numpy
 from tidb_tpu_torch.types import dtypes as dt
 
+
+def _jclient():
+    """The JAX package's client with its admission scheduler bypassed
+    (``sched_enable``): it starts no ``sched-drain`` or
+    ``copforge-predict`` daemon thread, which can abort the test process
+    at exit."""
+    client = JClient(get_mesh())
+    client.sched_enable = False
+    return client
+
+
 SF = 0.005                       # 30,000 lineitem rows
 N_DEV = 8
 CPU8 = (torch.device("cpu"),) * N_DEV
@@ -215,7 +226,7 @@ def _col_equal(c, j):
 def _execute_both(jroot, root, jsnap, snap):
     client = CopClient("cpu", N_DEV)
     got = client.execute_rows(root, snap, D.output_dtypes(root))
-    want = JClient(get_mesh()).execute_rows(jroot, jsnap,
+    want = _jclient().execute_rows(jroot, jsnap,
                                             JD.output_dtypes(jroot))
     assert len(got) == len(want)
     for c, j in zip(got, want):

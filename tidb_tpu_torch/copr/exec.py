@@ -10,10 +10,11 @@ compacted.
 Ported so far: the TableScan, Selection, Projection, Limit and TopN
 nodes, the device-side compaction of a row-returning program
 (``compact``), and the partial states of the SCALAR, DENSE, SORT,
-SEGMENT and SCATTER aggregations.  Every grouped reduction goes through
-``_reduce``, which is the hand-written ``group_reduce`` kernel on a CUDA
-tensor and its plain version on a CPU tensor (copr/cuda/group_reduce.py);
-every device sort (SORT, SEGMENT, TopN) goes through ``stable_argsort``
+SEGMENT and SCATTER aggregations.  Every state table of an aggregation
+is one ``group_reduce_lanes`` call over all its lanes (``reduce_states``):
+one launch of the hand-written ``group_reduce`` kernel on a CUDA tensor,
+its plain version on a CPU tensor (copr/cuda/group_reduce.py); every
+device sort (SORT, SEGMENT, TopN) goes through ``stable_argsort``
 (ops/sort.py), the counting-sort kernels' multi-key LSD radix sort, in
 place of the JAX package's stable ``lax.sort``.  Out-of-range scatter
 indices raise in torch where XLA drops them (``mode="drop"``), so a
@@ -34,7 +35,7 @@ from ..ops.sort import stable_argsort
 from ..ops.sortkeys import as_int64_bits, sortable_int64
 from ..types import dtypes as dt
 from . import dag as D
-from .cuda.group_reduce import group_reduce
+from .cuda.group_reduce import Lane, group_reduce, group_reduce_lanes
 
 K = dt.TypeKind
 
@@ -92,46 +93,77 @@ def _reduce(vals: torch.Tensor, mask: torch.Tensor, gids, num_groups: int,
     return group_reduce(vals, mask, gids, num_groups, how)
 
 
-def _one_agg_state(a: D.AggDesc, av, am, sel, gids, num_groups, n,
-                   narrow: bool = False) -> dict:
-    """Partial state for one AggDesc over (possibly grouped) rows.
+def _lane_mask(sel, am, masks: dict):
+    """The rows an aggregate over a value of validity ``am`` reduces:
+    ``sel`` itself for a value that is never NULL, else ``sel & am``,
+    made once per validity mask (``masks``, by identity) so that the
+    aggregates of one argument share one mask, and their counts one
+    lane."""
+    if am is True:
+        return sel
+    if id(am) not in masks:
+        masks[id(am)] = (am, sel & am)
+    return masks[id(am)][1]
+
+
+def _agg_lanes(a: D.AggDesc, av, am, sel, n, masks: dict,
+               narrow: bool = False) -> dict:
+    """The state lanes of one AggDesc over (possibly grouped) rows, as
+    ``{field: Lane}``; ``reduce_states`` reduces them.
 
     Layout: count -> {count}; int/decimal sum -> {hi, lo, cnt} (int64
     limbs, exact when recombined on the host); proven-narrow int/decimal
     sum (``agg.narrow_sums``) -> {sum, cnt}, one int64 word; float sum
-    -> {sum, cnt}; min -> {min, cnt}; max -> {max, cnt}."""
+    -> {sum, cnt}; min -> {min, cnt}; max -> {max, cnt}.  Every lane
+    reads ``av`` at its own dtype: the count, the widening and the limb
+    split are the lanes' kinds, applied where the rows are reduced."""
     av = _ensure_array(av, n, sel.device)
-    mask = sel if am is True else (sel & am)
-    cnt = _reduce(mask.to(torch.int64), mask, gids, num_groups, "sum")
+    mask = _lane_mask(sel, am, masks)
+    cnt = Lane("count", None, mask)
     if a.func == D.AggFunc.COUNT:
         return {"count": cnt}
     if a.func == D.AggFunc.SUM:
         if a.arg.dtype.kind in (K.FLOAT64, K.FLOAT32):
-            return {"sum": _reduce(av.to(torch.float64), mask, gids,
-                                   num_groups, "sum"), "cnt": cnt}
+            src = av if av.is_floating_point() else av.to(torch.float64)
+            return {"sum": Lane("fsum", src, mask), "cnt": cnt}
         if narrow:
             # valueflow proved the whole table's sum stays inside int64,
             # so one word per group cannot wrap: bit-identical to the
             # limbs (sum(hi) << 32 + sum(lo) == sum(v) in two's complement)
-            return {"sum": _reduce(av.to(torch.int64), mask, gids,
-                                   num_groups, "sum"), "cnt": cnt}
+            return {"sum": Lane("sum", av, mask), "cnt": cnt}
         # (hi, lo) int64 limbs: per row |hi| < 2^32 and lo < 2^32, so with
         # n < 2^31 rows per batch neither limb sum can wrap int64
         if n >= 2 ** 31:
             raise OverflowError(
                 f"shard batch of {n} rows exceeds the 2^31 limb-exact "
                 "SUM bound; use more/smaller shards")
-        v = av.to(torch.int64)
-        hi = _reduce(v >> 32, mask, gids, num_groups, "sum")
-        lo = _reduce(v & 0xFFFFFFFF, mask, gids, num_groups, "sum")
-        return {"hi": hi, "lo": lo, "cnt": cnt}
-    if a.func == D.AggFunc.MIN:
-        return {"min": _reduce(av, mask, gids, num_groups, "min"),
-                "cnt": cnt}
-    if a.func == D.AggFunc.MAX:
-        return {"max": _reduce(av, mask, gids, num_groups, "max"),
-                "cnt": cnt}
+        return {"hi": Lane("sum_hi32", av, mask),
+                "lo": Lane("sum_lo32", av, mask), "cnt": cnt}
+    if a.func in (D.AggFunc.MIN, D.AggFunc.MAX):
+        how = "min" if a.func == D.AggFunc.MIN else "max"
+        kind = ("f" + how) if av.is_floating_point() else how
+        return {how: Lane(kind, av, mask), "cnt": cnt}
     raise _unported(f"device aggregate {a.func.value}")
+
+
+def reduce_states(plan: dict, gids, num_groups: int) -> dict:
+    """One ``group_reduce_lanes`` call over every lane of a state table.
+    ``plan`` maps each state to a Lane or to a ``{field: Lane}`` dict;
+    the result has the same layout with the lanes' tables, 0-d for the
+    SCALAR reduction (``gids`` None)."""
+    flat = []
+    for k, v in plan.items():
+        flat += [(k, None, v)] if isinstance(v, Lane) \
+            else [(k, f, ln) for f, ln in v.items()]
+    tables = group_reduce_lanes(gids, num_groups, [ln for *_, ln in flat])
+    states: dict[str, Any] = {}
+    for (k, f, _), t in zip(flat, tables):
+        t = t.reshape(()) if gids is None else t
+        if f is None:
+            states[k] = t
+        else:
+            states.setdefault(k, {})[f] = t
+    return states
 
 
 def agg_states(agg: D.Aggregation, scan_cols, row_count,
@@ -171,17 +203,17 @@ def _agg_partial_states(agg: D.Aggregation, batch: DeviceBatch,
         gids = _dense_group_ids(agg, batch, ev, memo)
         num_groups = agg.num_groups
 
-    states: dict[str, Any] = {}
-    states["__rows__"] = _reduce(sel.to(torch.int64), sel, gids, num_groups,
-                                 "sum")
+    rows = Lane("count", None, sel)
+    plan: dict[str, Any] = {"__rows__": rows}
+    masks: dict = {}
     for i, a in enumerate(agg.aggs):
         if a.func == D.AggFunc.COUNT and a.arg is None:
-            states[f"a{i}"] = {"count": states["__rows__"]}
+            plan[f"a{i}"] = {"count": rows}
             continue
         av, am = ev.eval(a.arg, batch.cols, memo)
-        states[f"a{i}"] = _one_agg_state(a, av, am, sel, gids, num_groups, n,
-                                         narrow=(i in agg.narrow_sums))
-    return states
+        plan[f"a{i}"] = _agg_lanes(a, av, am, sel, n, masks,
+                                   narrow=(i in agg.narrow_sums))
+    return reduce_states(plan, gids, num_groups)
 
 
 def _dense_group_ids(agg: D.Aggregation, batch: DeviceBatch, ev: Evaluator,

@@ -17,7 +17,8 @@ the high-NDV strategies.
    adjacent live rows, so a 64-bit collision yields duplicate partial
    groups (merged by true key on the host), never a wrong merge.
 5. Rows segment-reduce into a state table of the aggregation's
-   ``state_capacity``; ``__ngroups__`` reports the observed segment
+   ``state_capacity``, every lane in one ``group_reduce_lanes`` call;
+   ``__ngroups__`` reports the observed segment
    count so the client can regrow the capacity and re-run on overflow.
 """
 
@@ -90,7 +91,8 @@ def states_from_partition(agg: D.Aggregation, batch, ev, keyinfo,
     code/null flag changes and scatter-reduce each segment into a
     (state_capacity,) table.  Dead rows, and live rows of segments past
     the table, park at the sink slot (the capacity itself)."""
-    from .exec import _ensure_array, _gather, _one_agg_state, _reduce
+    from .cuda.group_reduce import Lane
+    from .exec import _agg_lanes, _ensure_array, _gather, reduce_states
     B = agg.state_capacity
     dev = idx.device
     diff = torch.arange(n, device=dev) == 0
@@ -113,26 +115,29 @@ def states_from_partition(agg: D.Aggregation, batch, ev, keyinfo,
         out.index_put_((gids,), bits)
         return out[:B].view(src.dtype)
 
-    states: dict = {"__ngroups__": ngroups}
-    states["__rows__"] = _reduce(sel_s.to(torch.int64), sel_s, gids, B,
-                                 "sum")
+    keys: dict = {}
     for j, (vz, m, _nf, _cd) in enumerate(keyinfo):
         valid_src = (torch.ones(n, dtype=torch.bool, device=dev)
                      if m is True else m[idx])
-        states[f"k{j}"] = {"val": keep(_gather(vz, idx)),
-                           "valid": keep(valid_src)}
+        keys[f"k{j}"] = {"val": keep(_gather(vz, idx)),
+                         "valid": keep(valid_src)}
 
     # aggregate over the permuted batch so arg rows line up with gids
     pcols = [(_gather(_ensure_array(v, n, dev), idx),
               True if m is True else m[idx]) for v, m in batch.cols]
     pmemo: dict = {}
+    rows = Lane("count", None, sel_s)
+    plan: dict = {"__rows__": rows}
+    masks: dict = {}
     for i, a in enumerate(agg.aggs):
         if a.func == D.AggFunc.COUNT and a.arg is None:
-            states[f"a{i}"] = {"count": states["__rows__"]}
+            plan[f"a{i}"] = {"count": rows}
             continue
         av, am = ev.eval(a.arg, pcols, pmemo)
-        states[f"a{i}"] = _one_agg_state(a, av, am, sel_s, gids, B, n)
-    return states
+        plan[f"a{i}"] = _agg_lanes(a, av, am, sel_s, n, masks)
+    tables = reduce_states(plan, gids, B)
+    return {"__ngroups__": ngroups, "__rows__": tables.pop("__rows__"),
+            **keys, **tables}
 
 
 def agg_segment_states(agg: D.Aggregation, batch, ev, memo) -> dict:

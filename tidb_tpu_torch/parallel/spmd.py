@@ -116,7 +116,7 @@ class ShardedCopProgram:
             s, c = stacked_cols[0][0].shape[:2]
             # the limb-exactness fence of the merge: summed (hi, lo) SUM
             # limbs stay int64-exact only while the global row capacity
-            # is < 2^31 (see copr/exec._one_agg_state)
+            # is < 2^31 (see copr/exec._agg_lanes)
             if s * c >= 2 ** 31:
                 raise OverflowError(
                     f"global capacity {s}x{c} exceeds the 2^31 limb-exact "

@@ -67,9 +67,7 @@ def main() -> int:
         rows = [(device_us(e), e.key, e.count) for e in prof.key_averages()
                 if device_us(e) > 0]
         busy = sum(r[0] for r in rows)
-        gr_us = sum(r[0] for r in rows if "group_reduce" in r[1]
-                    or "fill_kernel" in r[1] or "finalize_kernel" in r[1]
-                    or "fsum_maxabs" in r[1])
+        gr_us = sum(r[0] for r in rows if "group_reduce" in r[1])
         t = client.timings
         print(f"{which}: wall_ms={wall_us / 1e3:.3f} "
               f"device_ms={t['device'] * 1e3:.3f} "
