@@ -3,7 +3,9 @@
 
     python3 chip_smoke.py            # SCATTER queries at SF=1, the
                                      # DENSE/SCALAR main path at SF=10,
-                                     # the slice-4 statements at SF=1
+                                     # the slice-4 statements at SF=1,
+                                     # SQL: Q1, Q6 at SF=10, the corpus
+                                     # statements at SF=1
     python3 chip_smoke.py --sf 0.05 --main-sf 0.1 --s4-sf 0.05   # quicker
     python3 chip_smoke.py --perm-of DIR   # only scatter_permutation's
                                           # time, of DIR/tidb_tpu_torch
@@ -77,7 +79,21 @@ script exits non-zero without printing a result:
    issues each one) equal to the passes ``stable_argsort`` planned,
    ``radix_hist_all64``'s to the keys it sorted, no per-pass radix
    kernel launched, and one group_reduce launch a regrow round;
-9. the ``kernels`` JSON line, then the last line
+9. sql: TPC-H Q1 and Q6 in the specification's text (INTERVAL
+   arithmetic) as SQL over phase 7's lineitem (``--main-sf``), and the
+   corpus's lineitem-only statements (the Q6 and Q1 variants, the SORT
+   group-bys on one and two keys, TopN, Limit, the filtered projection
+   and HAVING) over lineitem at ``--s4-sf``, each through the port's
+   ``Session`` on ``cuda:0``: equal to its numpy oracle (integers and
+   decimals exactly, an AVG within half a unit of its last decimal
+   place) and, for the statements phases 7 and 8 run as DAGs, to that
+   run's result; each launching its hand kernels (``group_reduce`` for
+   the aggregations, the onesweep pair for the sorts; Limit and the
+   projection have none), no plain version of them running; each with
+   its first and warm wall times, parse and plan ms, the client's
+   split, the host operators' ms, the decode ms and the warm SQL
+   overhead (the last call's wall less the client's);
+10. the ``kernels`` JSON line, then the last line
    ``{"ok": true, "device": {...}}``.
 
 Query A is the grouping inside TPC-H Q18; query B is a corpus query of
@@ -1224,10 +1240,11 @@ def slice_phase(torch, rk, gr, sf: float) -> dict:
     return counts
 
 
-def main_path_phase(torch, gr, sf: float) -> int:
+def main_path_phase(torch, gr, sf: float) -> tuple[int, dict, tuple]:
     """TPC-H Q1, Q6 and Q19 at ``sf`` through CopClient(device="cuda"),
     each equal to the numpy oracle; returns the group_reduce launches of
-    the three."""
+    the three, each query's result rows and the generated ``(names,
+    cols)`` (phase 9 runs Q1 and Q6 as SQL over them)."""
     from tidb_tpu_torch.store import CopClient, snapshot_from_columns
     from tidb_tpu_torch.testing.tpch import gen_lineitem
     t0 = time.perf_counter()
@@ -1240,6 +1257,7 @@ def main_path_phase(torch, gr, sf: float) -> int:
           f"gen_s={t1 - t0:.2f}")
     reset((gr.LAUNCHES,))               # counts of this path only
     total = 0
+    results = {}
     for which in MAIN_QUERIES:
         agg, meta = queries[which]
         client = CopClient(device="cuda")
@@ -1266,9 +1284,10 @@ def main_path_phase(torch, gr, sf: float) -> int:
               f"transfer_ms={t['transfer'] * 1e3:.1f} "
               f"merge_ms={t['merge'] * 1e3:.1f} exact=True")
         print(f"main query {which} result: {rows}")
+        results[which] = rows
     check(gr.LAUNCHES["group_reduce"] == total and total > 0,
           f"group_reduce: {gr.LAUNCHES['group_reduce']} main-path launches")
-    return total
+    return total, results, (names, cols)
 
 
 # --------------------------------------------------------------------- #
@@ -1466,7 +1485,7 @@ def _rows_arrays(cols) -> list:
             if c.data.dtype == object else np.asarray(c.data) for c in cols]
 
 
-def slice4_phase(torch, rk, os1, gr, S, sf: float) -> dict:
+def slice4_phase(torch, rk, os1, gr, S, sf: float) -> tuple[dict, dict]:
     """The five slice-4 statements on one 8-shard lineitem snapshot at
     ``sf`` through ``CopClient(device="cuda")``: SORT and SEGMENT by
     ``execute_agg``, TopN, Limit and the filtered projection by
@@ -1475,7 +1494,8 @@ def slice4_phase(torch, rk, os1, gr, S, sf: float) -> dict:
     the passes ``stable_argsort`` ran, ``radix_hist_all64``'s the keys it
     sorted, none of the per-pass radix kernels ran, and group_reduce's
     launches equal the reductions the aggregations' programs imply.
-    Returns the launch counts."""
+    Returns the launch counts and each statement's result arrays (keys
+    and values in key order, or the rows' columns)."""
     from tidb_tpu_torch.copr import dag as D
     from tidb_tpu_torch.store import CopClient
     t0 = time.perf_counter()
@@ -1486,6 +1506,7 @@ def slice4_phase(torch, rk, os1, gr, S, sf: float) -> dict:
     reset((rk.LAUNCHES, os1.LAUNCHES, gr.LAUNCHES, S.PASSES))  # this path's
     reduces = 0
     res = None
+    results = {}
     for which in S4_QUERIES:
         kind, root, meta = build_s4(which)
         client = CopClient(device="cuda")
@@ -1527,6 +1548,7 @@ def slice4_phase(torch, rk, os1, gr, S, sf: float) -> dict:
                 check(np.array_equal(g, w), f"{which}: rows != numpy")
             size = f"out_rows={len(res[0].data)} pages={t['pages']}"
             split = f"assemble_ms={t['assemble'] * 1e3:.1f}"
+        results[which] = got
         print(f"slice4 query {which}: rows={n_rows} {size} "
               f"ms={wall * 1e3:.1f} rows_per_s={n_rows / wall:.0f} "
               f"sort_passes={passes} group_reduce_launches={got_gr} "
@@ -1554,6 +1576,266 @@ def slice4_phase(torch, rk, os1, gr, S, sf: float) -> dict:
           f"radix_hist64=0 radix_scatter64=0 group_reduce={reduces}")
     counts.update(radix_hist64=0, radix_scatter64=0,
                   group_reduce_slice4=reduces)
+    return counts, results
+
+
+# --------------------------------------------------------------------- #
+# phase 9: SQL text through the port's session
+# --------------------------------------------------------------------- #
+
+SQL_COLS = ["l_orderkey", "l_partkey", "l_suppkey", "l_quantity",
+            "l_extendedprice", "l_discount", "l_tax", "l_returnflag",
+            "l_linestatus", "l_shipdate"]
+SQL_MAIN = ("Q1", "Q6")              # at --main-sf, over phase 7's columns
+SQL_CORPUS = ("Q6 corpus", "Q1 corpus", "SORT", "SORT two keys",
+              "SORT two keys filtered", "TopN", "Limit", "rows", "HAVING")
+# the DAG-level run of the same statement: phase 7's (Q1, Q6) or phase
+# 8's (the rest) result of that name
+SQL_DAG = {"Q1": "Q1", "Q6": "Q6", "SORT": "SORT",
+           "SORT two keys": "SEGMENT", "TopN": "TopN", "Limit": "Limit",
+           "rows": "rows"}
+GR, OS = ("group_reduce",), ("radix_hist_all64", "radix_onesweep64")
+# the hand kernels each statement launches; Limit and the filtered
+# projection run no hand kernel (the device compaction is eager torch)
+SQL_KERNELS = {"Q1": GR, "Q6": GR, "Q6 corpus": GR, "Q1 corpus": GR,
+               "HAVING": GR, "SORT": GR + OS, "SORT two keys": GR + OS,
+               "SORT two keys filtered": GR + OS, "TopN": OS, "Limit": (),
+               "rows": ()}
+# the plain versions of those kernels, none of which may run on the card
+SQL_PLAIN = (("gr", "group_reduce_plain"),
+             ("os1", "radix_hist_all64_plain"),
+             ("os1", "radix_onesweep64_plain"))
+SQL_SLOW_S = 1.0    # a warm call that takes longer is the only one
+SQL_WARM = 5        # else the median of this many
+
+
+def sql_cell(v, t) -> int | str:
+    """One result cell for the oracles: a DECIMAL as its scaled integer,
+    a string as is, anything else as an int; a NULL fails."""
+    from tidb_tpu_torch.types import dtypes as dt
+    check(v is not None, "unexpected NULL output")
+    if t.kind == dt.TypeKind.DECIMAL:
+        return int(v.scaleb(t.scale))
+    return v if isinstance(v, str) else int(v)
+
+
+def sql_columns(rs) -> list:
+    """The result set's columns as lists of ``sql_cell``s."""
+    return [[sql_cell(r[j], t) for r in rs.rows]
+            for j, t in enumerate(rs.dtypes)]
+
+
+def avg_ok(avg, total: int, count: int, scale: int, t) -> bool:
+    """An AVG within half a unit of its last decimal place of the exact
+    quotient ``total / 10^scale / count``."""
+    from fractions import Fraction
+    exact = Fraction(total, 10 ** scale * count)
+    return abs(Fraction(avg) - exact) <= Fraction(1, 2 * 10 ** t.scale)
+
+
+def sql_key_order(cols: list, n_keys: int) -> list:
+    """The columns of an aggregation's result in key order."""
+    keys = [np.asarray(c, dtype=np.int64) for c in cols[:n_keys]]
+    order = np.lexsort(keys[::-1])
+    return [np.asarray(c, dtype=np.int64)[order] for c in cols]
+
+
+def q1_groups(c: dict, names) -> dict:
+    """{(flag, status): (sum_qty, sum_price, sum_disc, sum_disc_price,
+    sum_charge, count)} over the rows shipped by 1998-09-02, exact."""
+    ship = c["l_shipdate"].data
+    keep = ship <= 10471                     # 1998-09-02
+    qty, price = c["l_quantity"].data, c["l_extendedprice"].data
+    disc, tax = c["l_discount"].data, c["l_tax"].data
+    dp = price * (100 - disc)
+    ch = dp * (100 + tax)
+    fl, st = c["l_returnflag"], c["l_linestatus"]
+    out = {}
+    for f in np.unique(fl.data[keep]):
+        for s in np.unique(st.data[keep]):
+            m = keep & (fl.data == f) & (st.data == s)
+            if m.any():
+                out[(fl.dictionary.values[f], st.dictionary.values[s])] = (
+                    exact_sum(qty[m]), exact_sum(price[m]),
+                    exact_sum(disc[m]), exact_sum(dp[m]), exact_sum(ch[m]),
+                    int(m.sum()))
+    return out
+
+
+def sql_check(name: str, rs, c: dict, names, dag) -> None:
+    """``rs`` of statement ``name`` against its numpy oracle over the
+    columns ``c`` and, where phase 7 or 8 ran it as a DAG, against that
+    run's result ``dag``."""
+    cols = sql_columns(rs)
+    if name in ("Q1", "Q1 corpus"):
+        groups = q1_groups(c, names)
+        check(len(rs.rows) == len(groups) and
+              [r[:2] for r in rs.rows] == sorted(groups),
+              f"{name}: groups {[r[:2] for r in rs.rows]}")
+        for i, row in enumerate(rs.rows):
+            qty, price, disc, dp, ch, n = groups[row[:2]]
+            vals = [col[i] for col in cols]
+            t = rs.dtypes
+            if name == "Q1":
+                check(vals[2:6] + [vals[9]] == [qty, price, dp, ch, n],
+                      f"Q1 {row[:2]}: sums != numpy")
+                check(avg_ok(row[6], qty, n, 2, t[6])
+                      and avg_ok(row[7], price, n, 2, t[7])
+                      and avg_ok(row[8], disc, n, 2, t[8]),
+                      f"Q1 {row[:2]}: AVG != numpy")
+            else:
+                check(vals[2:4] + [vals[5]] == [qty, price, n]
+                      and avg_ok(row[4], disc, n, 2, t[4]),
+                      f"Q1 corpus {row[:2]}: != numpy")
+        if dag is not None:      # phase 7: codes, then Q1's sums, count
+            want = [(f, s, q, p, d, h, k) for f, s, q, p, d, h, k in dag]
+            got = [(c["l_returnflag"].dictionary.code_of(r[0]),
+                    c["l_linestatus"].dictionary.code_of(r[1]),
+                    cols[2][i], cols[3][i], cols[4][i], cols[5][i],
+                    cols[9][i]) for i, r in enumerate(rs.rows)]
+            check(got == want, "Q1: SQL != the DAG-level run")
+        return
+    if name in ("Q6", "Q6 corpus"):
+        want = main_oracle("Q6", names, [c[n] for n in names])
+        check(cols == [[want[0][0]]], f"{name}: {cols} != numpy {want}")
+        if dag is not None:
+            check(cols[0][0] == dag[0][0], "Q6: SQL != the DAG-level run")
+        return
+    if name == "HAVING":
+        u, n = np.unique(c["l_returnflag"].data, return_counts=True)
+        d = c["l_returnflag"].dictionary
+        want = sorted((d.values[k], int(m)) for k, m in zip(u, n) if m > 1)
+        check(sorted(zip(cols[0], cols[1])) == want, "HAVING != numpy")
+        return
+    if name == "SORT two keys filtered":
+        keys, vals = oracle("B", c)
+        got = sql_key_order(cols, 2)
+        check(all(np.array_equal(g, w) for g, w in zip(got, keys + vals)),
+              f"{name} != numpy")
+        return
+    which = {"SORT": "SORT", "SORT two keys": "SEGMENT"}.get(name, name)
+    want = s4_oracle(which, c)
+    if which in ("SORT", "SEGMENT"):
+        want = want[0] + want[1]
+        got = sql_key_order(cols, len(want) - (1 if which == "SORT" else 2))
+        if dag is not None:
+            dag = dag[0] + dag[1]
+    else:
+        got = [np.asarray(col, dtype=np.int64) for col in cols]
+    check(len(got) == len(want) and all(
+        np.array_equal(g, w) for g, w in zip(got, want)), f"{name} != numpy")
+    if dag is not None:
+        check(all(np.array_equal(g, w) for g, w in zip(got, dag)),
+              f"{name}: SQL != the DAG-level run")
+
+
+class plain_guard:
+    """Counts the calls of the kernels' plain versions while it is
+    entered (module attributes swapped for counting wrappers)."""
+
+    def __init__(self, modules: dict):
+        self.modules, self.calls, self.saved = modules, 0, []
+
+    def __enter__(self):
+        for mod, name in SQL_PLAIN:
+            m = self.modules[mod]
+            fn = getattr(m, name)
+            self.saved.append((m, name, fn))
+
+            def counted(*a, _fn=fn, **k):
+                self.calls += 1
+                return _fn(*a, **k)
+            setattr(m, name, counted)
+        return self
+
+    def __exit__(self, *exc):
+        for m, name, fn in self.saved:
+            setattr(m, name, fn)
+
+
+def sql_run(sess, name: str, sql: str, counters) -> tuple:
+    """Statement ``name`` through ``sess.execute``: the first call, then
+    ``SQL_WARM`` warm calls (one, if it takes longer than
+    ``SQL_SLOW_S``); returns the last result, the first and median warm
+    wall seconds and the last call's, the session's and the client's
+    timings of the last call, and the launches of the hand kernels over
+    all the calls."""
+    before = {k: v for launches in counters for k, v in launches.items()}
+    gc.collect()
+    t0 = time.perf_counter()
+    rs = sess.execute(sql)
+    first = time.perf_counter() - t0
+    warm = []
+    while len(warm) < SQL_WARM and (not warm or warm[-1] <= SQL_SLOW_S):
+        del rs
+        gc.collect()
+        t0 = time.perf_counter()
+        rs = sess.execute(sql)
+        warm.append(time.perf_counter() - t0)
+    launched = {k: v - before[k] for launches in counters
+                for k, v in launches.items()}
+    return (rs, first, statistics.median(warm), warm[-1],
+            dict(sess.timings), dict(sess.domain.client.timings), launched)
+
+
+def sql_phase(gr, os1, S, main_data, main_res, s4_sf: float,
+              s4_res: dict) -> dict:
+    """TPC-H Q1 and Q6 as SQL text over phase 7's lineitem (``--main-sf``)
+    and the corpus's lineitem-only statements over lineitem at
+    ``--s4-sf`` (seed 0, as phase 8), each through the port's
+    ``Session`` on ``cuda:0``: each equal to its numpy oracle and to the
+    DAG-level run of phases 7 and 8, each launching its hand kernels,
+    none of their plain versions running.  Prints each statement's
+    first and warm wall times and the warm call's split; returns the
+    phase's launch counts."""
+    from tidb_tpu_torch.testing import tpch
+    rk_counts = (gr.LAUNCHES, os1.LAUNCHES)
+    t0 = time.perf_counter()
+    names, cols = tpch.gen_lineitem(s4_sf, seed=0, columns=SQL_COLS)
+    print(f"data: lineitem sf={s4_sf} rows={len(cols[0])} "
+          f"columns={len(names)} gen_s={time.perf_counter() - t0:.2f}")
+    runs = [("main", tpch.sql_session({"lineitem": main_data},
+                                      device="cuda"),
+             dict(zip(*main_data)), main_data[0], SQL_MAIN, main_res),
+            ("corpus", tpch.sql_session({"lineitem": (names, cols)},
+                                        device="cuda"),
+             dict(zip(names, cols)), names, SQL_CORPUS, s4_res)]
+    reset(rk_counts + (S.PASSES,))          # counts of this path only
+    with plain_guard({"gr": gr, "os1": os1}) as guard:
+        for scale, sess, c, tnames, stmts, dag_res in runs:
+            n_rows = len(next(iter(c.values())))
+            for name in stmts:
+                rs, first, warm, last, st, ct, launched = sql_run(
+                    sess, name, tpch.SQL_QUERIES[name], rk_counts)
+                for k in SQL_KERNELS[name]:
+                    check(launched[k] > 0, f"SQL {name}: {k} not launched")
+                check("device" in ct, f"SQL {name}: no device program ran")
+                dag = dag_res.get(SQL_DAG.get(name))
+                sql_check(name, rs, c, tnames, dag)
+                client_s = sum(v for k, v in ct.items()
+                               if isinstance(v, float))
+                host_op = st["execute"] - client_s
+                split = " ".join(f"{k}_ms={v * 1e3:.3f}"
+                                 for k, v in ct.items()
+                                 if isinstance(v, float))
+                print(f"sql {name}: rows={n_rows} out_rows={len(rs.rows)} "
+                      f"first_ms={first * 1e3:.3f} warm_ms={warm * 1e3:.3f} "
+                      f"parse_ms={st['parse'] * 1e3:.3f} "
+                      f"plan_ms={st['plan'] * 1e3:.3f} {split} "
+                      f"host_op_ms={host_op * 1e3:.3f} "
+                      f"decode_ms={st['decode'] * 1e3:.3f} "
+                      f"overhead_ms={(last - client_s) * 1e3:.3f} "
+                      f"rows_per_s={n_rows / warm:.0f} "
+                      f"launches={ {k: launched[k] for k in GR + OS} } "
+                      f"dag_equal={dag is not None} exact=True")
+                del rs
+    check(guard.calls == 0, f"SQL path ran {guard.calls} plain-version "
+          "calls of its kernels on the card")
+    counts = {k: v for launches in rk_counts for k, v in launches.items()}
+    for k in GR + OS:
+        check(counts[k] > 0, f"SQL path: {k} launched {counts[k]} times")
+    print(f"sql launches: {counts} stable_argsort_passes="
+          f"{S.PASSES['stable_argsort']} plain_calls={guard.calls}")
     return counts
 
 
@@ -1625,8 +1907,11 @@ def main() -> int:
     reference_phase(torch, dev)
     reference_phase4(torch, dev)
     counts = slice_phase(torch, rk, gr, args.sf)
-    counts["group_reduce"] = main_path_phase(torch, gr, args.main_sf)
-    counts.update(slice4_phase(torch, rk, os1, gr, S, args.s4_sf))
+    counts["group_reduce"], main_res, main_data = main_path_phase(
+        torch, gr, args.main_sf)
+    s4_counts, s4_res = slice4_phase(torch, rk, os1, gr, S, args.s4_sf)
+    counts.update(s4_counts)
+    sql_phase(gr, os1, S, main_data, main_res, args.s4_sf, s4_res)
 
     cu = "tidb_tpu_torch/copr/cuda/"
     sources = {"radix_hist": cu + "radix_kernel.cu",

@@ -833,3 +833,27 @@ def test_one_launch_per_state_table_dense(dev):
         for f_, wv in (w.items() if isinstance(w, dict) else [("", w)]):
             gv = got["cuda"][key][f_] if f_ else got["cuda"][key]
             assert torch.equal(gv.cpu(), wv), (key, f_)
+
+
+SQL_ON_CARD = {"Q1": ("group_reduce",), "Q6": ("group_reduce",),
+               "SORT two keys": ("group_reduce", "radix_onesweep64"),
+               "TopN": ("radix_onesweep64",), "rows": (),
+               "HAVING": ("group_reduce",)}
+
+
+@pytest.mark.parametrize("name", sorted(SQL_ON_CARD))
+def test_sql_on_the_card_equals_the_cpu(dev, name):
+    """A statement of the SQL path through a ``Session`` on the card
+    returns the rows the same session returns on the CPU (plain kernel
+    versions), exactly, and launched its hand kernels."""
+    from tidb_tpu_torch.testing import tpch
+    sql = tpch.SQL_QUERIES[name]
+    before = {**gr.LAUNCHES, **os1.LAUNCHES}
+    got = tpch.tpch_sql_session(0.01, device="cuda").execute(sql)
+    launched = {k: v - before[k] for k, v in {**gr.LAUNCHES,
+                                               **os1.LAUNCHES}.items()}
+    want = tpch.tpch_sql_session(0.01, device="cpu").execute(sql)
+    assert got.names == want.names
+    assert got.rows == want.rows
+    for k in SQL_ON_CARD[name]:
+        assert launched[k] > 0, k

@@ -78,3 +78,50 @@ def test_import_loads_no_jax_module():
     n, bad = out.stdout.split(" ", 1)
     assert int(n) >= 20
     assert bad.strip() == "[]", bad
+
+
+def _relative_imports(path: str):
+    """(line, module path parts, imported names) of every relative import
+    in ``path``, its module resolved against the file's package."""
+    import ast
+    rel = Path(path)
+    pkg = list(rel.parts[:-1])
+    tree = ast.parse((ROOT / path).read_text())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.ImportFrom) and node.level:
+            base = pkg[:len(pkg) - node.level + 1]
+            mod = base + (node.module.split(".") if node.module else [])
+            yield node.lineno, mod, [a.name for a in node.names]
+
+
+@pytest.mark.parametrize("path", [p for p in SOURCES
+                                  if p.startswith("tidb_tpu_torch/")])
+def test_relative_imports_resolve_inside_the_port(path):
+    """Every relative import of the port, lazy ones inside functions
+    too, names a module file of the port (or a name of a package's
+    ``__init__``), so an import of a module the port has not ported
+    cannot hide until a statement reaches it."""
+    import ast
+    for line, mod, names in _relative_imports(path):
+        target = ROOT.joinpath(*mod)
+        assert target.resolve().is_relative_to(PORT.resolve()), \
+            f"{path}:{line}: {'.'.join(mod)} lies outside the port"
+        if target.with_suffix(".py").exists():
+            continue
+        init = target / "__init__.py"
+        assert init.exists(), f"{path}:{line}: no module {'.'.join(mod)}"
+        if mod[-1] == target.name and names != ["*"]:
+            defined = {n.id if isinstance(n, ast.Name) else n.name
+                       for n in ast.walk(ast.parse(init.read_text()))
+                       if isinstance(n, (ast.FunctionDef, ast.ClassDef))
+                       or (isinstance(n, ast.Name)
+                           and isinstance(n.ctx, ast.Store))}
+            defined |= {a.asname or a.name for n in ast.walk(
+                ast.parse(init.read_text()))
+                if isinstance(n, (ast.Import, ast.ImportFrom))
+                for a in n.names}
+            for name in names:
+                assert name in defined or (target / name).with_suffix(
+                    ".py").exists() or (target / name / "__init__.py"
+                                        ).exists(), \
+                    f"{path}:{line}: {'.'.join(mod)} has no {name}"

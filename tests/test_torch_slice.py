@@ -516,10 +516,61 @@ def _unported_cases():
     }
 
 
-@pytest.mark.parametrize("case", sorted(_unported_cases()))
+# SQL statements of later slices: (statement, the ROADMAP.md item named)
+_UNPORTED_SQL = {
+    "SQL join": ("""select p_brand, sum(l_extendedprice) from lineitem, part
+                    where l_partkey = p_partkey and l_quantity < 10
+                    group by p_brand""", "Queue 1 item 2: slice 6, joins"),
+    "SQL rollup": ("""select l_returnflag, l_linestatus, sum(l_quantity)
+                      from lineitem group by l_returnflag, l_linestatus
+                      with rollup""", "Queue 1 item 3: slice 7, rollup"),
+    "SQL window": ("""select l_orderkey, row_number() over (partition by
+                      l_returnflag order by l_extendedprice desc) as rn
+                      from lineitem limit 10""",
+                   "Queue 1 item 4: slice 8"),
+    "SQL set operation": ("""select l_partkey from lineitem
+                             where l_quantity < 2
+                             union select p_partkey from part
+                             where p_size = 1""",
+                          "Queue 1 item 1, sub-step 6"),
+    "SQL analyze table": ("analyze table lineitem",
+                          "Queue 1 item 5: slice 9"),
+    "SQL auto-analyze on": ("set tidb_enable_auto_analyze = 1",
+                            "Queue 1 item 5: slice 9"),
+    "SQL insert": ("insert into part values (1, 'Brand#1', 3)",
+                   "Queue 1 item 1, sub-step 2"),
+    "SQL create table": ("create table t2 (a int)",
+                         "Queue 1 item 1, sub-step 2"),
+}
+
+
+def _sql_session():
+    """A port session on the CPU over a small lineitem and part."""
+    from tidb_tpu_torch.chunk.column import Column, StringDict
+    from tidb_tpu_torch.testing.tpch import sql_session
+    n = 40
+    part = (["p_partkey", "p_brand", "p_size"], [
+        Column.from_numpy(dt.bigint(False), np.arange(1, n + 1)),
+        Column(dt.varchar(False), np.arange(n, dtype=np.int32) % 4,
+               np.ones(n, bool),
+               StringDict([f"Brand#{i}" for i in range(4)])),
+        Column.from_numpy(dt.bigint(False), np.arange(n) % 50)])
+    return sql_session({"lineitem": gen_lineitem(0.0005, seed=1),
+                        "part": part}, device="cpu", n_devices=8)
+
+
+@pytest.mark.parametrize("case", sorted(_unported_cases())
+                         + sorted(_UNPORTED_SQL))
 def test_unported_paths_raise(case):
     """What the slice does not port raises NotImplementedError naming
-    the ROADMAP queue that brings it, never a wrong answer."""
+    the ROADMAP queue that brings it, never a wrong answer: the DAG
+    paths through the client, the SQL statements through the session
+    (each naming its ROADMAP.md item)."""
+    if case in _UNPORTED_SQL:
+        sql, item = _UNPORTED_SQL[case]
+        with pytest.raises(NotImplementedError, match=f"ROADMAP.md, {item}"):
+            _sql_session().execute(sql)
+        return
     snap = snapshot_from_numpy(["k", "f", "u"], [
         {"kind": "INT64", "nullable": False, "data": np.arange(10)},
         {"kind": "FLOAT64", "nullable": False, "data": np.ones(10)},

@@ -11,11 +11,37 @@ for the CPU (``device="cpu"``), where every hand-written kernel is
 replaced by its plain PyTorch version.  Asking for CUDA on a machine
 without a GPU raises.
 
-What is ported so far is the coprocessor client's aggregation:
-``store.client.CopClient.execute_agg`` over a
-``store.columnar.ColumnarSnapshot``, for the SCALAR and DENSE strategies
-(TPC-H Q1, Q6, Q19), whose reductions run on the ``group_reduce`` CUDA
-kernel (``copr/cuda/group_reduce.cu``), and for the high-NDV SCATTER
-strategy, whose radix counting sort runs as CUDA kernels
-(``copr/cuda/radix_kernel.cu``).
+What is ported so far: the coprocessor client
+(``store.client.CopClient``: ``execute_agg`` for the SCALAR, DENSE,
+SORT, SEGMENT and SCATTER strategies, ``execute_rows`` for TopN, Limit
+and filtered projections) over a ``store.columnar.ColumnarSnapshot``,
+on the hand-written CUDA kernels of ``copr/cuda/``; and above it the
+SELECT path from SQL text: the parser (``sql/``), the planner
+(``planner/``), the executor (``executor/``), the catalog and a
+``session.Session`` whose plans are the JAX package's with
+auto-analyze off.  What the port does not run yet raises
+``NotImplementedError`` naming its ROADMAP.md item (below).
 """
+
+# ROADMAP.md items of the paths the port does not run yet, named by the
+# NotImplementedError each raises
+HOST_BASE = "Queue 1 item 1, sub-step 1: the rest of the host base"
+STORE = "Queue 1 item 1, sub-step 2: the store, DML and DDL"
+EVALUATOR = "Queue 1 item 1, sub-step 4: device evaluator breadth"
+PLAN_CACHE = "Queue 1 item 1, sub-step 5: the plan cache and bindings"
+HOST_OPS = "Queue 1 item 1, sub-step 6: the host operators of later slices"
+JOINS = "Queue 1 item 2: slice 6, joins"
+ROLLUP = "Queue 1 item 3: slice 7, rollup"
+EXCHANGE = "Queue 1 item 4: slice 8, multiple GPUs, windows and exchanges"
+STATS = "Queue 1 item 5: slice 9, ANALYZE and statistics"
+ANALYSIS = "Queue 1 item 7: slice 11, the analysis gates"
+CONTROL = "Queue 1 item 8: slice 12, the control and observability planes"
+HOST_SURFACE = "Queue 1 item 9: slice 13, the rest of the host surface"
+
+
+def unported(what: str, where: str = "Queue 1") -> NotImplementedError:
+    """The error a path of the JAX package that the port does not run yet
+    raises: ``what`` arrives with the ROADMAP.md item ``where``."""
+    return NotImplementedError(
+        f"{what} arrives with a later slice of the port (ROADMAP.md, "
+        f"{where})")

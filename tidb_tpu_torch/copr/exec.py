@@ -31,13 +31,18 @@ from typing import Any, Sequence
 import torch
 
 from ..expr.compile import Evaluator
+from ..ops import sort as _sort
 from ..ops.sort import stable_argsort
 from ..ops.sortkeys import as_int64_bits, sortable_int64
 from ..types import dtypes as dt
 from . import dag as D
+from .cuda import group_reduce as _gr
 from .cuda.group_reduce import Lane, group_reduce, group_reduce_lanes
 
 K = dt.TypeKind
+
+# (hi, lo) limb SUMs stay int64-exact below this many rows a batch
+LIMB_SUM_ROWS = 2 ** 31
 
 
 def _unported(what: str) -> NotImplementedError:
@@ -133,7 +138,7 @@ def _agg_lanes(a: D.AggDesc, av, am, sel, n, masks: dict,
             return {"sum": Lane("sum", av, mask), "cnt": cnt}
         # (hi, lo) int64 limbs: per row |hi| < 2^32 and lo < 2^32, so with
         # n < 2^31 rows per batch neither limb sum can wrap int64
-        if n >= 2 ** 31:
+        if n >= LIMB_SUM_ROWS:
             raise OverflowError(
                 f"shard batch of {n} rows exceeds the 2^31 limb-exact "
                 "SUM bound; use more/smaller shards")
@@ -155,7 +160,7 @@ def reduce_states(plan: dict, gids, num_groups: int) -> dict:
     for k, v in plan.items():
         flat += [(k, None, v)] if isinstance(v, Lane) \
             else [(k, f, ln) for f, ln in v.items()]
-    tables = group_reduce_lanes(gids, num_groups, [ln for *_, ln in flat])
+    tables = _reduce_lanes(gids, num_groups, [ln for *_, ln in flat])
     states: dict[str, Any] = {}
     for (k, f, _), t in zip(flat, tables):
         t = t.reshape(()) if gids is None else t
@@ -164,6 +169,37 @@ def reduce_states(plan: dict, gids, num_groups: int) -> dict:
         else:
             states.setdefault(k, {})[f] = t
     return states
+
+
+_COMBINE = {"count": torch.add, "sum": torch.add, "sum_hi32": torch.add,
+            "sum_lo32": torch.add, "fsum": torch.add, "min": torch.minimum,
+            "fmin": torch.minimum, "max": torch.maximum,
+            "fmax": torch.maximum}
+
+
+def _reduce_lanes(gids, num_groups: int, lanes: list) -> list:
+    """``group_reduce_lanes`` over the rows; a table with a float-sum
+    lane over ``MAX_FLOAT_SUM_ROWS`` rows or more (past its exact limbs)
+    is reduced in consecutive chunks under that, and the chunks' tables
+    combine lane by lane: sums and counts add, min and max take the
+    smaller and the larger (a NaN wins, as in one reduction)."""
+    n = lanes[0].mask.shape[0]
+    step = _gr.MAX_FLOAT_SUM_ROWS - 1
+    if n <= step or not any(ln.kind == "fsum" for ln in lanes):
+        return group_reduce_lanes(gids, num_groups, lanes)
+    out = None
+    for lo in range(0, n, step):
+        cut: dict = {}      # one slice a tensor keeps the lanes' identity
+
+        def part(t):
+            return None if t is None else \
+                cut.setdefault(id(t), t[lo:lo + step])
+        tables = group_reduce_lanes(
+            part(gids), num_groups,
+            [Lane(ln.kind, part(ln.src), part(ln.mask)) for ln in lanes])
+        out = tables if out is None else [
+            _COMBINE[ln.kind](a, b) for ln, a, b in zip(lanes, out, tables)]
+    return out
 
 
 def agg_states(agg: D.Aggregation, scan_cols, row_count,
@@ -321,6 +357,28 @@ def compact(batch: DeviceBatch, capacity: int) -> tuple[list, torch.Tensor]:
     return out_cols, sel.sum(dtype=torch.int64)
 
 
+def _first_rows(keys: list, k: int) -> torch.Tensor:
+    """The first ``k`` rows of the stable sort of the rows by ``keys``.
+    A batch past ``stable_argsort``'s int32 permutation
+    (``ops/sort._MAX_ROWS`` rows) is cut into consecutive chunks under
+    it: each row of the top ``k`` is in its chunk's top ``k``, and the
+    candidates, each chunk's put back in row order, sort stably (in
+    chunks again while there are too many) into the top ``k`` that one
+    sort of every row gives, ties in row order."""
+    n, lim = keys[0].numel(), _sort._MAX_ROWS
+    if n <= lim:
+        return stable_argsort(keys)[:k]
+    if 2 * k > lim:
+        raise ValueError(f"a TopN of {k} rows over {n} exceeds the int32 "
+                         "permutation of one sort")
+    cand = []
+    for lo in range(0, n, lim):
+        top = stable_argsort([key[lo:lo + lim] for key in keys])[:k]
+        cand.append(lo + top[stable_argsort([top])])
+    cand = torch.cat(cand)
+    return cand[_first_rows([key[cand] for key in keys], k)]
+
+
 def _exec_topn(node: D.TopN, batch: DeviceBatch, ev: Evaluator
                ) -> DeviceBatch:
     """Per-shard TopN: a stable multi-key sort, then the first k rows.
@@ -347,7 +405,7 @@ def _exec_topn(node: D.TopN, batch: DeviceBatch, ev: Evaluator
             nullflag = (~valid if desc else valid).to(torch.int32)
         keys += [nullflag, key]
     k = min(node.limit, n)
-    idx = stable_argsort(keys)[:k]
+    idx = _first_rows(keys, k)
     live = sel.sum(dtype=torch.int64)
     out_sel = torch.arange(k, device=ev.device) < torch.clamp(live, max=k)
     cols = []

@@ -40,6 +40,7 @@ import torch
 
 from ..types import decimal as dec
 from ..types import dtypes as dt
+from .. import EVALUATOR, unported
 from .ir import ColumnRef, Const, Expr, Func
 
 K = dt.TypeKind
@@ -52,9 +53,7 @@ _I64_MIN, _I64_MAX = -2 ** 63, 2 ** 63 - 1
 
 
 def _unported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} arrives with a later slice of the port (ROADMAP.md, "
-        "Queue 1)")
+    return unported(what, EVALUATOR)
 
 
 def vand(a, b):

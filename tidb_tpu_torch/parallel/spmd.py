@@ -13,7 +13,9 @@ are the two aggregation kinds and the rows kind:
   comes back;
 - ``merge_kind == "host"`` (SORT, SEGMENT, SCATTER): each device
   returns its own group table, stacked along a leading device axis for
-  the client's host merge;
+  the client's host merge; a device batch past the sort's int32
+  permutation (``ops/sort._MAX_ROWS`` rows) runs as consecutive parts
+  under it, each part's table one more entry on that axis;
 - ``kind == "rows"`` (a root that is not an Aggregation): each device
   runs the DAG and compacts its live rows into ``row_capacity`` slots
   (``copr/exec.compact``); the per-device ``(cols, count)`` come back
@@ -28,8 +30,10 @@ import torch
 
 from ..copr import dag as D
 from ..copr.aggregate import _MERGE
+from ..copr import exec as _exec
 from ..copr.exec import _exec_node, agg_states, compact
 from ..expr.compile import Evaluator
+from ..ops import sort as _sort
 from ..types.dtypes import TypeKind as K
 
 
@@ -95,21 +99,40 @@ class ShardedCopProgram:
         # is int64-exact only below 2^31 global rows; float sums, counts,
         # host-merged (object-int) programs and proven-narrow SUMs (one
         # int64 word, with a whole-table no-wrap proof) are exempt
-        self._psum_limb_fence = (
-            self.agg is not None and not self.host_merge and any(
-                a.func == D.AggFunc.SUM and a.arg is not None
-                and a.arg.dtype.kind not in (K.FLOAT64, K.FLOAT32)
-                and i not in self.agg.narrow_sums
-                for i, a in enumerate(self.agg.aggs)))
+        self._limb_sums = self.agg is not None and any(
+            a.func == D.AggFunc.SUM and a.arg is not None
+            and a.arg.dtype.kind not in (K.FLOAT64, K.FLOAT32)
+            and i not in self.agg.narrow_sums
+            for i, a in enumerate(self.agg.aggs))
+        self._psum_limb_fence = self._limb_sums and not self.host_merge
 
     def _device_fn(self, cols, counts, device):
         flat, base_sel = _flatten_block(cols, counts)
         flat = [(v, True if m is None else m) for v, m in flat]
         ev = Evaluator(device)
+        if self.host_merge:
+            return [agg_states(self.agg, part, sel, ev)
+                    for part, sel in self._row_parts(flat, base_sel)]
         if self.agg is not None:
             return agg_states(self.agg, flat, base_sel, ev)
         batch = _exec_node(self.root, flat, base_sel, ev)
         return compact(batch, self.row_capacity)
+
+    def _row_parts(self, flat, sel) -> list:
+        """A host-merged aggregation's device batch as ``[(cols, sel)]``:
+        itself, or past ``ops/sort._MAX_ROWS`` rows consecutive parts
+        under it.  The limb SUMs' bound still holds for the whole
+        batch, as in the JAX package, whose batch is one sort."""
+        n, lim = sel.shape[0], _sort._MAX_ROWS
+        if n <= lim:
+            return [(flat, sel)]
+        if self._limb_sums and n >= _exec.LIMB_SUM_ROWS:
+            raise OverflowError(
+                f"shard batch of {n} rows exceeds the 2^31 limb-exact "
+                "SUM bound; use more/smaller shards")
+        return [([(v[lo:lo + lim], m if m is True else m[lo:lo + lim])
+                  for v, m in flat], sel[lo:lo + lim])
+                for lo in range(0, n, lim)]
 
     def __call__(self, stacked_cols: Sequence, counts: torch.Tensor):
         if self._psum_limb_fence and stacked_cols:
@@ -131,7 +154,11 @@ class ShardedCopProgram:
             blk = slice(d * per, (d + 1) * per)
             cols = [(v[blk], None if m is None else m[blk])
                     for v, m in stacked_cols]
-            outs.append(self._device_fn(cols, counts[blk], device))
+            out = self._device_fn(cols, counts[blk], device)
+            if self.host_merge:
+                outs.extend(out)
+            else:
+                outs.append(out)
         if self.agg is None or self.host_merge:
             return _stack(outs)
         return _collective_merge(outs)

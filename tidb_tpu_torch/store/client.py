@@ -27,7 +27,9 @@ to re-trim, as the JAX package's does.
 On the CPU the client runs the same device programs through the plain
 kernel versions; it has no host shortcut (the JAX package's CPU routes
 to ``host_dense_agg`` and ``host_sort_agg``), no streaming, result
-cache, warm-capacity cache, retries or fault ladders.
+cache, warm-capacity cache, retries or fault ladders.  The fused
+broadcast join (``aux_cols``), the shuffle joins and the device windows
+raise ``NotImplementedError`` naming their ROADMAP.md items.
 """
 
 from __future__ import annotations
@@ -40,6 +42,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from .. import EXCHANGE, JOINS, unported
 from ..chunk.column import Column
 from ..copr import dag as D
 from ..copr import radix
@@ -95,7 +98,10 @@ class CopClient:
         return cols, counts
 
     def execute_agg(self, agg: D.Aggregation, snap: ColumnarSnapshot,
-                    key_meta: list[GroupKeyMeta]) -> CopResult:
+                    key_meta: list[GroupKeyMeta], aux_cols=()) -> CopResult:
+        """The aggregation's result columns.  ``aux_cols``, the build
+        sides of a fused broadcast join, arrive with the joins' slice."""
+        _no_aux(aux_cols)
         cols, counts = self._place(snap)
         if agg.strategy in D.HOST_MERGE_STRATEGIES:
             return self._execute_sort_agg(agg, cols, counts, key_meta)
@@ -126,10 +132,13 @@ class CopClient:
             return dataclasses.replace(agg, num_buckets=_pow2_at_least(cap))
         return dataclasses.replace(agg, group_capacity=_pow2_at_least(cap))
 
-    def _split_devices(self, states) -> list:
-        """Per-device numpy state dicts from states stacked on axis 0."""
+    @staticmethod
+    def _split_devices(states) -> list:
+        """Per-table numpy state dicts from states stacked on axis 0: one
+        a device, more for a device whose batch ran in parts
+        (parallel/spmd.py)."""
         host = _to_numpy(states)
-        return [_index(host, d) for d in range(len(self.devices))]
+        return [_index(host, d) for d in range(len(host["__ngroups__"]))]
 
     def _execute_sort_agg(self, agg, cols, counts, key_meta) -> CopResult:
         """Per-device group tables (sort or partition, then segment
@@ -189,10 +198,13 @@ class CopClient:
             max(per_shard // INITIAL_SELECTIVITY, 1)), 1024)
 
     def execute_rows(self, root: D.CopNode, snap: ColumnarSnapshot,
-                     out_dtypes, dictionaries=None) -> list[Column]:
+                     out_dtypes, dictionaries=None,
+                     aux_cols=()) -> list[Column]:
         """The rows of a row-returning DAG, one ``Column`` per output,
         with the paging loop: re-run at a larger row capacity while a
-        device returns more rows than the capacity holds."""
+        device returns more rows than the capacity holds.  ``aux_cols``
+        as for ``execute_agg``."""
+        _no_aux(aux_cols)
         cols, counts = self._place(snap)
         t = self.timings
         t["device"] = t["transfer"] = 0.0
@@ -248,6 +260,22 @@ class CopClient:
             result.append(Column(ty, data.astype(ty.np_dtype()), valid, dic))
         t["assemble"] = time.perf_counter() - t1
         return result
+
+    def execute_shuffle_agg(self, spec, lsnap, rsnap, key_meta):
+        raise unported("the repartition (shuffle) join", EXCHANGE)
+
+    def execute_shuffle_rows(self, spec, lsnap, rsnap, out_dtypes,
+                             dictionaries=None):
+        raise unported("the repartition (shuffle) join", EXCHANGE)
+
+    def execute_window(self, spec, snap, out_dtypes, dictionaries=None,
+                       aux_cols=()):
+        raise unported("device window functions", EXCHANGE)
+
+
+def _no_aux(aux_cols) -> None:
+    if aux_cols:
+        raise unported("the build sides of a fused broadcast join", JOINS)
 
 
 def _leaves(tree, path=()):

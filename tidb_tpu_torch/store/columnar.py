@@ -4,13 +4,16 @@
 A table snapshot is S shards of fixed capacity C, stacked as (S, C)
 arrays at each column's narrow physical width (``Column.narrowed``),
 with a per-shard live-row count instead of compaction.  ``device_cols``
-places the stacks on the port's devices once and caches them.
+places the stacks on the port's devices once and caches them, keyed by
+the devices, the snapshot's epoch and its placement's epoch.  A snapshot
+with a ``placement`` (store/placement.py; a catalog table's always has
+one) stacks each device's shards in the order ``device_slots`` gives.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Sequence
+from typing import Any, Sequence
 
 import numpy as np
 import torch
@@ -28,12 +31,15 @@ def _pow2_at_least(n: int) -> int:
 
 @dataclass
 class ColumnarSnapshot:
-    """Immutable columnar snapshot of one table."""
+    """Immutable columnar snapshot of one table at an epoch."""
     names: list[str]
     dtypes: list[dt.DataType]
     columns: list[Column]              # full-length host columns
+    epoch: int = 0
     n_shards: int = 8
     min_capacity: int = 1024
+    # shard->store topology (store/placement.py); None = the even split
+    placement: Any = None
 
     _device_cache: dict = field(default_factory=dict, repr=False)
 
@@ -46,6 +52,17 @@ class ColumnarSnapshot:
         n = self.num_rows
         per = -(-n // s) if n else 0
         return [(min(i * per, n), min(i * per + per, n)) for i in range(s)]
+
+    def _placement_ranges(self, n_dev: int) -> list:
+        """Slot row-ranges in device order (D*K grid, K = max shards on
+        any device; short devices pad with empty slots)."""
+        per_dev = self.placement.device_slots(n_dev)
+        k = max((len(lst) for lst in per_dev), default=1) or 1
+        ranges = []
+        for lst in per_dev:
+            ranges += [(s.lo, s.hi) for s in lst]
+            ranges += [(0, 0)] * (k - len(lst))
+        return ranges
 
     def _stacked_ranges(self, ranges) -> tuple[list, np.ndarray]:
         cap = max(_pow2_at_least(max((hi - lo for lo, hi in ranges),
@@ -81,10 +98,14 @@ class ColumnarSnapshot:
             raise NotImplementedError(
                 "shards spread over several physical devices arrive with "
                 "the multi-GPU slice (ROADMAP.md, Queue 1)")
-        if devices in self._device_cache:
-            return self._device_cache[devices]
-        host_cols, counts = self._stacked_ranges(self._even_ranges())
+        p_epoch = self.placement.epoch if self.placement is not None else -1
+        key = (devices, self.epoch, p_epoch)
+        if key in self._device_cache:
+            return self._device_cache[key]
         n_dev = len(devices)
+        host_cols, counts = self._stacked_ranges(
+            self._even_ranges() if self.placement is None
+            else self._placement_ranges(n_dev))
         s = len(counts)
         s_pad = -(-s // n_dev) * n_dev
         if s_pad != s:
@@ -101,15 +122,17 @@ class ColumnarSnapshot:
                 for d, v in host_cols],
                torch.from_numpy(counts).to(dev))
         self._device_cache.clear()     # one placement resident at a time
-        self._device_cache[devices] = put
+        self._device_cache[key] = put
         return put
 
 
 def snapshot_from_columns(names: Sequence[str], cols: Sequence[Column],
-                          n_shards: int = 8,
-                          min_capacity: int = 1024) -> ColumnarSnapshot:
+                          n_shards: int = 8, epoch: int = 0,
+                          min_capacity: int = 1024,
+                          placement=None) -> ColumnarSnapshot:
     return ColumnarSnapshot(list(names), [c.dtype for c in cols], list(cols),
-                            n_shards=n_shards, min_capacity=min_capacity)
+                            epoch=epoch, n_shards=n_shards,
+                            min_capacity=min_capacity, placement=placement)
 
 
 def snapshot_from_numpy(names: Sequence[str], specs: Sequence[dict],

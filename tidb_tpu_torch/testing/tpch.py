@@ -1,9 +1,18 @@
 # ported from tidb_tpu/testing/tpch.py @ a9e9482
-"""TPC-H lineitem generator (numpy, vectorized).
+"""TPC-H lineitem generator (numpy, vectorized), the plan corpus, and
+SQL sessions over generated tables.
 
 Draws from the same ``np.random.default_rng([seed, tag])`` child streams
 as the JAX package's generator, so the same ``sf`` and ``seed`` give the
 same values, column for column.  SF=1 is 6,000,000 lineitem rows.
+
+``TPCH_PLAN_QUERIES`` is the JAX package's corpus, verbatim;
+``SQL_QUERIES`` names the statements the port's SQL path runs: TPC-H Q1
+and Q6 in the specification's text (its INTERVAL arithmetic, with the
+validation substitutions) and the corpus's lineitem-only statements.
+``tpch_sql_session`` is the counterpart of the JAX package's
+``tpch_plan_session``: a port ``Session`` over lineitem alone, without
+ANALYZE.
 """
 
 from __future__ import annotations
@@ -119,4 +128,146 @@ def gen_lineitem(sf: float = 1.0, seed: int = 0,
     return out_names, out_cols
 
 
-__all__ = ["gen_lineitem", "LINEITEM_NAMES", "DEC2"]
+# ------------------------------------------------------------------ #
+# plan corpus: the TPC-H-shaped statements every static-analysis gate
+# run and tests/test_analysis.py push through analysis.verify_plan.
+# Shapes covered: dense scalar/keyed agg, SORT (high-NDV) agg, rollup,
+# TopN/Limit, row-returning projections, broadcast lookup join (rows +
+# agg + multi-level), semi/anti join, host sort/setop, device window.
+# ------------------------------------------------------------------ #
+
+TPCH_PLAN_QUERIES = [
+    # Q6: dense scalar aggregation over scan+filter
+    """select sum(l_extendedprice * l_discount) as revenue from lineitem
+       where l_shipdate >= date '1994-01-01'
+         and l_shipdate < date '1995-01-01'
+         and l_discount between 0.05 and 0.07 and l_quantity < 24""",
+    # Q1: dense keyed aggregation (dict-coded group keys)
+    """select l_returnflag, l_linestatus, sum(l_quantity),
+              sum(l_extendedprice), avg(l_discount), count(*)
+       from lineitem where l_shipdate <= date '1998-09-02'
+       group by l_returnflag, l_linestatus
+       order by l_returnflag, l_linestatus""",
+    # high-NDV group-by: SORT-strategy aggregation (single key: stats NDV
+    # stays below the SEGMENT threshold at corpus scale)
+    """select l_orderkey, sum(l_extendedprice) from lineitem
+       group by l_orderkey""",
+    # very-high-NDV group-bys: the per-key stats NDV PRODUCT crosses
+    # SEGMENT_MIN_NDV, so these plan as the radix-partitioned SEGMENT
+    # strategy (tpch_plan_session ANALYZEs lineitem so the estimates
+    # exist at plan time) — the gate keeps them contract-clean and
+    # rc-pricing-finite like every other corpus shape
+    """select l_orderkey, l_partkey, count(*), sum(l_quantity)
+       from lineitem group by l_orderkey, l_partkey""",
+    """select l_orderkey, l_suppkey, max(l_extendedprice) from lineitem
+       where l_quantity < 45 group by l_orderkey, l_suppkey""",
+    # rollup: Expand + grouping sets
+    """select l_returnflag, l_linestatus, sum(l_quantity) from lineitem
+       group by l_returnflag, l_linestatus with rollup""",
+    # device TopN (multi-key) and plain Limit
+    """select l_orderkey, l_extendedprice from lineitem
+       order by l_extendedprice desc, l_orderkey limit 10""",
+    "select l_partkey from lineitem limit 5",
+    # row-returning scan chain with projection arithmetic
+    """select l_orderkey, l_extendedprice * (1 - l_discount)
+       from lineitem where l_quantity < 5""",
+    # broadcast lookup join, aggregated (Q19 shape without OR-chains)
+    """select p_brand, sum(l_extendedprice) from lineitem, part
+       where l_partkey = p_partkey and l_quantity < 10
+       group by p_brand""",
+    # broadcast lookup join, row-returning
+    """select l_orderkey, p_brand from lineitem, part
+       where l_partkey = p_partkey and p_size > 40 limit 20""",
+    # semi join (IN subquery)
+    """select l_orderkey from lineitem
+       where l_partkey in (select p_partkey from part where p_size > 45)
+       limit 10""",
+    # anti join (NOT IN subquery)
+    """select count(*) from lineitem
+       where l_suppkey not in (select o_custkey from orders)""",
+    # multi-table chain: lineitem x orders x part
+    """select o_totalprice, p_brand, l_quantity from lineitem, orders, part
+       where l_orderkey = o_orderkey and l_partkey = p_partkey
+       limit 10""",
+    # host sort over join output
+    """select o_orderkey, sum(l_extendedprice) as rev from lineitem, orders
+       where l_orderkey = o_orderkey
+       group by o_orderkey order by rev desc limit 5""",
+    # set operation
+    """select l_partkey from lineitem where l_quantity < 2
+       union select p_partkey from part where p_size = 1""",
+    # window function over the sharded table
+    """select l_orderkey,
+              row_number() over (partition by l_returnflag
+                                 order by l_extendedprice desc) as rn
+       from lineitem limit 10""",
+    # scalar-subquery-free HAVING residue (host filter over agg)
+    """select l_returnflag, count(*) as c from lineitem
+       group by l_returnflag having count(*) > 1""",
+]
+
+
+# TPC-H Q1 and Q6 as the specification writes them (2.4.1, 2.4.6), with
+# the validation substitutions: DELTA = 90; DATE = 1994-01-01,
+# DISCOUNT = 0.06, QUANTITY = 24.  The date arithmetic folds on the host.
+TPCH_Q1 = """select l_returnflag, l_linestatus, sum(l_quantity) as sum_qty,
+       sum(l_extendedprice) as sum_base_price,
+       sum(l_extendedprice * (1 - l_discount)) as sum_disc_price,
+       sum(l_extendedprice * (1 - l_discount) * (1 + l_tax)) as sum_charge,
+       avg(l_quantity) as avg_qty, avg(l_extendedprice) as avg_price,
+       avg(l_discount) as avg_disc, count(*) as count_order
+from lineitem
+where l_shipdate <= date '1998-12-01' - interval '90' day
+group by l_returnflag, l_linestatus
+order by l_returnflag, l_linestatus"""
+
+TPCH_Q6 = """select sum(l_extendedprice * l_discount) as revenue
+from lineitem
+where l_shipdate >= date '1994-01-01'
+  and l_shipdate < date '1994-01-01' + interval '1' year
+  and l_discount between 0.06 - 0.01 and 0.06 + 0.01
+  and l_quantity < 24"""
+
+# the statements of the port's SQL path, by name: each plans as one cop
+# task over lineitem (DENSE, SCALAR, SORT, TopN, Limit, rows) under host
+# operators the port runs
+SQL_QUERIES = {
+    "Q1": TPCH_Q1,
+    "Q6": TPCH_Q6,
+    "Q6 corpus": TPCH_PLAN_QUERIES[0],
+    "Q1 corpus": TPCH_PLAN_QUERIES[1],
+    "SORT": TPCH_PLAN_QUERIES[2],
+    "SORT two keys": TPCH_PLAN_QUERIES[3],
+    "SORT two keys filtered": TPCH_PLAN_QUERIES[4],
+    "TopN": TPCH_PLAN_QUERIES[6],
+    "Limit": TPCH_PLAN_QUERIES[7],
+    "rows": TPCH_PLAN_QUERIES[8],
+    "HAVING": TPCH_PLAN_QUERIES[17],
+}
+
+
+def sql_session(tables: dict, device="cuda", n_devices: int = 1):
+    """A port ``Session`` over a new ``Domain`` on ``device`` with each
+    ``name: (names, cols)`` of ``tables`` registered in database
+    ``test`` (the columns bulk-loaded, no ANALYZE)."""
+    from ..session import Domain, Session
+    from ..session.catalog import TableInfo
+    dom = Domain(device, n_devices)
+    for name, (names, cols) in tables.items():
+        t = TableInfo(name, list(names), [c.dtype for c in cols])
+        t.register_columns(list(cols))
+        dom.catalog.create_table("test", t)
+    return Session(dom)
+
+
+def tpch_sql_session(sf: float = 0.001, seed: int = 42, device="cuda",
+                     n_devices: int = 1, columns=None):
+    """A port ``Session`` with lineitem from ``gen_lineitem(sf, seed,
+    columns)`` registered on ``device``, without ANALYZE."""
+    return sql_session({"lineitem": gen_lineitem(sf, seed, columns)},
+                       device, n_devices)
+
+
+__all__ = ["gen_lineitem", "LINEITEM_NAMES", "DEC2", "TPCH_PLAN_QUERIES",
+           "TPCH_Q1", "TPCH_Q6", "SQL_QUERIES", "sql_session",
+           "tpch_sql_session"]
