@@ -5,7 +5,8 @@
                                      # DENSE/SCALAR main path at SF=10,
                                      # the slice-4 statements at SF=1,
                                      # SQL: Q1, Q6 at SF=10, the corpus
-                                     # statements at SF=1
+                                     # statements at SF=1; joins at
+                                     # SF=10 and SF=1
     python3 chip_smoke.py --sf 0.05 --main-sf 0.1 --s4-sf 0.05   # quicker
     python3 chip_smoke.py --perm-of DIR   # only scatter_permutation's
                                           # time, of DIR/tidb_tpu_torch
@@ -93,7 +94,32 @@ script exits non-zero without printing a result:
    its first and warm wall times, parse and plan ms, the client's
    split, the host operators' ms, the decode ms and the warm SQL
    overhead (the last call's wall less the client's);
-10. the ``kernels`` JSON line, then the last line
+10. joins: through the port's ``Session`` on ``cuda:0`` (one logical
+   device), over lineitem at ``--main-sf`` (phase 7's columns and the
+   join keys), part from ``gen_part`` and orders from
+   ``gen_orders_mini`` (1,500,000 rows, under the broadcast cap): the
+   aggregated broadcast join by ``p_brand``, the row-returning join, the
+   ``IN`` semi join, the ``NOT IN`` anti join, the broadcast step of the
+   MULTICHIP shapes, TPC-H Q19 in the specification's text (a
+   repartition join with lineitem as the build side) and the first
+   ``TPCH_SHUFFLE_QUERIES`` statement over orders of the scale's order
+   count (a repartition join); at ``--s4-sf`` the m:n inner and left
+   joins on ``o_custkey``, the three-table statement, the host sort over
+   a join and the host hash join with an ``ON`` filter, then both
+   ``TPCH_SHUFFLE_QUERIES`` statements on eight logical devices of the
+   card (broadcast budget 0), so the exchange moves rows between them.
+   Each equals its numpy oracle (a lookup array by key for a unique
+   join, per-key counts for m:n, the three OR branches over the part
+   attributes gathered by ``l_partkey`` for Q19), is planned as stated,
+   launches its hand kernels (``group_reduce``, the onesweep pair for
+   the build sort and the SORT aggregation) with no plain version run
+   and no host fallback of a join taken, and prints first and warm ms,
+   the client's split (``place``, ``build``, ``device``, ``transfer``,
+   ``merge`` or ``assemble``) and its join, exchange and table
+   capacities; the aggregated broadcast join's probe steps
+   (``searchsorted``, the gathers, and the m:n join's ``expand_slots``
+   at ``--s4-sf``) print their device ms beside their memory bounds;
+11. the ``kernels`` JSON line, then the last line
    ``{"ok": true, "device": {...}}``.
 
 Query A is the grouping inside TPC-H Q18; query B is a corpus query of
@@ -1779,7 +1805,7 @@ def sql_run(sess, name: str, sql: str, counters) -> tuple:
 
 
 def sql_phase(gr, os1, S, main_data, main_res, s4_sf: float,
-              s4_res: dict) -> dict:
+              s4_res: dict) -> tuple:
     """TPC-H Q1 and Q6 as SQL text over phase 7's lineitem (``--main-sf``)
     and the corpus's lineitem-only statements over lineitem at
     ``--s4-sf`` (seed 0, as phase 8), each through the port's
@@ -1787,7 +1813,8 @@ def sql_phase(gr, os1, S, main_data, main_res, s4_sf: float,
     DAG-level run of phases 7 and 8, each launching its hand kernels,
     none of their plain versions running.  Prints each statement's
     first and warm wall times and the warm call's split; returns the
-    phase's launch counts."""
+    phase's launch counts and the ``--s4-sf`` lineitem ``(names,
+    cols)`` (phase 10 joins over it)."""
     from tidb_tpu_torch.testing import tpch
     rk_counts = (gr.LAUNCHES, os1.LAUNCHES)
     t0 = time.perf_counter()
@@ -1835,6 +1862,344 @@ def sql_phase(gr, os1, S, main_data, main_res, s4_sf: float,
     for k in GR + OS:
         check(counts[k] > 0, f"SQL path: {k} launched {counts[k]} times")
     print(f"sql launches: {counts} stable_argsort_passes="
+          f"{S.PASSES['stable_argsort']} plain_calls={guard.calls}")
+    return counts, (names, cols)
+
+
+# --------------------------------------------------------------------- #
+# phase 10: joins
+# --------------------------------------------------------------------- #
+
+JOIN_LI_EXTRA = ["l_orderkey", "l_partkey", "l_suppkey"]   # beside Q_COLS
+JOIN_DEVICE = "cuda"
+JOIN_ORDERS = 1_500_000      # the broadcast statements' orders: < 2^22
+# at --main-sf through one Session on the card: the broadcast statements
+# (orders of 1,500,000 rows), then TPC-H Q19 and the repartition join
+# over orders of SF's order count ("shuffle big")
+JOIN_MAIN = ("join agg", "join rows", "semi", "anti", "broadcast step",
+             "Q19", "shuffle big")
+# at --s4-sf: the m:n joins, the chain, the host sort over a join and the
+# host hash join on one logical device, then both repartition statements
+# on eight logical devices of the card (broadcast budget 0)
+JOIN_S4 = ("m:n inner", "m:n left", "three tables", "join TopN",
+           "left join ON filter")
+JOIN_S4_SHUFFLE = ("shuffle", "shuffle group by")
+# the hand kernels each statement launches: group_reduce for the
+# aggregations on the card, the onesweep pair for the repartition join's
+# build sort and the SORT aggregation
+JOIN_KERNELS = {"join agg": GR, "join rows": (), "semi": (), "anti": GR,
+                "broadcast step": GR, "Q19": GR + OS, "shuffle big": GR + OS,
+                "m:n inner": GR, "m:n left": GR, "three tables": (),
+                "join TopN": GR + OS, "left join ON filter": (),
+                "shuffle": GR + OS, "shuffle group by": GR + OS}
+# the operator the statement's plan holds
+JOIN_PLANNED = {"Q19": "CopShuffleJoin[agg,inner] part x lineitem",
+                "shuffle big": "CopShuffleJoin[agg,inner]",
+                "shuffle": "CopShuffleJoin[agg,inner]",
+                "shuffle group by": "CopShuffleJoin[agg,inner]",
+                "left join ON filter": "HostHashJoin[left]",
+                "m:n inner": "CopJoinTask[agg,inner]",
+                "m:n left": "CopJoinTask[agg,left]"}
+JOIN_TEXT = {"shuffle big": 0, "shuffle": 0, "shuffle group by": 1}
+
+
+def join_sql(name: str) -> str:
+    from tidb_tpu_torch.testing import tpch
+    if name in JOIN_TEXT:
+        return tpch.TPCH_SHUFFLE_QUERIES[JOIN_TEXT[name]]
+    return tpch.JOIN_QUERIES[name]
+
+
+def exact_bincount(keys: np.ndarray, vals: np.ndarray, n: int) -> np.ndarray:
+    """Per-key sums of int64 ``vals``, exact: float64 sums of integers
+    stay exact below 2^53."""
+    check(int(np.abs(vals).sum()) < 2 ** 53, "bincount oracle past 2^53")
+    return np.bincount(keys, weights=vals, minlength=n).astype(np.int64)
+
+
+def q19_mask(li: dict, part: dict) -> np.ndarray:
+    """The lineitem rows TPC-H Q19 (the spec's validation values) keeps,
+    the part attributes gathered by ``l_partkey``."""
+    pk = li["l_partkey"].data
+    n_part = len(part["p_partkey"].data)
+    ok = (pk >= 1) & (pk <= n_part)
+    row = np.clip(pk, 1, n_part) - 1
+    brand, cont = part["p_brand"], part["p_container"]
+    size = part["p_size"].data[row]
+    qty = li["l_quantity"].data
+    mode, instr = li["l_shipmode"], li["l_shipinstruct"]
+
+    def codes(col, vals):
+        return [c for c in (col.dictionary.code_of(v) for v in vals) if c >= 0]
+    keep = ok & np.isin(mode.data, codes(mode, ("AIR", "AIR REG"))) & (
+        instr.data == instr.dictionary.code_of("DELIVER IN PERSON"))
+    any_branch = np.zeros(len(pk), bool)
+    for b, conts, q, smax in (
+            ("Brand#12", ("SM CASE", "SM BOX", "SM PACK", "SM PKG"), 1, 5),
+            ("Brand#23", ("MED BAG", "MED BOX", "MED PKG", "MED PACK"), 10,
+             10),
+            ("Brand#34", ("LG CASE", "LG BOX", "LG PACK", "LG PKG"), 20,
+             15)):
+        any_branch |= ((brand.data[row] == brand.dictionary.code_of(b))
+                       & np.isin(cont.data[row], codes(cont, conts))
+                       & (qty >= q * 100) & (qty <= (q + 10) * 100)
+                       & (size >= 1) & (size <= smax))
+    return keep & any_branch
+
+
+def join_check(name: str, rs, li: dict, part: dict, orders: dict) -> None:
+    """``rs`` of join statement ``name`` against its numpy oracle: a
+    unique-key join through a lookup array indexed by the key (part and
+    orders keys are 1..n), an m:n join through per-key counts, a
+    row-returning one by finding each row among the joined rows."""
+    cols = sql_columns(rs)
+    okey, pk = li["l_orderkey"].data, li["l_partkey"].data
+    price, qty = li["l_extendedprice"].data, li["l_quantity"].data
+    n_part = len(part["p_partkey"].data) if part else 0
+    n_ord = len(orders["o_orderkey"].data)
+    prow = np.clip(pk, 1, max(n_part, 1)) - 1
+    p_ok = (pk >= 1) & (pk <= n_part)
+    size = part["p_size"].data[prow] if part else None
+    brand = part["p_brand"] if part else None
+    o_ok = (okey >= 1) & (okey <= n_ord)
+    orow = np.clip(okey, 1, n_ord) - 1
+    if name == "join agg":
+        m = p_ok & (qty < 1000)
+        b = brand.data[prow[m]]
+        sums = exact_bincount(b, price[m], len(brand.dictionary))
+        seen = np.bincount(b, minlength=len(brand.dictionary)) > 0
+        want = {brand.dictionary.values[c]: int(sums[c])
+                for c in np.nonzero(seen)[0]}
+        check(dict(zip(cols[0], cols[1])) == want, f"{name} != numpy")
+        return
+    if name in ("join rows", "semi"):
+        limit = 20 if name == "join rows" else 10
+        check(len(rs.rows) == limit, f"{name}: {len(rs.rows)} rows")
+        for i, ok in enumerate(cols[0]):
+            lo, hi = np.searchsorted(okey, [ok, ok + 1])   # sorted keys
+            hit = p_ok[lo:hi] & (size[lo:hi] > (40 if limit == 20 else 45))
+            if name == "join rows":
+                hit &= brand.data[prow[lo:hi]] == brand.dictionary.code_of(
+                    cols[1][i])
+            check(hit.any(), f"{name}: row {rs.rows[i]} is not joined")
+        return
+    if name == "anti":
+        cust = np.unique(orders["o_custkey"].data)
+        want = int((~np.isin(li["l_suppkey"].data, cust)).sum())
+        check(cols == [[want]], f"{name}: {cols} != numpy {want}")
+        return
+    if name == "broadcast step":
+        m = p_ok & (size < 25)
+        want = [[int(m.sum())], [exact_sum(price[m])]]
+        check(cols == want, f"{name}: {cols} != numpy {want}")
+        return
+    if name == "Q19":
+        m = q19_mask(li, part)
+        check(m.any(), "Q19: no row qualifies at this scale")
+        disc = li["l_discount"].data[m]
+        want = exact_sum(price[m] * (100 - disc))
+        check(cols == [[want]], f"Q19: {cols} != numpy {want}")
+        return
+    if name in ("shuffle big", "shuffle"):
+        tp = orders["o_totalprice"].data
+        want = [[int(o_ok.sum())], [exact_sum(qty[o_ok] + tp[orow[o_ok]])]]
+        check(cols == want, f"{name}: {cols} != numpy {want}")
+        return
+    if name == "shuffle group by":
+        ck = orders["o_custkey"].data[orow[o_ok]]
+        sums = exact_bincount(ck, qty[o_ok], int(ck.max()) + 1)
+        want = {int(k): int(sums[k]) for k in np.unique(ck)}
+        check(dict(zip(cols[0], cols[1])) == want, f"{name} != numpy")
+        return
+    if name in ("m:n inner", "m:n left"):
+        cnt = np.bincount(orders["o_custkey"].data)
+        c = np.where(okey < len(cnt), cnt[np.clip(okey, 0, len(cnt) - 1)], 0)
+        want = ([[int(c.sum())], [exact_sum(price * c)]]
+                if name == "m:n inner"
+                else [[int(np.maximum(c, 1).sum())], [int(c.sum())]])
+        check(cols == want, f"{name}: {cols} != numpy {want}")
+        return
+    if name == "three tables":
+        check(len(rs.rows) == 10, f"{name}: {len(rs.rows)} rows")
+        tp = orders["o_totalprice"].data
+        for tpv, b, q in zip(*cols):
+            hit = o_ok & p_ok & (tp[orow] == tpv) & (qty == q) & (
+                brand.data[prow] == brand.dictionary.code_of(b))
+            check(hit.any(), f"{name}: row {(tpv, b, q)} is not joined")
+        return
+    if name == "join TopN":
+        sums = exact_bincount(okey[o_ok], price[o_ok], n_ord + 1)
+        top = np.sort(sums)[::-1][:5]
+        check(sorted(cols[1], reverse=True) == [int(x) for x in top]
+              and all(int(sums[k]) == r for k, r in zip(*cols)),
+              f"{name} != numpy")
+        return
+    if name == "left join ON filter":
+        want = [[len(okey)], [int((p_ok & (size < 3)).sum())]]
+        check(cols == want, f"{name}: {cols} != numpy {want}")
+        return
+    raise RuntimeError(f"no oracle for {name}")
+
+
+def swap_table(sess, name: str, data) -> None:
+    """Replace table ``name`` of ``sess``'s catalog by ``(names, cols)``
+    (the other tables keep their snapshots, so their placement too)."""
+    from tidb_tpu_torch.session.catalog import TableInfo
+    names, cols = data
+    cat = sess.domain.catalog
+    cat.drop_table("test", name)
+    t = TableInfo(name, list(names), [c.dtype for c in cols])
+    t.register_columns(list(cols))
+    cat.create_table("test", t)
+
+
+def probe_steps(torch, dev, li: dict, part: dict, li_s4: dict,
+                orders_s4: dict) -> dict:
+    """Device ms of the broadcast join's probe steps at the aggregated
+    join's shape (--main-sf lineitem against part), each against its
+    memory bound (inputs read once, outputs written once, over
+    ``HBM_BYTES_PER_S``): ``searchsorted`` of the probe keys into the
+    sorted build keys, the gathers of the unique join (match test,
+    permutation, one int32 build column), and the m:n join's
+    ``expand_slots`` at its --s4-sf shape (lineitem on orders.o_custkey)."""
+    from tidb_tpu_torch.copr import join as J
+    kv = torch.from_numpy(li["l_partkey"].data).to(dev, torch.int64)
+    keys = np.asarray(part["p_partkey"].data, np.int64)
+    order = np.argsort(keys, kind="stable")
+    sk = torch.from_numpy(keys[order]).to(dev)
+    perm = torch.from_numpy(order.astype(np.int64)).to(dev)
+    bcol = torch.from_numpy(part["p_brand"].data).to(dev)
+    n, b = kv.numel(), sk.numel()
+    out = {}
+    idx = torch.searchsorted(sk, kv)
+    out["searchsorted"] = (cuda_ms(torch, lambda: torch.searchsorted(
+        sk, kv)), bound_ms(8 * n + 8 * b + 8 * n, 0)[0])
+
+    def gathers():
+        idxc = idx.clamp(0, b - 1)
+        matched = sk[idxc] == kv
+        brow = perm[idxc]
+        return matched, bcol[brow]
+    out["gathers"] = (cuda_ms(torch, gathers),
+                      bound_ms(8 * n + 8 * n + 12 * b + n + 4 * n, 0)[0])
+    ck = np.sort(np.asarray(orders_s4["o_custkey"].data, np.int64))
+    sk2 = torch.from_numpy(ck).to(dev)
+    kv2 = torch.from_numpy(li_s4["l_orderkey"].data).to(dev, torch.int64)
+    ok2 = torch.ones(kv2.numel(), dtype=torch.bool, device=dev)
+    _lo, _hi, cnt = J.match_ranges(sk2, sk2.numel(), kv2, ok2)
+    n2 = cnt.numel()
+    # the statement's first capacity: probe rows x the mean duplication
+    # (executor/physical.py CopJoinTaskExec._execute_single)
+    dup = len(ck) / len(np.unique(ck))
+    cap = 1 << max(int(n2 * dup) - 1, 1023).bit_length()
+    out["expand_slots"] = (
+        cuda_ms(torch, lambda: J.expand_slots(ok2, cnt, "inner", cap)),
+        bound_ms(n2 + 8 * n2 + cap * (8 + 8 + 1 + 1), 0)[0])
+    out["shapes"] = {"probe_rows": n, "build_rows": b, "mn_probe_rows": n2,
+                     "mn_out_capacity": cap}
+    return out
+
+
+def join_phase(torch, gr, os1, S, main_data, main_sf: float, s4_data,
+               s4_sf: float) -> dict:
+    """The join statements (``JOIN_MAIN`` at ``--main-sf``, ``JOIN_S4``
+    and ``JOIN_S4_SHUFFLE`` at ``--s4-sf``) through the port's
+    ``Session`` on ``cuda:0``: each equal to its numpy oracle, planned
+    as stated, launching its hand kernels with no plain version run and
+    no join fallback taken; prints first and warm ms and the client's
+    split, the join capacities and the probe steps' device ms.  Returns
+    the phase's launch counts."""
+    from tidb_tpu_torch.executor import plan as pplan
+    from tidb_tpu_torch.testing import tpch
+    counters = (gr.LAUNCHES, os1.LAUNCHES)
+    t0 = time.perf_counter()
+    extra = tpch.gen_lineitem(main_sf, seed=0, columns=JOIN_LI_EXTRA)
+    li_main = (list(main_data[0]) + extra[0], list(main_data[1]) + extra[1])
+    part_main = tpch.gen_part(main_sf, seed=7)
+    orders_b = tpch.gen_orders_mini(JOIN_ORDERS)
+    orders_big = tpch.gen_orders_mini(int(1_500_000 * main_sf))
+    part_s4 = tpch.gen_part(s4_sf, seed=7)
+    orders_s4 = tpch.gen_orders_mini(int(1_500_000 * s4_sf))
+    print(f"data: lineitem sf={main_sf} rows={len(li_main[1][0])} "
+          f"columns={len(li_main[0])}; part rows={len(part_main[1][0])}; "
+          f"orders rows={len(orders_b[1][0])} and "
+          f"{len(orders_big[1][0])}; at sf={s4_sf}: lineitem "
+          f"rows={len(s4_data[1][0])} part rows={len(part_s4[1][0])} "
+          f"orders rows={len(orders_s4[1][0])} "
+          f"gen_s={time.perf_counter() - t0:.2f}")
+
+    def cols(data):
+        return dict(zip(*data))
+    main = tpch.sql_session({"lineitem": li_main, "part": part_main,
+                             "orders": orders_b}, device=JOIN_DEVICE)
+    s4 = tpch.sql_session({"lineitem": s4_data, "part": part_s4,
+                           "orders": orders_s4}, device=JOIN_DEVICE)
+    s4x8 = tpch.sql_session({"lineitem": s4_data, "orders": orders_s4},
+                            device=JOIN_DEVICE, n_devices=8)
+    runs = [(main, n, cols(li_main), cols(part_main), cols(orders_b))
+            for n in JOIN_MAIN]
+    runs += [(s4, n, cols(s4_data), cols(part_s4), cols(orders_s4))
+             for n in JOIN_S4]
+    runs += [(s4x8, n, cols(s4_data), {}, cols(orders_s4))
+             for n in JOIN_S4_SHUFFLE]
+    reset(counters + (S.PASSES,))            # counts of this path only
+    probe = None
+    with plain_guard({"gr": gr, "os1": os1}) as guard:
+        for sess, name, li, part, orders in runs:
+            if name == "shuffle big":
+                swap_table(sess, "orders", orders_big)
+                orders = cols(orders_big)
+            forced = name in JOIN_S4_SHUFFLE
+            saved = pplan.BROADCAST_BUILD_MAX_ROWS
+            if forced:
+                pplan.BROADCAST_BUILD_MAX_ROWS = 0
+            try:
+                sql = join_sql(name)
+                plan = [r[0] for r in sess.execute("explain " + sql).rows]
+                want_op = JOIN_PLANNED.get(name, "CopJoinTask")
+                check(any(want_op in ln for ln in plan),
+                      f"join {name}: planned {plan}")
+                fb0 = sess.domain.client.join_fallbacks
+                rs, first, warm, last, st, ct, launched = sql_run(
+                    sess, name, sql, counters)
+            finally:
+                pplan.BROADCAST_BUILD_MAX_ROWS = saved
+            check(sess.domain.client.join_fallbacks == fb0,
+                  f"join {name}: a host fallback of the join ran")
+            for k in JOIN_KERNELS[name]:
+                check(launched[k] > 0, f"join {name}: {k} not launched")
+            join_check(name, rs, li, part, orders)
+            n_rows = len(li["l_orderkey"].data)
+            client_s = sum(v for v in ct.values() if isinstance(v, float))
+            split = " ".join(f"{k}_ms={v * 1e3:.3f}" for k, v in ct.items()
+                             if isinstance(v, float))
+            caps = " ".join(f"{k}={ct[k]}" for k in ("joins", "shuffles",
+                                                     "buckets", "pages")
+                            if k in ct)
+            print(f"join {name}: plan={'/'.join(ln.strip() for ln in plan)} "
+                  f"rows={n_rows} out_rows={len(rs.rows)} "
+                  f"first_ms={first * 1e3:.3f} warm_ms={warm * 1e3:.3f} "
+                  f"parse_ms={st['parse'] * 1e3:.3f} "
+                  f"plan_ms={st['plan'] * 1e3:.3f} {split} {caps} "
+                  f"decode_ms={st['decode'] * 1e3:.3f} "
+                  f"overhead_ms={(last - client_s) * 1e3:.3f} "
+                  f"rows_per_s={n_rows / warm:.0f} "
+                  f"launches={ {k: launched[k] for k in GR + OS} } "
+                  f"fallbacks=0 exact=True")
+            del rs
+            if name == "join agg":
+                probe = probe_steps(torch, torch.device(JOIN_DEVICE), li,
+                                    part, cols(s4_data), cols(orders_s4))
+    check(guard.calls == 0, f"join path ran {guard.calls} plain-version "
+          "calls of its kernels on the card")
+    counts = {k: v for launches in counters for k, v in launches.items()}
+    for k in GR + OS:
+        check(counts[k] > 0, f"join path: {k} launched {counts[k]} times")
+    shapes = probe.pop("shapes")
+    print("join probe steps: " + " ".join(
+        f"{k}_ms={ms:.4f} {k}_bound_ms={bd:.4f}"
+        for k, (ms, bd) in probe.items()) + f" shapes={shapes}")
+    print(f"join launches: {counts} stable_argsort_passes="
           f"{S.PASSES['stable_argsort']} plain_calls={guard.calls}")
     return counts
 
@@ -1911,7 +2276,10 @@ def main() -> int:
         torch, gr, args.main_sf)
     s4_counts, s4_res = slice4_phase(torch, rk, os1, gr, S, args.s4_sf)
     counts.update(s4_counts)
-    sql_phase(gr, os1, S, main_data, main_res, args.s4_sf, s4_res)
+    _sql_counts, s4_data = sql_phase(gr, os1, S, main_data, main_res,
+                                     args.s4_sf, s4_res)
+    join_phase(torch, gr, os1, S, main_data, args.main_sf, s4_data,
+               args.s4_sf)
 
     cu = "tidb_tpu_torch/copr/cuda/"
     sources = {"radix_hist": cu + "radix_kernel.cu",

@@ -11,7 +11,10 @@ plain versions (computed on the CPU, whose scatter propagates NaN as the
 JAX package's does) exactly for integers and float min/max, and within
 ``FSUM_RTOL`` of the slot's sum of |v| for float sums, which must come
 back as the same bits on every launch; an aggregation's state table is
-one launch a program run.
+one launch a program run; the join statements (broadcast, m:n,
+repartition, host joins) through a ``Session`` on the card on one and
+on eight logical devices return the CPU session's rows and take no
+host fallback, and the exchange receives what it receives on the CPU.
 
 Every test here needs a CUDA GPU and skips without one.  The file
 imports no JAX, so it also runs on a machine that has only PyTorch:
@@ -857,3 +860,64 @@ def test_sql_on_the_card_equals_the_cpu(dev, name):
     assert got.rows == want.rows
     for k in SQL_ON_CARD[name]:
         assert launched[k] > 0, k
+
+
+# the join statements on the card and the hand kernels each launches
+# (the repartition statements with the broadcast budget at 0)
+JOIN_ON_CARD = {"join agg": ("group_reduce",), "join rows": (),
+                "semi": (), "anti": ("group_reduce",),
+                "join TopN": ("group_reduce", "radix_onesweep64"),
+                "Q19": ("group_reduce",), "m:n left": ("group_reduce",),
+                "three tables": (), "left join ON filter": (),
+                "shuffle": ("group_reduce", "radix_onesweep64"),
+                "shuffle group by": ("group_reduce", "radix_onesweep64")}
+
+
+@pytest.mark.parametrize("n_devices", [1, 8])
+@pytest.mark.parametrize("name", sorted(JOIN_ON_CARD))
+def test_join_on_the_card_equals_the_cpu(dev, name, n_devices, monkeypatch):
+    """A join statement through a ``Session`` on the card returns the
+    rows of the same session on the CPU, exactly, launched its hand
+    kernels, and took no host fallback of a join."""
+    from tidb_tpu_torch.executor import plan as pplan
+    from tidb_tpu_torch.testing import tpch
+    if name.startswith("shuffle"):
+        monkeypatch.setattr(pplan, "BROADCAST_BUILD_MAX_ROWS", 0)
+    sql = tpch.JOIN_QUERIES[name]
+
+    def session(device):
+        return tpch.tpch_sql_session(0.02, device=device,
+                                     n_devices=n_devices, part_sf=0.2,
+                                     n_orders=512)
+    before = {**gr.LAUNCHES, **os1.LAUNCHES}
+    card = session("cuda")
+    got = card.execute(sql)
+    launched = {k: v - before[k] for k, v in {**gr.LAUNCHES,
+                                               **os1.LAUNCHES}.items()}
+    want = session("cpu").execute(sql)
+    assert got.names == want.names
+    assert got.rows == want.rows
+    assert card.domain.client.join_fallbacks == 0
+    for k in JOIN_ON_CARD[name]:
+        assert launched[k] > 0, k
+
+
+@pytest.mark.parametrize("cap", [4096, 64])
+def test_exchange_on_the_card_equals_the_cpu(dev, cap):
+    """The exchange over 8 logical devices on the card receives what it
+    receives on the CPU."""
+    from tidb_tpu_torch.parallel import exchange as pex
+    rng = np.random.default_rng(3)
+    keys = rng.integers(-2 ** 40, 2 ** 40, 8 * 1000)
+    valid = rng.random(len(keys)) < 0.9
+    out = {}
+    for d in (dev, torch.device("cpu")):
+        k, ok = torch.from_numpy(keys).to(d), torch.from_numpy(valid).to(d)
+        per_dev = [([(k[i * 1000:(i + 1) * 1000], True)],
+                    ok[i * 1000:(i + 1) * 1000], k[i * 1000:(i + 1) * 1000])
+                   for i in range(8)]
+        out[d.type] = pex.all_to_all_exchange(per_dev, 8, cap)
+    for (gc, gv, go, gm), (wc, wv, wo, wm) in zip(out["cuda"], out["cpu"]):
+        assert torch.equal(gc[0][0].cpu(), wc[0][0])
+        assert torch.equal(gv.cpu(), wv)
+        assert int(go) == int(wo) and int(gm) == int(wm)

@@ -24,6 +24,19 @@ FORBIDDEN = re.compile(
 PROVENANCE = re.compile(r"^# ported from (tidb_tpu/\S+\.py) @ [0-9a-f]{7,}$")
 
 
+# the join slice's modules: each among the sources checked below
+JOIN_MODULES = ["tidb_tpu_torch/copr/join.py",
+                "tidb_tpu_torch/parallel/exchange.py",
+                "tidb_tpu_torch/parallel/shuffle.py",
+                "tidb_tpu_torch/planner/join_reorder.py",
+                "tidb_tpu_torch/planner/cardinality.py"]
+
+
+@pytest.mark.parametrize("path", JOIN_MODULES)
+def test_join_modules_are_checked(path):
+    assert path in SOURCES
+
+
 @pytest.mark.parametrize("line,hit", [
     ("import jax", True), ("import jax.numpy as jnp", True),
     ("from jax import lax", True), ("import tidb_tpu", True),

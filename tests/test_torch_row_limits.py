@@ -158,8 +158,8 @@ def test_group_by_past_the_sort_rows_equals_jax(strategy, monkeypatch):
     parts = []
     states = spmd.agg_states
     monkeypatch.setattr(spmd, "agg_states",
-                        lambda a, cols, sel, ev: parts.append(sel.numel())
-                        or states(a, cols, sel, ev))
+                        lambda a, cols, sel, ev, aux: parts.append(
+                            sel.numel()) or states(a, cols, sel, ev, aux))
     monkeypatch.setattr(S, "_MAX_ROWS", 300)
     client = CopClient("cpu", 8)
     res = client.execute_agg(agg, snap, [GroupKeyMeta(t, 0) for t in types])

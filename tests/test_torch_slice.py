@@ -493,8 +493,7 @@ def _unported_cases():
         return agg(child=D.Selection(scan, (b.compare(
             "lt", b.arith(op, ColumnRef(i64, 0), b.lit(2)), b.lit(3)),)))
     return {
-        "LookupJoin node": agg(child=D.LookupJoin(
-            scan, ColumnRef(i64, 0), "inner", (i64,), True)),
+        "two physical devices": agg(strategy="SCALAR", group_by=()),
         "Expand under SORT": agg(child=D.Expand(scan, key, 2),
                                  strategy="SORT"),
         "Expand node": agg(child=D.Expand(scan, key, 2), group_by=(),
@@ -518,9 +517,13 @@ def _unported_cases():
 
 # SQL statements of later slices: (statement, the ROADMAP.md item named)
 _UNPORTED_SQL = {
-    "SQL join": ("""select p_brand, sum(l_extendedprice) from lineitem, part
-                    where l_partkey = p_partkey and l_quantity < 10
-                    group by p_brand""", "Queue 1 item 2: slice 6, joins"),
+    "SQL window over a join": ("""select l_orderkey, row_number() over
+                                  (partition by l_returnflag order by
+                                   l_extendedprice desc) as rn
+                                  from lineitem, part
+                                  where p_partkey = l_partkey
+                                  and p_size < 25""",
+                               "Queue 1 item 4: slice 8"),
     "SQL rollup": ("""select l_returnflag, l_linestatus, sum(l_quantity)
                       from lineitem group by l_returnflag, l_linestatus
                       with rollup""", "Queue 1 item 3: slice 7, rollup"),
@@ -576,6 +579,10 @@ def test_unported_paths_raise(case):
         {"kind": "FLOAT64", "nullable": False, "data": np.ones(10)},
         {"kind": "UINT64", "nullable": False,
          "data": np.arange(10, dtype=np.uint64)}])
+    client = CopClient("cpu")
+    if case == "two physical devices":
+        # shards over several GPUs arrive with the multi-GPU slice
+        client.devices = (torch.device("cpu"), torch.device("meta"))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        CopClient("cpu").execute_agg(_unported_cases()[case], snap,
-                                     [GroupKeyMeta(dt.bigint(False), 0)])
+        client.execute_agg(_unported_cases()[case], snap,
+                           [GroupKeyMeta(dt.bigint(False), 0)])

@@ -14,12 +14,15 @@ without a GPU raises.
 What is ported so far: the coprocessor client
 (``store.client.CopClient``: ``execute_agg`` for the SCALAR, DENSE,
 SORT, SEGMENT and SCATTER strategies, ``execute_rows`` for TopN, Limit
-and filtered projections) over a ``store.columnar.ColumnarSnapshot``,
-on the hand-written CUDA kernels of ``copr/cuda/``; and above it the
-SELECT path from SQL text: the parser (``sql/``), the planner
-(``planner/``), the executor (``executor/``), the catalog and a
-``session.Session`` whose plans are the JAX package's with
-auto-analyze off.  What the port does not run yet raises
+and filtered projections, both with broadcast joins fused into the
+program, and ``execute_shuffle_agg``/``execute_shuffle_rows`` for the
+repartition join over the logical devices) over a
+``store.columnar.ColumnarSnapshot``, on the hand-written CUDA kernels
+of ``copr/cuda/``; and above it the SELECT path from SQL text: the
+parser (``sql/``), the planner (``planner/``, with the join reorder),
+the executor (``executor/``: the device joins and the host join
+operators), the catalog and a ``session.Session`` whose plans are the
+JAX package's with auto-analyze off.  What the port does not run yet raises
 ``NotImplementedError`` naming its ROADMAP.md item (below).
 """
 
@@ -30,7 +33,7 @@ STORE = "Queue 1 item 1, sub-step 2: the store, DML and DDL"
 EVALUATOR = "Queue 1 item 1, sub-step 4: device evaluator breadth"
 PLAN_CACHE = "Queue 1 item 1, sub-step 5: the plan cache and bindings"
 HOST_OPS = "Queue 1 item 1, sub-step 6: the host operators of later slices"
-JOINS = "Queue 1 item 2: slice 6, joins"
+PLANNER = "Queue 1 item 1, sub-step 7: the cascades planner"
 ROLLUP = "Queue 1 item 3: slice 7, rollup"
 EXCHANGE = "Queue 1 item 4: slice 8, multiple GPUs, windows and exchanges"
 STATS = "Queue 1 item 5: slice 9, ANALYZE and statistics"

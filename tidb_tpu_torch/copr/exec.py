@@ -8,19 +8,20 @@ columns and live rows ride a selection mask ``sel`` instead of being
 compacted.
 
 Ported so far: the TableScan, Selection, Projection, Limit and TopN
-nodes, the device-side compaction of a row-returning program
-(``compact``), and the partial states of the SCALAR, DENSE, SORT,
-SEGMENT and SCATTER aggregations.  Every state table of an aggregation
-is one ``group_reduce_lanes`` call over all its lanes (``reduce_states``):
-one launch of the hand-written ``group_reduce`` kernel on a CUDA tensor,
-its plain version on a CPU tensor (copr/cuda/group_reduce.py); every
-device sort (SORT, SEGMENT, TopN) goes through ``stable_argsort``
-(ops/sort.py), the counting-sort kernels' multi-key LSD radix sort, in
-place of the JAX package's stable ``lax.sort``.  Out-of-range scatter
-indices raise in torch where XLA drops them (``mode="drop"``), so a
-grouped reduction parks dead and overflowing rows at index
-``num_groups`` and a compaction its rows past the capacity at index
-``capacity``: the sink slot, which is sliced off.
+nodes, the LookupJoin node (a broadcast join against build sides passed
+in as ``aux`` groups, copr/join.py), the device-side compaction of a
+row-returning program (``compact``), and the partial states of the
+SCALAR, DENSE, SORT, SEGMENT and SCATTER aggregations.  Every state
+table of an aggregation is one ``group_reduce_lanes`` call over all its
+lanes (``reduce_states``): one launch of the hand-written
+``group_reduce`` kernel on a CUDA tensor, its plain version on a CPU
+tensor (copr/cuda/group_reduce.py); every device sort (SORT, SEGMENT,
+TopN) goes through ``stable_argsort`` (ops/sort.py), the counting-sort
+kernels' multi-key LSD radix sort, in place of the JAX package's stable
+``lax.sort``.  Out-of-range scatter indices raise in torch where XLA
+drops them (``mode="drop"``), so a grouped reduction parks dead and
+overflowing rows at index ``num_groups`` and a compaction its rows past
+the capacity at index ``capacity``: the sink slot, which is sliced off.
 """
 
 from __future__ import annotations
@@ -53,9 +54,18 @@ def _unported(what: str) -> NotImplementedError:
 
 @dataclass
 class DeviceBatch:
-    """Columns + live-row selection mask flowing between operators."""
+    """Columns + live-row selection mask flowing between operators.
+
+    ``extras`` carries named device scalars that must reach the client:
+    ``join_total``, the true output size of an expanding join, so the
+    client can regrow its capacity."""
     cols: list  # list[(value, valid)]
     sel: Any    # bool tensor | True
+    extras: dict = None  # type: ignore[assignment]
+
+    def __post_init__(self):
+        if self.extras is None:
+            self.extras = {}
 
 
 def _ensure_array(v, n: int, device) -> torch.Tensor:
@@ -202,11 +212,12 @@ def _reduce_lanes(gids, num_groups: int, lanes: list) -> list:
     return out
 
 
-def agg_states(agg: D.Aggregation, scan_cols, row_count,
-               ev: Evaluator) -> dict:
-    """Execute agg.child and build its partial states."""
-    batch = _exec_node(agg.child, scan_cols, row_count, ev)
-    return _agg_partial_states(agg, batch, ev, {})
+def agg_states(agg: D.Aggregation, scan_cols, row_count, ev: Evaluator,
+               aux=()) -> tuple:
+    """Execute agg.child and build its partial states.  Returns
+    ``(states, child batch)``: the batch's extras reach the client."""
+    batch = _exec_node(agg.child, scan_cols, row_count, ev, aux)
+    return _agg_partial_states(agg, batch, ev, {}), batch
 
 
 def _agg_partial_states(agg: D.Aggregation, batch: DeviceBatch,
@@ -413,7 +424,7 @@ def _exec_topn(node: D.TopN, batch: DeviceBatch, ev: Evaluator
         cv = _ensure_array(cv, n, ev.device)
         cols.append((_gather(cv, idx), True if cm is True
                      else _sel_array(cm, n, ev.device)[idx]))
-    return DeviceBatch(cols, out_sel)
+    return DeviceBatch(cols, out_sel, batch.extras)
 
 
 # --------------------------------------------------------------------- #
@@ -421,7 +432,7 @@ def _exec_topn(node: D.TopN, batch: DeviceBatch, ev: Evaluator
 # --------------------------------------------------------------------- #
 
 def _exec_node(node: D.CopNode, scan_cols: Sequence, row_count,
-               ev: Evaluator) -> DeviceBatch:
+               ev: Evaluator, aux: Sequence = ()) -> DeviceBatch:
     if isinstance(node, D.TableScan):
         cols = [scan_cols[off] for off in node.col_offsets]
         n = len(cols[0][0]) if cols else 0
@@ -434,7 +445,7 @@ def _exec_node(node: D.CopNode, scan_cols: Sequence, row_count,
         return DeviceBatch(list(cols), sel)
 
     if isinstance(node, D.Selection):
-        batch = _exec_node(node.child, scan_cols, row_count, ev)
+        batch = _exec_node(node.child, scan_cols, row_count, ev, aux)
         memo: dict = {}
         sel = batch.sel
         n = len(batch.cols[0][0])
@@ -445,30 +456,97 @@ def _exec_node(node: D.CopNode, scan_cols: Sequence, row_count,
                 v = v != 0
             keep = v if m is True else (v & m)  # NULL -> filtered out
             sel = keep if sel is True else (sel & keep)
-        return DeviceBatch(batch.cols, sel)
+        return DeviceBatch(batch.cols, sel, batch.extras)
 
     if isinstance(node, D.Projection):
-        batch = _exec_node(node.child, scan_cols, row_count, ev)
+        batch = _exec_node(node.child, scan_cols, row_count, ev, aux)
         memo = {}
         n = len(batch.cols[0][0])
         cols = []
         for e in node.exprs:
             v, m = ev.eval(e, batch.cols, memo)
             cols.append((_ensure_array(v, n, ev.device), m))
-        return DeviceBatch(cols, batch.sel)
+        return DeviceBatch(cols, batch.sel, batch.extras)
 
     if isinstance(node, D.Limit):
-        batch = _exec_node(node.child, scan_cols, row_count, ev)
+        batch = _exec_node(node.child, scan_cols, row_count, ev, aux)
         n = len(batch.cols[0][0])
         sel = _sel_array(batch.sel, n, ev.device)
         return DeviceBatch(batch.cols,
-                           sel & (torch.cumsum(sel, 0) <= node.limit))
+                           sel & (torch.cumsum(sel, 0) <= node.limit),
+                           batch.extras)
 
     if isinstance(node, D.TopN):
-        batch = _exec_node(node.child, scan_cols, row_count, ev)
+        batch = _exec_node(node.child, scan_cols, row_count, ev, aux)
         return _exec_topn(node, batch, ev)
 
+    if isinstance(node, D.LookupJoin):
+        batch = _exec_node(node.child, scan_cols, row_count, ev, aux)
+        return _exec_lookup_join(node, batch, ev, aux)
+
     raise _unported(f"the {type(node).__name__} node")
+
+
+def _exec_lookup_join(node: D.LookupJoin, batch: DeviceBatch, ev: Evaluator,
+                      aux) -> DeviceBatch:
+    """Sorted-lookup join (see dag.LookupJoin).  ``aux`` is a tuple of
+    GROUPS, one per chained join level; a group is ``[0] = (sorted build
+    keys,)``, ``[1] = (perm,)``, ``[2:]`` = build columns, each ``(value,
+    mask | True)``.  Unique inner/left: one ``searchsorted`` and a
+    gather; semi/anti: the match counts as a filter (NOT IN drops NULL
+    probe keys); m:n inner/left: the expansion of copr/join.py, its true
+    size in ``extras["join_total"]``."""
+    from .join import gather_expand, match_ranges
+    n = len(batch.cols[0][0])
+    dev = ev.device
+    grp = aux[node.aux_slot]
+    sorted_keys = grp[0][0]
+    perm = grp[1][0]
+    build_cols = grp[2:]
+    kv, km = ev.eval(node.probe_key, batch.cols, {})
+    kv = as_int64_bits(_ensure_array(kv, n, dev)).to(torch.int64)
+    if km is not True:
+        km = _sel_array(km, n, dev)
+
+    if node.unique and node.kind in ("inner", "left"):
+        idx = torch.searchsorted(sorted_keys, kv)
+        # XLA clamps an out-of-range gather index; torch raises
+        idxc = idx.clamp(0, sorted_keys.shape[0] - 1)
+        matched = sorted_keys[idxc] == kv
+        if km is not True:
+            matched = matched & km
+        brow = perm[idxc]
+        out_cols = list(batch.cols)
+        for bv, bm in build_cols:
+            out_cols.append((_gather(bv, brow), matched if bm is True
+                             else (bm[brow] & matched)))
+        sel = batch.sel
+        if node.kind == "inner":
+            sel = matched if sel is True else (sel & matched)
+        return DeviceBatch(out_cols, sel, batch.extras)
+
+    sel = _sel_array(batch.sel, n, dev)
+    key_ok = sel if km is True else (sel & km)
+    lo, _hi, cnt = match_ranges(sorted_keys, sorted_keys.shape[0], kv,
+                                key_ok)
+
+    if node.kind in ("semi", "anti"):
+        keep = (cnt > 0) if node.kind == "semi" else (cnt == 0)
+        if node.kind == "anti" and node.null_aware and km is not True:
+            keep = keep & km       # NOT IN: a NULL probe key is filtered
+        return DeviceBatch(batch.cols, sel & keep, batch.extras)
+
+    oc = node.out_capacity
+    if oc <= 0:
+        raise ValueError("a non-unique LookupJoin needs out_capacity")
+    probe = [(_ensure_array(v, n, dev),
+              m if m is True else _sel_array(m, n, dev))
+             for v, m in batch.cols]
+    out_cols, out_sel, total = gather_expand(
+        probe, sel, key_ok, list(build_cols), perm, lo, cnt, node.kind, oc)
+    extras = dict(batch.extras)
+    extras["join_total"] = total
+    return DeviceBatch(out_cols, out_sel, extras)
 
 
 __all__ = ["DeviceBatch", "agg_states", "group_keyinfo", "compact"]

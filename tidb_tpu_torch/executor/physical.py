@@ -18,6 +18,7 @@ the paging/spill work).
 from __future__ import annotations
 
 import contextvars
+import time
 from dataclasses import dataclass, field
 from typing import Any, Optional, Sequence
 
@@ -35,7 +36,7 @@ from ..planner.logical import (AggItem, DataSource, LogicalAggregate,
                                LogicalSort, LogicalTopN)
 from ..planner.build import DualSource
 from ..types import dtypes as dt
-from .. import JOINS, STORE, unported
+from .. import STORE, unported
 
 K = dt.TypeKind
 
@@ -477,14 +478,72 @@ class CopJoinTaskExec(PhysOp):
         """Chained broadcast joins: every level's build must be non-empty
         with unique keys (the planner only emits inner/left levels); any
         runtime anomaly falls back to the host plan whole."""
+        t0 = time.perf_counter()
         groups = _prep_build_groups(ctx, self.builds, self._keys_for)
         if groups is None:
-            return self.fallback.execute(ctx)
-        return self._run(ctx, self.dag, groups)
+            return _join_fallback(ctx, self.fallback)
+        build_s = _synced_since(ctx, t0)
+        chunk = self._run(ctx, self.dag, groups)
+        ctx.client.timings["build"] = build_s
+        return chunk
 
     def _execute_single(self, ctx: ExecContext) -> ResultChunk:
-        raise unported("the broadcast join's build side on the device",
-                       JOINS)
+        t0 = time.perf_counter()
+        bchunk = self.build_exec.execute(ctx)
+        kcol = bchunk.columns[self.build_key_index]
+        keys, ok = self._build_keys(kcol)
+        rows_idx = np.nonzero(ok)[0]           # NULL keys never join
+        keys = keys[rows_idx]
+        dag = self.dag
+        semi = self.join_kind in ("semi", "anti")
+        if self.null_aware and not kcol.validity.all():
+            # NOT IN with a NULL build key: NO probe row qualifies.  Keep
+            # the fused program shape (incl. any aggregation over zero
+            # joined rows): the join node becomes a constant-false filter.
+            return self._run(ctx, D.drop_lookup(dag, keep=False), ())
+        if len(keys) == 0:
+            if not semi:
+                return self._empty_build_result(ctx, bchunk)
+            # empty build side: semi matches nothing; anti keeps every
+            # probe row (NOT IN of an empty set is TRUE even for NULL
+            # probe keys, so no null-aware filtering either)
+            return self._run(ctx, D.drop_lookup(
+                dag, keep=(self.join_kind == "anti")), ())
+        n_uniq = len(np.unique(keys))
+        if not semi and n_uniq != len(keys):
+            # duplicate build keys: switch to the expanding multi-match
+            # strategy on device (reference: NDV-driven join shape choice).
+            # Initial capacity: per-device probe rows x average duplication,
+            # grown by the dispatcher if the real output overflows.
+            snap0 = self.table.snapshot()
+            n_dev = len(ctx.client.devices)
+            per_dev = -(-max(snap0.num_rows, 1) // n_dev)
+            avg_dup = len(keys) / max(n_uniq, 1)
+            from ..store.columnar import _pow2_at_least
+            cap = _pow2_at_least(max(int(per_dev * avg_dup), 1024))
+            dag = D.to_multimatch(dag, cap)
+        order = np.argsort(keys, kind="stable")
+        sorted_keys = keys[order]
+        perm = np.arange(len(keys), dtype=np.int64)[order]
+        card = _to_card(ctx)
+        aux = [(card(sorted_keys), None), (card(perm), None)]
+        if not semi:   # semi/anti never read build columns on device
+            for c in bchunk.columns:
+                data = c.data[rows_idx]
+                valid = c.validity[rows_idx]
+                aux.append((card(data),
+                            None if valid.all() else card(valid)))
+        build_s = _synced_since(ctx, t0)
+        chunk = self._run(ctx, dag, (tuple(aux),))   # one aux group
+        ctx.client.timings["build"] = build_s
+        # build-side output columns keep their own dictionaries
+        if not isinstance(self.dag, D.Aggregation):
+            for j, c in enumerate(chunk.columns):
+                if c.dtype.is_string and c.dictionary is None:
+                    bj = j - self.n_probe
+                    if 0 <= bj < len(bchunk.columns):
+                        c.dictionary = bchunk.columns[bj].dictionary
+        return chunk
 
     def _run(self, ctx, dag, aux) -> ResultChunk:
         """Dispatch the fused program and decode with output dicts."""
@@ -539,7 +598,7 @@ class CopJoinTaskExec(PhysOp):
     def _empty_build_result(self, ctx, bchunk) -> ResultChunk:
         # empty build side: inner join produces nothing; left join keeps all
         # probe rows with NULL build cols — both simplest via the fallback
-        return self.fallback.execute(ctx)
+        return _join_fallback(ctx, self.fallback)
 
 
 @dataclass
@@ -2078,7 +2137,48 @@ def _prep_build_groups(ctx, builds, keys_for):
     (sorted keys + permutation + columns).  None = runtime anomaly
     (empty build / duplicate keys): the caller's host fallback runs —
     shared by CopJoinTaskExec chains and window-over-join fragments."""
-    raise unported("the broadcast join's build side on the device", JOINS)
+    card = _to_card(ctx)
+    groups = []
+    for b in builds:
+        bchunk = b["exec"].execute(ctx)
+        kcol = bchunk.columns[b["key_index"]]
+        keys, ok = keys_for(kcol, b["key_dict"], b["probe_key_dtype"])
+        rows_idx = np.nonzero(ok)[0]
+        keys = keys[rows_idx]
+        if len(keys) == 0 or len(np.unique(keys)) != len(keys):
+            return None
+        order = np.argsort(keys, kind="stable")
+        grp = [(card(keys[order]), None),
+               (card(np.arange(len(keys), dtype=np.int64)[order]), None)]
+        for c in bchunk.columns:
+            data = c.data[rows_idx]
+            valid = c.validity[rows_idx]
+            grp.append((card(data), None if valid.all() else card(valid)))
+        groups.append(tuple(grp))
+    return tuple(groups)
+
+
+def _to_card(ctx):
+    """``np -> tensor`` on the client's device: a broadcast join's build
+    side, one copy read by every logical device."""
+    import torch
+    dev = ctx.client.devices[0]
+    return lambda a: torch.as_tensor(np.ascontiguousarray(a), device=dev)
+
+
+def _synced_since(ctx, t0: float) -> float:
+    """Seconds since ``t0`` once the client's device has finished."""
+    import torch
+    if ctx.client.devices[0].type == "cuda":
+        torch.cuda.synchronize(ctx.client.devices[0])
+    return time.perf_counter() - t0
+
+
+def _join_fallback(ctx, fallback: PhysOp) -> ResultChunk:
+    """A broadcast join's host plan, counted on the client
+    (``CopClient.join_fallbacks``)."""
+    ctx.client.join_fallbacks += 1
+    return fallback.execute(ctx)
 
 
 @dataclass
@@ -2120,7 +2220,7 @@ class CopWindowExec(PhysOp):
                 lambda kcol, kd, pt: CopJoinTaskExec._keys_for(
                     None, kcol, kd, pt))
             if aux is None:
-                return self.fallback.execute(ctx)
+                return _join_fallback(ctx, self.fallback)
         # dictionaries attach inside the client's _assemble_rows
         cols = ctx.client.execute_window(
             self.spec, self.table.snapshot(), tuple(self.out_dtypes),

@@ -412,6 +412,23 @@ class Evaluator:
             v = _as_i64(v)
         return v, m
 
+    # -- dictionary lookups ---------------------------------------------- #
+
+    def op_dict_lut(self, e, cols, memo):
+        """A dictionary-coded string lane through the lookup table that
+        expr/lower_strings.py built on the host over the dictionary (an
+        array Const): the codes, clipped to the table, gather it."""
+        cv, cm = self.eval(e.args[0], cols, memo)
+        key = ("lut", id(e.args[1]))
+        if key not in memo:
+            memo[key] = torch.as_tensor(e.args[1].value, device=self.device)
+        lut = memo[key]
+        codes = torch.as_tensor(cv, device=self.device).to(torch.int64)
+        return lut[codes.clamp(0, lut.shape[0] - 1)], cm
+
+    # same clip+gather body: code translation reuses the LUT machinery
+    op_dict_map = op_dict_lut
+
     # -- IN -------------------------------------------------------------- #
 
     def op_in(self, e, cols, memo):

@@ -20,6 +20,13 @@ are the two aggregation kinds and the rows kind:
   runs the DAG and compacts its live rows into ``row_capacity`` slots
   (``copr/exec.compact``); the per-device ``(cols, count)`` come back
   stacked along a leading device axis, for the client's paging loop.
+
+A DAG with a broadcast join (``LookupJoin``) reads its build sides as
+``aux_cols`` groups: one copy on the card, read by every logical
+device, as the JAX program's replicated ``P()`` input.  A program with
+an expanding (m:n) join also returns the devices' extras, ``join_total``
+stacked one a device as ``shard_map`` returns it, for the client's
+regrow of the join capacity.
 """
 
 from __future__ import annotations
@@ -79,11 +86,12 @@ def _stack(trees: list):
 
 
 class ShardedCopProgram:
-    """The program over the devices: ``__call__(stacked_cols, counts)``
-    -> the merged partial states (``merge_kind == "psum"``), the
-    per-device states with a leading device axis (``merge_kind ==
+    """The program over the devices: ``__call__(stacked_cols, counts,
+    aux_cols)`` -> the merged partial states (``merge_kind == "psum"``),
+    the per-device states with a leading device axis (``merge_kind ==
     "host"``), or for a row-returning DAG (``kind == "rows"``)
-    ``([(data (D, cap), valid (D, cap)), ...], count (D,))``."""
+    ``([(data (D, cap), valid (D, cap)), ...], count (D,))``; with
+    ``has_extras``, ``(that, extras)``, each extra stacked a device."""
 
     def __init__(self, dag_root: D.CopNode, devices: Sequence[torch.device],
                  row_capacity: int = 0):
@@ -105,18 +113,25 @@ class ShardedCopProgram:
             and i not in self.agg.narrow_sums
             for i, a in enumerate(self.agg.aggs))
         self._psum_limb_fence = self._limb_sums and not self.host_merge
+        # a program with an expanding join also returns the devices'
+        # extras (the true join output size) for the client's regrow
+        self.has_extras = D.find_expand_join(dag_root) is not None
 
-    def _device_fn(self, cols, counts, device):
+    def _device_fn(self, cols, counts, device, aux):
+        """The device's outputs as ``[(out, extras)]``: one entry, or one
+        a part of a host-merged batch run in parts."""
         flat, base_sel = _flatten_block(cols, counts)
         flat = [(v, True if m is None else m) for v, m in flat]
         ev = Evaluator(device)
         if self.host_merge:
-            return [agg_states(self.agg, part, sel, ev)
+            runs = [agg_states(self.agg, part, sel, ev, aux)
                     for part, sel in self._row_parts(flat, base_sel)]
+            return [(st, batch.extras) for st, batch in runs]
         if self.agg is not None:
-            return agg_states(self.agg, flat, base_sel, ev)
-        batch = _exec_node(self.root, flat, base_sel, ev)
-        return compact(batch, self.row_capacity)
+            st, batch = agg_states(self.agg, flat, base_sel, ev, aux)
+            return [(st, batch.extras)]
+        batch = _exec_node(self.root, flat, base_sel, ev, aux)
+        return [(compact(batch, self.row_capacity), batch.extras)]
 
     def _row_parts(self, flat, sel) -> list:
         """A host-merged aggregation's device batch as ``[(cols, sel)]``:
@@ -134,7 +149,8 @@ class ShardedCopProgram:
                   for v, m in flat], sel[lo:lo + lim])
                 for lo in range(0, n, lim)]
 
-    def __call__(self, stacked_cols: Sequence, counts: torch.Tensor):
+    def __call__(self, stacked_cols: Sequence, counts: torch.Tensor,
+                 aux_cols: Sequence = ()):
         if self._psum_limb_fence and stacked_cols:
             s, c = stacked_cols[0][0].shape[:2]
             # the limb-exactness fence of the merge: summed (hi, lo) SUM
@@ -149,19 +165,22 @@ class ShardedCopProgram:
         if s % n_dev:
             raise ValueError(f"{s} shards do not split over {n_dev} devices")
         per = s // n_dev
-        outs = []
+        aux = tuple(tuple((v, True if m is None else m) for v, m in grp)
+                    for grp in aux_cols)
+        runs = []
         for d, device in enumerate(self.devices):
             blk = slice(d * per, (d + 1) * per)
             cols = [(v[blk], None if m is None else m[blk])
                     for v, m in stacked_cols]
-            out = self._device_fn(cols, counts[blk], device)
-            if self.host_merge:
-                outs.extend(out)
-            else:
-                outs.append(out)
-        if self.agg is None or self.host_merge:
-            return _stack(outs)
-        return _collective_merge(outs)
+            runs += self._device_fn(cols, counts[blk], device, aux)
+        outs = [out for out, _ in runs]
+        out = _stack(outs) if self.agg is None or self.host_merge \
+            else _collective_merge(outs)
+        if self.has_extras:
+            return out, {k: torch.stack([torch.as_tensor(ex[k])
+                                         for _, ex in runs])
+                         for k in runs[0][1]}
+        return out
 
 
 __all__ = ["ShardedCopProgram"]

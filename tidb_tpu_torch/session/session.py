@@ -9,11 +9,14 @@ session.session.Domain.
 The port's session is the SELECT path of the JAX package's: ``SELECT``,
 ``EXPLAIN`` (not ``EXPLAIN ANALYZE``), ``SET`` of session, global and
 user variables, and ``USE``.  Its ``_plan_select`` is the JAX package's
-without the plan cache, plan bindings, join reorder or cascades, the
-inline auto-analyze and the analysis gates; so its plans are the JAX
-package's plans with ``tidb_enable_auto_analyze = 0``.  A physical plan
-that holds an operator of a later slice (a join, rollup, window, set
-operation, subquery apply, index read or memtable) raises
+without the plan cache, plan bindings, cascades, the inline
+auto-analyze and the analysis gates, and with its greedy join reorder
+run without statistics; so its plans are the JAX package's plans with
+``tidb_enable_auto_analyze = 0``.  Joins run: the broadcast join fused
+into the probe table's device program, the repartition join over the
+logical devices, and the host hash and merge joins and subquery apply.
+A physical plan that holds an operator of a later slice (rollup, a
+window, a set operation, an index read or a memtable) raises
 ``NotImplementedError`` naming its ROADMAP.md item, as does every other
 statement kind.
 """
@@ -25,12 +28,13 @@ import time
 from dataclasses import dataclass, field
 from typing import Any, Optional
 
-from .. import (CONTROL, EXCHANGE, HOST_OPS, HOST_SURFACE, JOINS,
-                PLAN_CACHE, ROLLUP, STATS, STORE, unported)
+from .. import (CONTROL, EXCHANGE, HOST_OPS, HOST_SURFACE, PLAN_CACHE,
+                PLANNER, ROLLUP, STATS, STORE, unported)
 from ..copr import dag as D
 from ..copr.coordinator import KILL_EVENT, QUERY_HANDLE, Coordinator
 from ..executor import physical as P
 from ..executor.plan import to_physical
+from ..planner.join_reorder import reorder_joins
 from ..planner.build import (PLAN_TAINTS, SESSION_INFO, SUBQUERY_EXECUTOR,
                              PlanError, build_query)
 from ..planner.optimize import optimize_plan
@@ -103,9 +107,7 @@ _UNPORTED_STMTS = {
 # physical operators of later slices, by the ROADMAP.md item that ports
 # them; every other operator of executor/physical.py runs
 _UNPORTED_OPS = {
-    "CopJoinTaskExec": JOINS, "CopShuffleJoinExec": JOINS,
-    "HostHashJoin": JOINS, "HostMergeJoin": JOINS,
-    "HostIndexLookupJoin": JOINS, "HostApplyExec": JOINS,
+    "HostIndexLookupJoin": STORE,
     "HostExpandExec": ROLLUP,
     "CopWindowExec": EXCHANGE, "HostWindow": EXCHANGE,
     "HostSetOp": HOST_OPS, "CTEScanExec": HOST_OPS,
@@ -118,8 +120,7 @@ _UNPORTED_OPS = {
 def check_ported(phys: P.PhysOp) -> None:
     """Raise ``NotImplementedError`` naming its ROADMAP.md item for the
     first operator of ``phys`` that the port does not run yet: one of
-    ``_UNPORTED_OPS``, or a cop task whose DAG holds a join or rollup
-    node."""
+    ``_UNPORTED_OPS``, or a cop task whose DAG holds a rollup node."""
     stack = [phys]
     while stack:
         op = stack.pop()
@@ -131,8 +132,6 @@ def check_ported(phys: P.PhysOp) -> None:
             while node is not None:
                 if isinstance(node, D.Expand):
                     raise unported("the rollup Expand node", ROLLUP)
-                if isinstance(node, D.LookupJoin):
-                    raise unported("the LookupJoin node", JOINS)
                 node = getattr(node, "child", None)
         stack.extend(getattr(op, "children", ()) or ())
 
@@ -268,7 +267,8 @@ class Session:
     def _plan_select(self, stmt):
         """Build, optimize and bind the physical plan of a SELECT: the
         JAX package's ``_plan_select`` without the plan cache, bindings,
-        join reorder, auto-analyze and analysis gates."""
+        auto-analyze and analysis gates, its join reorder without
+        statistics."""
         t0 = time.perf_counter()
         if getattr(stmt, "hints", None):
             raise unported("optimizer hints and plan bindings", PLAN_CACHE)
@@ -276,7 +276,7 @@ class Session:
             raise unported("SELECT ... FOR UPDATE", STORE)
         merged = {**self.domain.sysvars, **self.vars}
         if _flag_on(merged, "tidb_enable_cascades_planner", default=False):
-            raise unported("the cascades planner", JOINS)
+            raise unported("the cascades planner", PLANNER)
         # uncorrelated scalar subqueries evaluate eagerly at plan time
         # (EvalSubqueryFirstRow analog)
         ran_subquery: list = []
@@ -292,6 +292,9 @@ class Session:
         if _flag_on(merged, "tidb_opt_skew_distinct_agg", default=False):
             from ..planner.rules import rewrite_skew_distinct
             plan = rewrite_skew_distinct(plan)
+        # the greedy join reorder without statistics: the JAX package's
+        # over tables never ANALYZEd (its handle's get gives None)
+        plan = reorder_joins(plan, None)
         phys = self._to_physical(apply_index_paths(plan))
         self.timings["plan"] = time.perf_counter() - t0
         return built, phys

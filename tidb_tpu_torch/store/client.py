@@ -24,12 +24,25 @@ host concatenates each device's rows (``_assemble_rows``).  A TopN or
 Limit root returns the union of the devices' first rows, for the caller
 to re-trim, as the JAX package's does.
 
+Both routes take ``aux_cols``, the build sides of a broadcast join
+fused into the probe table's program (``copr/exec._exec_lookup_join``):
+groups of tensors already on the card.  A program with an expanding
+(m:n) join reports each device's true join output size, and the client
+re-runs it at a larger join capacity while one exceeds it
+(``_grown_join_dag``).
+
+``execute_shuffle_agg`` and ``execute_shuffle_rows`` run the repartition
+join (parallel/shuffle.py): both tables' scan chains, the hash exchange
+between the logical devices, each device's build sort and join, then
+the aggregation or the row compaction, re-run at larger exchange, join
+or result capacities while a device reports more rows than one holds
+(``_run_shuffle``).
+
 On the CPU the client runs the same device programs through the plain
 kernel versions; it has no host shortcut (the JAX package's CPU routes
 to ``host_dense_agg`` and ``host_sort_agg``), no streaming, result
-cache, warm-capacity cache, retries or fault ladders.  The fused
-broadcast join (``aux_cols``), the shuffle joins and the device windows
-raise ``NotImplementedError`` naming their ROADMAP.md items.
+cache, warm-capacity cache, retries or fault ladders.  The device
+windows raise ``NotImplementedError`` naming their ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -42,13 +55,15 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from .. import EXCHANGE, JOINS, unported
+from .. import EXCHANGE, unported
 from ..chunk.column import Column
 from ..copr import dag as D
 from ..copr import radix
 from ..copr.aggregate import (GroupKeyMeta, finalize, finalize_sorted,
                               merge_sorted_states, merge_states)
+from ..copr.join import check_join_rows
 from ..device import get_devices
+from ..parallel.shuffle import ShardedShuffleJoinProgram, ShuffleCaps
 from ..parallel.spmd import ShardedCopProgram
 from .columnar import ColumnarSnapshot, _pow2_at_least
 
@@ -79,7 +94,18 @@ class CopClient:
     or ``assemble`` (rows); SEGMENT and SCATTER add ``hash``.  The
     high-NDV strategies also record ``buckets``, the per-device state
     capacity of each device program run (the last one final); the rows
-    route records ``pages``, the row capacity of each run."""
+    route records ``pages``, the row capacity of each run; a program
+    with an expanding join records ``joins``, the join capacity of each
+    run; the repartition join records ``shuffles``, the ``(left, right,
+    out, rows)`` capacities of each run.  A broadcast join's executor
+    adds ``build``, the seconds of its build side (its own plan, the
+    sort of its keys and the copy to the card).
+
+    ``join_fallbacks`` counts the broadcast joins whose executor took
+    its host plan instead of the device program (an empty build side,
+    or a chain level with an empty or duplicate-keyed build): the JAX
+    package's own plan branches, counted so a run can show that a join
+    meant for the card ran there."""
 
     def __init__(self, device="cuda", n_devices: int = 1):
         self.devices = get_devices(device, n_devices)
@@ -88,6 +114,7 @@ class CopClient:
         # live fraction, LRU-capped (digests embed predicate constants)
         self._page_feedback: OrderedDict[int, float] = OrderedDict()
         self.last_page_iters = 0
+        self.join_fallbacks = 0
 
     def _place(self, snap: ColumnarSnapshot):
         self.timings = {}
@@ -99,27 +126,65 @@ class CopClient:
 
     def execute_agg(self, agg: D.Aggregation, snap: ColumnarSnapshot,
                     key_meta: list[GroupKeyMeta], aux_cols=()) -> CopResult:
-        """The aggregation's result columns.  ``aux_cols``, the build
-        sides of a fused broadcast join, arrive with the joins' slice."""
-        _no_aux(aux_cols)
+        """The aggregation's result columns.  ``aux_cols`` are the build
+        sides of the broadcast joins fused into ``agg``'s program."""
         cols, counts = self._place(snap)
         if agg.strategy in D.HOST_MERGE_STRATEGIES:
-            return self._execute_sort_agg(agg, cols, counts, key_meta)
-        return self._execute_dense_agg(agg, cols, counts, key_meta)
+            return self._execute_sort_agg(agg, cols, counts, key_meta,
+                                          aux_cols)
+        return self._execute_dense_agg(agg, cols, counts, key_meta,
+                                       aux_cols)
 
-    def _execute_dense_agg(self, agg, cols, counts, key_meta) -> CopResult:
-        """One launch whose states merge across the devices on the card,
-        one transfer of the merged states, the host finalize."""
+    def _launch(self, dag, cols, counts, aux_cols, row_capacity: int = 0):
+        """One run of ``dag``'s program over the devices: ``(out, grown)``,
+        ``grown`` the DAG at a larger join capacity when an expanding
+        join's output overflowed its capacity (``out`` is then stale),
+        else None."""
+        prog = ShardedCopProgram(dag, self.devices, row_capacity)
+        out = prog(cols, counts, aux_cols)
+        if not prog.has_extras:
+            return out, None
+        out, extras = out
+        self.timings.setdefault("joins", []).append(
+            D.find_expand_join(dag).out_capacity)
+        return out, self._grown_join_dag(dag, extras)
+
+    def _grown_join_dag(self, dag, extras):
+        """The DAG rebuilt at a big enough join capacity when a device's
+        expanding join overflowed it; None when it fits.  A device output
+        past the reference's int32 join slots raises
+        (``copr/join.check_join_rows``)."""
+        need = int(extras["join_total"].max())
+        check_join_rows(need)
+        node = D.find_expand_join(dag)
+        if node is not None and need > node.out_capacity:
+            return D.rewrite_expand_capacity(dag, _pow2_at_least(need))
+        return None
+
+    def _execute_dense_agg(self, agg, cols, counts, key_meta,
+                           aux_cols=()) -> CopResult:
+        """One launch whose states merge across the devices on the card
+        (re-run at a larger join capacity while an expanding join
+        overflows), one transfer of the merged states, the host
+        finalize."""
         t = self.timings
-        t0 = time.perf_counter()
-        out = ShardedCopProgram(agg, self.devices)(cols, counts)
-        _sync(self.devices)
+        t["device"] = 0.0
+        for _ in range(8):
+            t0 = time.perf_counter()
+            out, grown = self._launch(agg, cols, counts, aux_cols)
+            _sync(self.devices)
+            t["device"] += time.perf_counter() - t0
+            if grown is None:
+                break
+            agg = grown
+        else:
+            raise RuntimeError("join-capacity regrow did not converge")
         t1 = time.perf_counter()
         states = _to_numpy(out)
         t2 = time.perf_counter()
         merged = merge_states([states])
         key_cols, agg_cols = finalize(agg, merged, key_meta)
-        t["device"], t["transfer"] = t1 - t0, t2 - t1
+        t["transfer"] = t2 - t1
         t["merge"] = time.perf_counter() - t2
         return CopResult(agg_cols, key_cols)
 
@@ -140,13 +205,15 @@ class CopClient:
         host = _to_numpy(states)
         return [_index(host, d) for d in range(len(host["__ngroups__"]))]
 
-    def _execute_sort_agg(self, agg, cols, counts, key_meta) -> CopResult:
+    def _execute_sort_agg(self, agg, cols, counts, key_meta,
+                          aux_cols=()) -> CopResult:
         """Per-device group tables (sort or partition, then segment
         reduce), regrown when a device sees more groups than the table
-        holds, then the host final merge."""
+        holds (or an expanding join more rows than its capacity), then
+        the host final merge."""
         t = self.timings
         t0 = time.perf_counter()
-        pre = radix.prehash_plan(agg, len(cols))
+        pre = None if aux_cols else radix.prehash_plan(agg, len(cols))
         if pre is not None:
             hashed_dag, leaf_scan = pre
             hv = radix.HashProgram(leaf_scan, agg.group_by)(cols)
@@ -161,9 +228,13 @@ class CopClient:
             sized = self._with_capacity(agg, cap)
             t["buckets"].append(sized.state_capacity)
             t0 = time.perf_counter()
-            out = ShardedCopProgram(sized, self.devices)(cols, counts)
+            out, grown = self._launch(sized, cols, counts, aux_cols)
             _sync(self.devices)
             t1 = time.perf_counter()
+            if grown is not None:
+                t["device"] += t1 - t0
+                agg = grown
+                continue
             per_dev = self._split_devices(out)
             t["device"] += t1 - t0
             t["transfer"] += time.perf_counter() - t1
@@ -202,9 +273,9 @@ class CopClient:
                      aux_cols=()) -> list[Column]:
         """The rows of a row-returning DAG, one ``Column`` per output,
         with the paging loop: re-run at a larger row capacity while a
-        device returns more rows than the capacity holds.  ``aux_cols``
-        as for ``execute_agg``."""
-        _no_aux(aux_cols)
+        device returns more rows than the capacity holds (or an
+        expanding join more rows than its capacity).  ``aux_cols`` as
+        for ``execute_agg``."""
         cols, counts = self._place(snap)
         t = self.timings
         t["device"] = t["transfer"] = 0.0
@@ -217,10 +288,14 @@ class CopClient:
         for _ in range(10):
             t["pages"].append(cap)
             t0 = time.perf_counter()
-            out_cols, out_counts = ShardedCopProgram(
-                root, self.devices, row_capacity=cap)(cols, counts)
+            out, grown = self._launch(root, cols, counts, aux_cols, cap)
             _sync(self.devices)
             t1 = time.perf_counter()
+            if grown is not None:
+                t["device"] += t1 - t0
+                root = grown
+                continue
+            out_cols, out_counts = out
             host_counts = out_counts.cpu().numpy()
             t["device"] += t1 - t0
             t["transfer"] += time.perf_counter() - t1
@@ -261,21 +336,129 @@ class CopClient:
         t["assemble"] = time.perf_counter() - t1
         return result
 
-    def execute_shuffle_agg(self, spec, lsnap, rsnap, key_meta):
-        raise unported("the repartition (shuffle) join", EXCHANGE)
+    # ------------------------------------------------------------- #
+    # the repartition (shuffle) join: parallel/shuffle.py
+    # ------------------------------------------------------------- #
 
-    def execute_shuffle_rows(self, spec, lsnap, rsnap, out_dtypes,
-                             dictionaries=None):
-        raise unported("the repartition (shuffle) join", EXCHANGE)
+    def _shuffle_initial_caps(self, lsnap, rsnap, row_cap: int):
+        """Expected send-bucket rows under a uniform hash with 2x
+        headroom, the join output at twice a device's left rows; each
+        grown from the reported true maxima on overflow."""
+        n_dev = len(self.devices)
+        lcap = _pow2_at_least(
+            max(2 * lsnap.num_rows // max(n_dev * n_dev, 1) + 1, 1024))
+        rcap = _pow2_at_least(
+            max(2 * rsnap.num_rows // max(n_dev * n_dev, 1) + 1, 1024))
+        ocap = _pow2_at_least(max(2 * lsnap.num_rows // n_dev + 1, 1024))
+        return ShuffleCaps(lcap, rcap, ocap, row_cap)
+
+    def _run_shuffle(self, spec: D.ShuffleJoinSpec, lsnap, rsnap, aux_cols,
+                     row_cap: int = 0):
+        """Run the shuffle program, regrowing whichever static capacity
+        (exchange buckets, join output, group table, row output) the
+        extras report as overflowed; returns ``(program, out)``."""
+        self.timings = {}
+        t = self.timings
+        t0 = time.perf_counter()
+        lcols, lcounts = lsnap.device_cols(self.devices)
+        rcols, rcounts = rsnap.device_cols(self.devices)
+        _sync(self.devices)
+        t["place"] = time.perf_counter() - t0
+        t["device"] = t["transfer"] = 0.0
+        t["shuffles"] = []
+        caps = self._shuffle_initial_caps(lsnap, rsnap, row_cap)
+        agg = spec.top if isinstance(spec.top, D.Aggregation) else None
+        if agg is not None and agg.strategy in D.HOST_MERGE_STRATEGIES \
+                and not agg.state_capacity:
+            spec = dataclasses.replace(spec, top=self._with_capacity(
+                agg, DEFAULT_GROUP_CAPACITY))
+        for _ in range(12):
+            t["shuffles"].append(dataclasses.astuple(caps))
+            prog = ShardedShuffleJoinProgram(spec, self.devices, caps)
+            t0 = time.perf_counter()
+            out, extras = prog(lcols, lcounts, rcols, rcounts, aux_cols)
+            _sync(self.devices)
+            t1 = time.perf_counter()
+            extras = {k: v.cpu().numpy() for k, v in extras.items()}
+            t["device"] += t1 - t0
+            t["transfer"] += time.perf_counter() - t1
+            grew = False
+            need_l = int(extras["lmax"].max())
+            if need_l > caps.left:
+                caps = dataclasses.replace(caps,
+                                           left=_pow2_at_least(need_l))
+                grew = True
+            need_r = int(extras["rmax"].max())
+            if need_r > caps.right:
+                caps = dataclasses.replace(caps,
+                                           right=_pow2_at_least(need_r))
+                grew = True
+            need_j = int(extras["join_total"].max())
+            if spec.kind in ("inner", "left"):
+                check_join_rows(need_j)
+                if need_j > caps.out:
+                    caps = dataclasses.replace(caps,
+                                               out=_pow2_at_least(need_j))
+                    grew = True
+            if grew:
+                continue
+            agg = spec.top if isinstance(spec.top, D.Aggregation) else None
+            if agg is not None and agg.strategy in D.HOST_MERGE_STRATEGIES:
+                true_ng = int(out["__ngroups__"].max())
+                if true_ng > agg.state_capacity:
+                    spec = dataclasses.replace(spec, top=self._with_capacity(
+                        agg, _pow2_at_least(true_ng)))
+                    continue
+            if agg is None:
+                counts = out[1].cpu().numpy()
+                if (counts > caps.rows).any():
+                    caps = dataclasses.replace(
+                        caps, rows=_pow2_at_least(int(counts.max())))
+                    continue
+            return prog, out
+        raise RuntimeError("shuffle capacity regrow did not converge")
+
+    def execute_shuffle_agg(self, spec: D.ShuffleJoinSpec, lsnap, rsnap,
+                            key_meta: list[GroupKeyMeta],
+                            aux_cols=()) -> CopResult:
+        """The aggregation over a repartition join of two tables."""
+        prog, out = self._run_shuffle(spec, lsnap, rsnap, aux_cols)
+        agg = prog.spec.top
+        t = self.timings
+        t0 = time.perf_counter()
+        states = _to_numpy(out)
+        t1 = time.perf_counter()
+        t["transfer"] += t1 - t0
+        if prog.host_merge:
+            per_dev = [_index(states, d)
+                       for d in range(len(states["__ngroups__"]))]
+            merged = merge_sorted_states(agg, per_dev)
+            key_cols, agg_cols = finalize_sorted(agg, merged, key_meta)
+        else:
+            key_cols, agg_cols = finalize(agg, merge_states([states]),
+                                          key_meta)
+        t["merge"] = time.perf_counter() - t1
+        return CopResult(agg_cols, key_cols)
+
+    def execute_shuffle_rows(self, spec: D.ShuffleJoinSpec, lsnap, rsnap,
+                             out_dtypes, dictionaries=None,
+                             aux_cols=()) -> list[Column]:
+        """The rows of a row-returning chain over a repartition join of
+        two tables."""
+        n_dev = len(self.devices)
+        if isinstance(spec.top, (D.TopN, D.Limit)):
+            row_cap = max(spec.top.limit, 16)
+        else:
+            row_cap = _pow2_at_least(
+                max(2 * lsnap.num_rows // max(n_dev, 1) + 1, 1024))
+        prog, (out_cols, out_counts) = self._run_shuffle(
+            spec, lsnap, rsnap, aux_cols, row_cap)
+        return self._assemble_rows(out_cols, out_counts.cpu().numpy(),
+                                   prog.caps.rows, out_dtypes, dictionaries)
 
     def execute_window(self, spec, snap, out_dtypes, dictionaries=None,
                        aux_cols=()):
         raise unported("device window functions", EXCHANGE)
-
-
-def _no_aux(aux_cols) -> None:
-    if aux_cols:
-        raise unported("the build sides of a fused broadcast join", JOINS)
 
 
 def _leaves(tree, path=()):

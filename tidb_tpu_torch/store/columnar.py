@@ -18,6 +18,7 @@ from typing import Any, Sequence
 import numpy as np
 import torch
 
+from .. import EXCHANGE, unported
 from ..chunk.column import Column, StringDict
 from ..types import dtypes as dt
 
@@ -95,9 +96,8 @@ class ColumnarSnapshot:
         so every logical device gets an equal block of shards."""
         devices = tuple(devices)
         if len(set(devices)) != 1:
-            raise NotImplementedError(
-                "shards spread over several physical devices arrive with "
-                "the multi-GPU slice (ROADMAP.md, Queue 1)")
+            raise unported("shards spread over several physical devices",
+                           EXCHANGE)
         p_epoch = self.placement.epoch if self.placement is not None else -1
         key = (devices, self.epoch, p_epoch)
         if key in self._device_cache:

@@ -1,6 +1,6 @@
 # ported from tidb_tpu/testing/tpch.py @ a9e9482
-"""TPC-H lineitem generator (numpy, vectorized), the plan corpus, and
-SQL sessions over generated tables.
+"""TPC-H lineitem, part and orders generators (numpy, vectorized), the
+plan corpus, and SQL sessions over generated tables.
 
 Draws from the same ``np.random.default_rng([seed, tag])`` child streams
 as the JAX package's generator, so the same ``sf`` and ``seed`` give the
@@ -10,8 +10,13 @@ same values, column for column.  SF=1 is 6,000,000 lineitem rows.
 ``SQL_QUERIES`` names the statements the port's SQL path runs: TPC-H Q1
 and Q6 in the specification's text (its INTERVAL arithmetic, with the
 validation substitutions) and the corpus's lineitem-only statements.
-``tpch_sql_session`` is the counterpart of the JAX package's
-``tpch_plan_session``: a port ``Session`` over lineitem alone, without
+``JOIN_QUERIES`` names the statements of the join slice: the corpus's
+join statements, TPC-H Q19 in the specification's text, the broadcast
+step of the MULTICHIP shapes, m:n joins on ``o_custkey``, a left join
+with an ``ON`` filter, a correlated EXISTS and a correlated scalar
+subquery, and ``TPCH_SHUFFLE_QUERIES``.  ``tpch_sql_session`` is the
+counterpart of the JAX package's ``tpch_plan_session``: a port
+``Session`` over lineitem and, when asked, part and orders, without
 ANALYZE.
 """
 
@@ -128,6 +133,45 @@ def gen_lineitem(sf: float = 1.0, seed: int = 0,
     return out_names, out_cols
 
 
+PART_NAMES = ["p_partkey", "p_brand", "p_size", "p_container"]
+
+CONTAINERS = [f"{a} {b}" for a in ["SM", "LG", "MED", "JUMBO", "WRAP"]
+              for b in ["CASE", "BOX", "BAG", "JAR", "PKG", "PACK", "CAN", "DRUM"]]
+
+
+def gen_part(sf: float = 1.0, seed: int = 1) -> tuple[list[str], list[Column]]:
+    n = int(200_000 * sf)
+    rng = np.random.default_rng(seed)
+    partkey = np.arange(1, n + 1)
+    bdict = StringDict([f"Brand#{i}{j}" for i in range(1, 6) for j in range(1, 6)])
+    brands = rng.integers(0, len(bdict), n).astype(np.int32)
+    cdict = StringDict(CONTAINERS)
+    containers = rng.integers(0, len(cdict), n).astype(np.int32)
+    cols = [
+        Column.from_numpy(dt.bigint(False), partkey),
+        Column(dt.varchar(False), brands, np.ones(n, bool), bdict),
+        Column.from_numpy(dt.bigint(False), rng.integers(1, 51, n)),
+        Column(dt.varchar(False), containers, np.ones(n, bool), cdict),
+    ]
+    return PART_NAMES, cols
+
+
+ORDERS_MINI_NAMES = ["o_orderkey", "o_custkey", "o_totalprice"]
+
+
+def gen_orders_mini(n: int = 1024, seed: int = 7) -> tuple[list[str], list[Column]]:
+    """Small orders table keyed to lineitem's l_orderkey domain — enough
+    for multi-join fragment validation (dryrun/Q3 shape)."""
+    rng = np.random.default_rng(seed)
+    okey = np.arange(1, n + 1)
+    cols = [
+        Column.from_numpy(dt.bigint(False), okey),
+        Column.from_numpy(dt.bigint(False), rng.integers(1, n // 4 + 2, n)),
+        Column.from_numpy(DEC2, rng.integers(1000, 500000, n)),
+    ]
+    return ORDERS_MINI_NAMES, cols
+
+
 # ------------------------------------------------------------------ #
 # plan corpus: the TPC-H-shaped statements every static-analysis gate
 # run and tests/test_analysis.py push through analysis.verify_plan.
@@ -228,6 +272,47 @@ where l_shipdate >= date '1994-01-01'
   and l_discount between 0.06 - 0.01 and 0.06 + 0.01
   and l_quantity < 24"""
 
+# planned with the broadcast threshold forced to 0 so the repartition
+# (all_to_all shuffle) join path is exercised by the gate too
+TPCH_SHUFFLE_QUERIES = [
+    """select count(*), sum(l_quantity + o_totalprice) from lineitem
+       join orders on l_orderkey = o_orderkey""",
+    """select o_custkey, sum(l_quantity) from lineitem join orders
+       on l_orderkey = o_orderkey group by o_custkey""",
+]
+
+
+# the MULTICHIP dryrun's plan shapes (__graft_entry__.dryrun_multichip):
+# every distributed step the dry run executes on the 8-vdev mesh, as
+# plannable SQL — the shardflow gate pass must analyze each clean with
+# finite per-link transfer bytes (the pod-scale exchange shapes the
+# multi-host runtime PR will inherit)
+MULTICHIP_PLAN_QUERIES = [
+    # Q1 psum step: dense keyed agg merged in-program
+    """select l_returnflag, l_linestatus, sum(l_quantity), count(*)
+       from lineitem where l_shipdate <= date '1998-09-02'
+       group by l_returnflag, l_linestatus""",
+    # TopN shard-merge step
+    """select l_extendedprice from lineitem
+       order by l_extendedprice desc limit 5""",
+    # broadcast-join step (LookupJoin + psum agg)
+    """select count(*), sum(l_extendedprice) from lineitem, part
+       where p_partkey = l_partkey and p_size < 25""",
+    # rollup Expand fragment
+    """select l_returnflag, l_linestatus, count(*) from lineitem
+       group by l_returnflag, l_linestatus with rollup""",
+    # window repartition (all_to_all on PARTITION BY)
+    """select l_linestatus, row_number() over
+       (partition by l_linestatus order by l_extendedprice desc)
+       from lineitem""",
+    # window-over-join fragment
+    """select l_linestatus, row_number() over
+       (partition by l_linestatus order by l_extendedprice desc)
+       from lineitem, part
+       where p_partkey = l_partkey and p_size < 25""",
+]
+
+
 # the statements of the port's SQL path, by name: each plans as one cop
 # task over lineitem (DENSE, SCALAR, SORT, TopN, Limit, rows) under host
 # operators the port runs
@@ -246,6 +331,69 @@ SQL_QUERIES = {
 }
 
 
+# TPC-H Q19 as the specification writes it (2.4.19), with the validation
+# substitutions: QUANTITY1 = 1, QUANTITY2 = 10, QUANTITY3 = 20, BRAND1 =
+# Brand#12, BRAND2 = Brand#23, BRAND3 = Brand#34
+TPCH_Q19 = """select sum(l_extendedprice * (1 - l_discount)) as revenue
+from lineitem, part
+where (p_partkey = l_partkey
+       and p_brand = 'Brand#12'
+       and p_container in ('SM CASE', 'SM BOX', 'SM PACK', 'SM PKG')
+       and l_quantity >= 1 and l_quantity <= 1 + 10
+       and p_size between 1 and 5
+       and l_shipmode in ('AIR', 'AIR REG')
+       and l_shipinstruct = 'DELIVER IN PERSON')
+   or (p_partkey = l_partkey
+       and p_brand = 'Brand#23'
+       and p_container in ('MED BAG', 'MED BOX', 'MED PKG', 'MED PACK')
+       and l_quantity >= 10 and l_quantity <= 10 + 10
+       and p_size between 1 and 10
+       and l_shipmode in ('AIR', 'AIR REG')
+       and l_shipinstruct = 'DELIVER IN PERSON')
+   or (p_partkey = l_partkey
+       and p_brand = 'Brand#34'
+       and p_container in ('LG CASE', 'LG BOX', 'LG PACK', 'LG PKG')
+       and l_quantity >= 20 and l_quantity <= 20 + 10
+       and p_size between 1 and 15
+       and l_shipmode in ('AIR', 'AIR REG')
+       and l_shipinstruct = 'DELIVER IN PERSON')"""
+
+# the statements of the join slice, by name, over lineitem, part and
+# orders.  Small tables plan each broadcast statement as a CopJoinTask
+# (the m:n ones switch to the expanding join when the build keys turn
+# out duplicated), the left join with an ON filter as a HostHashJoin,
+# the correlated scalar subquery as a HostApply; Q19 and the shuffle
+# statements plan as the repartition join (CopShuffleJoin) once the
+# build side passes BROADCAST_BUILD_MAX_ROWS (executor/plan.py), or
+# with that threshold set to 0
+JOIN_QUERIES = {
+    "join agg": TPCH_PLAN_QUERIES[9],
+    "join rows": TPCH_PLAN_QUERIES[10],
+    "semi": TPCH_PLAN_QUERIES[11],
+    "anti": TPCH_PLAN_QUERIES[12],
+    "three tables": TPCH_PLAN_QUERIES[13],
+    "join TopN": TPCH_PLAN_QUERIES[14],
+    "broadcast step": MULTICHIP_PLAN_QUERIES[2],
+    "Q19": TPCH_Q19,
+    "m:n inner": """select count(*), sum(l_extendedprice) from lineitem
+                    join orders on l_orderkey = o_custkey""",
+    "m:n left": """select count(*), count(o_totalprice) from lineitem
+                   left join orders on l_orderkey = o_custkey""",
+    "left join ON filter": """select count(*), count(p_size) from lineitem
+                              left join part on l_partkey = p_partkey
+                              and p_size < 3""",
+    "EXISTS": """select count(*) from orders where exists
+                 (select 1 from lineitem where l_orderkey = o_orderkey
+                  and l_quantity < 5)""",
+    "scalar subquery apply": """select o_orderkey,
+                                (select count(*) from lineitem
+                                 where l_orderkey = o_orderkey) as c
+                                from orders order by o_orderkey limit 5""",
+    "shuffle": TPCH_SHUFFLE_QUERIES[0],
+    "shuffle group by": TPCH_SHUFFLE_QUERIES[1],
+}
+
+
 def sql_session(tables: dict, device="cuda", n_devices: int = 1):
     """A port ``Session`` over a new ``Domain`` on ``device`` with each
     ``name: (names, cols)`` of ``tables`` registered in database
@@ -261,13 +409,24 @@ def sql_session(tables: dict, device="cuda", n_devices: int = 1):
 
 
 def tpch_sql_session(sf: float = 0.001, seed: int = 42, device="cuda",
-                     n_devices: int = 1, columns=None):
+                     n_devices: int = 1, columns=None,
+                     part_sf: float | None = None,
+                     n_orders: int | None = None):
     """A port ``Session`` with lineitem from ``gen_lineitem(sf, seed,
-    columns)`` registered on ``device``, without ANALYZE."""
-    return sql_session({"lineitem": gen_lineitem(sf, seed, columns)},
-                       device, n_devices)
+    columns)`` registered on ``device``, without ANALYZE; with part from
+    ``gen_part(part_sf, seed=7)`` and orders from
+    ``gen_orders_mini(n_orders)`` when those are given, as the JAX
+    package's ``tpch_plan_session`` registers them."""
+    tables = {"lineitem": gen_lineitem(sf, seed, columns)}
+    if part_sf is not None:
+        tables["part"] = gen_part(sf=part_sf, seed=7)
+    if n_orders is not None:
+        tables["orders"] = gen_orders_mini(n_orders)
+    return sql_session(tables, device, n_devices)
 
 
-__all__ = ["gen_lineitem", "LINEITEM_NAMES", "DEC2", "TPCH_PLAN_QUERIES",
-           "TPCH_Q1", "TPCH_Q6", "SQL_QUERIES", "sql_session",
-           "tpch_sql_session"]
+__all__ = ["gen_lineitem", "gen_part", "gen_orders_mini", "LINEITEM_NAMES",
+           "PART_NAMES", "ORDERS_MINI_NAMES", "DEC2", "TPCH_PLAN_QUERIES",
+           "TPCH_SHUFFLE_QUERIES", "MULTICHIP_PLAN_QUERIES", "TPCH_Q1",
+           "TPCH_Q6", "TPCH_Q19", "SQL_QUERIES", "JOIN_QUERIES",
+           "sql_session", "tpch_sql_session"]
