@@ -6,7 +6,8 @@
                                      # the slice-4 statements at SF=1,
                                      # SQL: Q1, Q6 at SF=10, the corpus
                                      # statements at SF=1; joins at
-                                     # SF=10 and SF=1
+                                     # SF=10 and SF=1; the store at
+                                     # SF=0.1
     python3 chip_smoke.py --sf 0.05 --main-sf 0.1 --s4-sf 0.05   # quicker
     python3 chip_smoke.py --perm-of DIR   # only scatter_permutation's
                                           # time, of DIR/tidb_tpu_torch
@@ -119,8 +120,28 @@ script exits non-zero without printing a result:
    capacities; the aggregated broadcast join's probe steps
    (``searchsorted``, the gathers, and the m:n join's ``expand_slots``
    at ``--s4-sf``) print their device ms beside their memory bounds;
-11. the ``kernels`` JSON line, then the last line
-   ``{"ok": true, "device": {...}}``.
+11. store: through one port ``Domain(device="cuda", data_dir=...)`` in
+   a temporary directory, CREATE TABLE lineitem and orders with the
+   types of tests/test_tpch_diff.py, LOAD DATA of each from the
+   generator's '|' files (lineitem at SF=0.1, ``STORE_SF``: 600,000
+   rows, a cut the host row codec forces; orders at its count), TPC-H
+   Q1 and Q6 in the spec's text, a join of the two and a TopN; one
+   transaction of UPDATE, DELETE and INSERT, then COMMIT; the statements
+   again, each against a numpy oracle of the written rows; online
+   CREATE INDEX on ``l_orderkey`` with ADMIN CHECK TABLE, and point reads
+   through ``IndexLookUp`` equal to the scan's rows; a rolled-back
+   transaction that leaves no trace; five write/read rounds over orders
+   with ``torch.cuda.memory_allocated`` after the fifth within one
+   placement of the first; the Domain closed and reopened over its
+   directory, its committed counts and sums read back.  It prints load
+   rows/s, each statement's first and warm ms with the client's split
+   (``place`` is the re-placement after a write), the UPDATE, DELETE,
+   COMMIT and index ms, the memory after each round and the hand
+   kernels' launches (``group_reduce``, the onesweep pair for TopN), no
+   plain version of them run;
+12. the ``kernels`` JSON line, then the last line
+   ``{"ok": true, "device": {...}}``.  A ``phase ...: s=`` line after
+   each phase gives its seconds.
 
 Query A is the grouping inside TPC-H Q18; query B is a corpus query of
 the JAX package's TPC-H plan set:
@@ -2204,6 +2225,383 @@ def join_phase(torch, gr, os1, S, main_data, main_sf: float, s4_data,
     return counts
 
 
+# --------------------------------------------------------------------- #
+# phase 11: the store (DDL, LOAD DATA, DML, transactions, online index)
+# --------------------------------------------------------------------- #
+
+STORE_SF = 0.1        # lineitem 600,000 rows: the host row codec's cut
+STORE_ROUNDS = 5      # write/read rounds of the HBM check
+STORE_WARM = 3        # warm calls of a statement after its first
+STORE_UPDATE_BELOW = 6_000     # UPDATE lineitem ... where l_orderkey < it
+STORE_DELETE = (300_000, 306_000)   # DELETE ... l_orderkey between
+STORE_INSERTS = 100   # rows the committed transaction inserts
+STORE_POINTS = (97, 4_242, 299_999, 590_001)  # index point reads
+STORE_FRTOL = 1e-9    # float SUM/AVG: of the sum of |terms|
+STORE_JOIN = """select o_orderpriority, count(*), sum(l_quantity)
+from lineitem join orders on l_orderkey = o_orderkey
+where o_orderdate < date '1995-03-15'
+group by o_orderpriority order by o_orderpriority"""
+STORE_TOPN = """select l_orderkey, l_linenumber, l_extendedprice
+from lineitem order by l_extendedprice desc, l_orderkey, l_linenumber
+limit 10"""
+STORE_POINT = ("select l_linenumber, l_quantity, l_discount from lineitem"
+               " where l_orderkey = {} order by l_linenumber")
+STORE_ORDERS = ("select o_orderstatus, count(*), sum(o_totalprice)"
+                " from orders group by o_orderstatus order by o_orderstatus")
+STORE_DEVICE = "cuda"
+
+
+def _days(iso: str) -> int:
+    import datetime
+    return (datetime.date.fromisoformat(iso) - datetime.date(1970, 1, 1)).days
+
+
+def store_oracle_data(li_cols, li_names, o_cols, o_names) -> tuple:
+    """The generated tables as the loaded types read them: DOUBLE
+    columns as float64 (the files' two-decimal text), strings as str."""
+    def plain(names, cols):
+        out = {}
+        for n, c in zip(names, cols):
+            k = c.dtype.kind.name
+            if k == "DECIMAL":
+                out[n] = c.data.astype(np.int64) / 100.0
+            elif k == "STRING":
+                out[n] = np.asarray(c.dictionary.values, dtype=object)[c.data]
+            else:
+                out[n] = c.data.astype(np.float64 if k == "FLOAT64"
+                                       else np.int64)
+        return out
+    return plain(li_names, li_cols), plain(o_names, o_cols)
+
+
+def fsum_ok(got: float, terms: np.ndarray) -> bool:
+    return abs(got - float(terms.sum())) <= \
+        STORE_FRTOL * max(float(np.abs(terms).sum()), 1.0)
+
+
+def store_check(name: str, rows: list, li: dict, od: dict) -> None:
+    """``rows`` of statement ``name`` against a numpy oracle over the
+    written rows ``li`` / ``od``: counts and keys exactly, float sums
+    and averages within ``STORE_FRTOL`` of the sum of their |terms|."""
+    if name == "Q1":
+        m = li["l_shipdate"] <= _days("1998-09-02")
+        keys = sorted(set(zip(li["l_returnflag"][m], li["l_linestatus"][m])))
+        check(len(rows) == len(keys), f"store Q1: {len(rows)} groups")
+        for r, (rf, ls) in zip(rows, keys):
+            g = m & (li["l_returnflag"] == rf) & (li["l_linestatus"] == ls)
+            q, p = li["l_quantity"][g], li["l_extendedprice"][g]
+            d, t = li["l_discount"][g], li["l_tax"][g]
+            n = int(g.sum())
+            check(r[0] == rf and r[1] == ls and r[9] == n,
+                  f"store Q1 keys/count {r[:2]} {r[9]} != {rf} {ls} {n}")
+            for v, terms in ((r[2], q), (r[3], p), (r[4], p * (1 - d)),
+                             (r[5], p * (1 - d) * (1 + t)),
+                             (r[6] * n, q), (r[7] * n, p), (r[8] * n, d)):
+                check(fsum_ok(v, terms), f"store Q1 {rf}{ls}: {v}")
+    elif name == "Q6":
+        m = ((li["l_shipdate"] >= _days("1994-01-01"))
+             & (li["l_shipdate"] < _days("1995-01-01"))
+             & (li["l_discount"] >= 0.05) & (li["l_discount"] <= 0.07)
+             & (li["l_quantity"] < 24))
+        terms = li["l_extendedprice"][m] * li["l_discount"][m]
+        check(len(rows) == 1 and fsum_ok(rows[0][0], terms),
+              f"store Q6: {rows} against {terms.sum()}")
+    elif name == "join":
+        order = np.argsort(od["o_orderkey"], kind="stable")
+        ok = od["o_orderkey"][order]
+        pos = np.clip(np.searchsorted(ok, li["l_orderkey"]), 0, len(ok) - 1)
+        hit = ok[pos] == li["l_orderkey"]
+        oi = order[pos]
+        m = hit & (od["o_orderdate"][oi] < _days("1995-03-15"))
+        prio = od["o_orderpriority"][oi]
+        keys = sorted(set(prio[m]))
+        check([r[0] for r in rows] == keys, f"store join keys {rows}")
+        for r, k in zip(rows, keys):
+            g = m & (prio == k)
+            check(r[1] == int(g.sum()) and
+                  fsum_ok(r[2], li["l_quantity"][g]),
+                  f"store join {k}: {r}")
+    elif name == "TopN":
+        idx = np.lexsort((li["l_linenumber"], li["l_orderkey"],
+                          -li["l_extendedprice"]))[:10]
+        want = [(int(li["l_orderkey"][i]), int(li["l_linenumber"][i]),
+                 float(li["l_extendedprice"][i])) for i in idx]
+        check(rows == want, f"store TopN {rows} != {want}")
+    elif name == "orders":
+        keys = sorted(set(od["o_orderstatus"]))
+        check([r[0] for r in rows] == keys, f"store orders keys {rows}")
+        for r, k in zip(rows, keys):
+            g = od["o_orderstatus"] == k
+            check(r[1] == int(g.sum()) and
+                  fsum_ok(r[2], od["o_totalprice"][g]),
+                  f"store orders {k}: {r}")
+    elif name.startswith("point"):
+        key = int(name.split()[1])
+        m = li["l_orderkey"] == key
+        idx = np.nonzero(m)[0][np.argsort(li["l_linenumber"][m],
+                                          kind="stable")]
+        want = [(int(li["l_linenumber"][i]), float(li["l_quantity"][i]),
+                 float(li["l_discount"][i])) for i in idx]
+        check(rows == want, f"store {name}: {rows} != {want}")
+    else:
+        raise RuntimeError(f"no oracle for {name}")
+
+
+def store_run(sess, name: str, sql: str, li: dict, od: dict, counters,
+              tag: str) -> dict:
+    """``sql`` once cold and ``STORE_WARM`` times warm, each result held
+    against its oracle; prints the first and warm ms with the client's
+    split of the first call (``place`` is the re-placement after a
+    write) and of the last; returns the launches."""
+    before = {k: v for launches in counters for k, v in launches.items()}
+    t0 = time.perf_counter()
+    rs = sess.execute(sql)
+    first = time.perf_counter() - t0
+    first_ct = dict(sess.domain.client.timings)
+    store_check(name, rs.rows, li, od)
+    warm = []
+    for _ in range(STORE_WARM):
+        t0 = time.perf_counter()
+        rs = sess.execute(sql)
+        warm.append(time.perf_counter() - t0)
+        store_check(name, rs.rows, li, od)
+    launched = {k: v - before[k] for launches in counters
+                for k, v in launches.items()}
+
+    def split(ct):
+        return " ".join(f"{k}_ms={v * 1e3:.3f}" for k, v in ct.items()
+                        if isinstance(v, float))
+    print(f"store {tag} {name}: out_rows={len(rs.rows)} "
+          f"first_ms={first * 1e3:.3f} "
+          f"warm_ms={statistics.median(warm) * 1e3:.3f} "
+          f"first[{split(first_ct)}] "
+          f"warm[{split(sess.domain.client.timings)}] "
+          f"launches={ {k: launched[k] for k in GR + OS} } exact=True")
+    return launched
+
+
+def placement_bytes(tbl) -> int:
+    """Bytes of a table's placement on the card (its snapshot's)."""
+    n = 0
+    for cols, counts in tbl.snapshot()._device_cache.values():
+        n += counts.numel() * counts.element_size()
+        for d, v in cols:
+            n += d.numel() * d.element_size()
+            if v is not None:
+                n += v.numel() * v.element_size()
+    return n
+
+
+def store_phase(torch, gr, os1, S, sf: float = STORE_SF) -> dict:
+    """Phase 11 through one port ``Domain(device="cuda", data_dir=...)``:
+    CREATE TABLE lineitem and orders (tests/test_tpch_diff.py's types),
+    LOAD DATA from the generator's '|' files, Q1, Q6 (the spec's text),
+    a join of the two, a TopN; one transaction of UPDATE, DELETE and
+    INSERT, then COMMIT; the statements again against the numpy oracle
+    of the written rows; CREATE INDEX on ``l_orderkey`` and point reads
+    through ``IndexLookUp``; a rolled-back transaction; write/read rounds
+    with ``memory_allocated`` flat; the durable reopen.  Returns the
+    phase's launch counts."""
+    import tempfile
+    from tidb_tpu_torch.session import Domain, Session
+    from tidb_tpu_torch.testing import tpch
+    counters = (gr.LAUNCHES, os1.LAUNCHES)
+    sqls = {"Q1": tpch.TPCH_Q1, "Q6": tpch.TPCH_Q6, "join": STORE_JOIN,
+            "TopN": STORE_TOPN}
+    with tempfile.TemporaryDirectory(prefix="tidb_store_") as tmp:
+        t0 = time.perf_counter()
+        li_names, li_cols = tpch.gen_lineitem(sf, seed=0)
+        li_cols = li_cols + [tpch.lineitem_comments(len(li_cols[0]))]
+        li_names = li_names + ["l_comment"]
+        o_names, o_cols = tpch.gen_orders(sf, seed=0)
+        files = {"lineitem": f"{tmp}/lineitem.tbl",
+                 "orders": f"{tmp}/orders.tbl"}
+        n_rows = {"lineitem": tpch.write_tbl(files["lineitem"], li_cols),
+                  "orders": tpch.write_tbl(files["orders"], o_cols)}
+        li, od = store_oracle_data(li_cols, li_names, o_cols, o_names)
+        del li_cols, o_cols
+        print(f"store data: sf={sf} lineitem rows={n_rows['lineitem']} "
+              f"orders rows={n_rows['orders']} "
+              f"gen_write_s={time.perf_counter() - t0:.2f}")
+        data_dir = f"{tmp}/data"
+        dom = Domain(STORE_DEVICE, data_dir=data_dir)
+        sess = Session(dom)
+        reset(counters + (S.PASSES,))       # counts of this path only
+        mem = []
+
+        def round_mem(tag):
+            torch.cuda.synchronize()
+            gc.collect()
+            mem.append(torch.cuda.memory_allocated())
+            print(f"store memory {tag}: allocated={mem[-1]}")
+
+        with plain_guard({"gr": gr, "os1": os1}) as guard:
+            for t in ("lineitem", "orders"):
+                sess.execute(f"create table {t} {tpch.TPCH_DDL[t]}")
+                t0 = time.perf_counter()
+                rs = sess.execute(f"load data infile '{files[t]}' into "
+                                  f"table {t} fields terminated by '|'")
+                s_ = time.perf_counter() - t0
+                check(rs.affected == n_rows[t], f"store load {t}: "
+                      f"{rs.affected} rows of {n_rows[t]}")
+                print(f"store load {t}: rows={rs.affected} s={s_:.3f} "
+                      f"rows_per_s={rs.affected / s_:.0f}")
+            for name, sql in sqls.items():
+                store_run(sess, name, sql, li, od, counters, "loaded")
+            round_mem("after load/read")
+
+            # one transaction of UPDATE, DELETE and INSERT
+            rng = np.random.default_rng(11)
+            dates = ("1996-03-01", "1996-03-02", "1996-03-03")
+            ins = [(int(k), 1, 1, int(ln), float(q), float(p), 0.05, 0.01,
+                    "N", "O") + dates + ("NONE", "AIR", "added")
+                   for k, ln, q, p in zip(
+                       rng.integers(1, int(6_000_000 * sf), STORE_INSERTS),
+                       rng.integers(8, 12, STORE_INSERTS),
+                       rng.integers(1, 51, STORE_INSERTS),
+                       rng.integers(100_000, 10_000_000, STORE_INSERTS)
+                       / 100.0)]
+            vals = ", ".join(
+                "(" + ", ".join(repr(v) if not isinstance(v, str)
+                                else f"'{v}'" for v in r) + ")"
+                for r in ins)
+            ins = [r[:10] + tuple(_days(d) for d in dates) + r[13:]
+                   for r in ins]
+            writes = [
+                ("UPDATE", "update lineitem set l_discount = 0.1, "
+                           "l_tax = l_tax + 0.01 where l_orderkey < "
+                           f"{STORE_UPDATE_BELOW}"),
+                ("DELETE", "delete from lineitem where l_orderkey between "
+                           f"{STORE_DELETE[0]} and {STORE_DELETE[1]}"),
+                ("INSERT", f"insert into lineitem values {vals}"),
+                ("COMMIT", "commit")]
+            sess.execute("begin")
+            done = {}
+            for what, sql in writes:
+                t0 = time.perf_counter()
+                rs = sess.execute(sql)
+                done[what] = (rs.affected, time.perf_counter() - t0)
+            up = li["l_orderkey"] < STORE_UPDATE_BELOW
+            dl = ((li["l_orderkey"] >= STORE_DELETE[0])
+                  & (li["l_orderkey"] <= STORE_DELETE[1]))
+            check(done["UPDATE"][0] == int(up.sum()) and
+                  done["DELETE"][0] == int(dl.sum()) and
+                  done["INSERT"][0] == STORE_INSERTS,
+                  f"store txn affected {done}")
+            li["l_discount"] = np.where(up, 0.1, li["l_discount"])
+            li["l_tax"] = np.where(up, li["l_tax"] + 0.01, li["l_tax"])
+            keep = ~dl
+            li = {k: np.concatenate([v[keep], np.asarray(
+                [r[i] for r in ins], dtype=v.dtype)])
+                for i, (k, v) in enumerate(li.items())}
+            print("store txn: " + " ".join(
+                f"{w}_rows={a} {w}_ms={s_ * 1e3:.3f}"
+                for w, (a, s_) in done.items()))
+            for name, sql in sqls.items():
+                store_run(sess, name, sql, li, od, counters, "written")
+            round_mem("after txn/read")
+
+            # online CREATE INDEX, then point reads through IndexLookUp
+            t0 = time.perf_counter()
+            sess.execute("create index iok on lineitem (l_orderkey)")
+            ix_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            sess.execute("admin check table lineitem")
+            ck_s = time.perf_counter() - t0
+            plan = [r[0] for r in sess.execute(
+                "explain " + STORE_POINT.format(STORE_POINTS[0])).rows]
+            check(any("IndexLookUp" in ln for ln in plan),
+                  f"store point read planned {plan}")
+            ms = []
+            for key in STORE_POINTS:
+                t0 = time.perf_counter()
+                rs = sess.execute(STORE_POINT.format(key))
+                ms.append((time.perf_counter() - t0) * 1e3)
+                store_check(f"point {key}", rs.rows, li, od)
+            print(f"store index: create_ms={ix_s * 1e3:.3f} "
+                  f"admin_check_ms={ck_s * 1e3:.3f} "
+                  f"plan={'/'.join(ln.strip() for ln in plan)} "
+                  f"point_read_ms={' '.join(f'{m:.3f}' for m in ms)} "
+                  "equal_to_scan=True")
+
+            # a rolled-back transaction leaves no trace
+            store_run(sess, "orders", STORE_ORDERS, li, od, counters,
+                      "before rollback")
+            sess.execute("begin")
+            t0 = time.perf_counter()
+            for sql in ("delete from orders where o_orderkey < 1000",
+                        "update orders set o_totalprice = 0 "
+                        "where o_orderkey < 5000",
+                        "insert into orders values (9, 1, 'O', 1.0, "
+                        "'1995-01-01', '5-LOW', 'Clerk#000000001', 0, 'x')",
+                        "rollback"):
+                sess.execute(sql)
+            rb_s = time.perf_counter() - t0
+            store_run(sess, "orders", STORE_ORDERS, li, od, counters,
+                      "after rollback")
+            # 9 is no key of the spec's sparse scheme (the first 8 of 32)
+            check(sess.must_query("select count(*) from orders where "
+                                  "o_orderkey = 9") == [(0,)],
+                  "store rollback: the rolled-back insert is visible")
+            print(f"store rollback: ms={rb_s * 1e3:.3f} no_trace=True")
+
+            # write/read rounds: the placement of each epoch is freed
+            tbl = dom.catalog.get_table("test", "orders")
+            place = []
+            for r in range(STORE_ROUNDS):
+                key = int(od["o_orderkey"][r * 997])
+                sess.execute("update orders set o_totalprice = "
+                             f"o_totalprice + 1 where o_orderkey = {key}")
+                od["o_totalprice"] = np.where(od["o_orderkey"] == key,
+                                              od["o_totalprice"] + 1,
+                                              od["o_totalprice"])
+                store_run(sess, "orders", STORE_ORDERS, li, od, counters,
+                          f"round {r + 1}")
+                place.append(placement_bytes(tbl))
+                round_mem(f"round {r + 1}")
+            grow = mem[-1] - mem[-STORE_ROUNDS]
+            check(grow <= max(place), f"store HBM grew {grow} bytes over "
+                  f"{STORE_ROUNDS} rounds (one placement: {max(place)})")
+            print(f"store hbm: rounds={STORE_ROUNDS} first={mem[-5]} "
+                  f"last={mem[-1]} grow={grow} placement={max(place)} "
+                  "flat=True")
+
+            # the durable reopen
+            probes = {"li": "select count(*), sum(l_quantity), "
+                            "sum(l_extendedprice) from lineitem",
+                      "o": "select count(*), sum(o_totalprice) from orders"}
+            before = {k: sess.must_query(q) for k, q in probes.items()}
+            dom.close()
+            del sess, dom, tbl
+            gc.collect()
+            t0 = time.perf_counter()
+            dom = Domain(STORE_DEVICE, data_dir=data_dir)
+            sess = Session(dom)
+            reopen_s = time.perf_counter() - t0
+            after = {k: sess.must_query(q) for k, q in probes.items()}
+            for k in probes:
+                b, a = before[k][0], after[k][0]
+                check(a[0] == b[0] and all(
+                    abs(x - y) <= STORE_FRTOL * abs(y) for x, y in
+                    zip(a[1:], b[1:])), f"store reopen {k}: {a} != {b}")
+            check(after["li"][0][0] == len(li["l_orderkey"]) and
+                  fsum_ok(after["li"][0][1], li["l_quantity"]),
+                  f"store reopen: {after['li']} against the oracle")
+            store_run(sess, "Q1", tpch.TPCH_Q1, li, od, counters,
+                      "reopened")
+            dom.close()
+            print(f"store reopen: open_s={reopen_s:.3f} "
+                  f"committed={after} equal=True")
+        check(guard.calls == 0, f"store path ran {guard.calls} "
+              "plain-version calls of its kernels on the card")
+    counts = {k: v for launches in counters for k, v in launches.items()}
+    for k in GR + OS:
+        check(counts[k] > 0, f"store path: {k} launched {counts[k]} times")
+    print(f"store launches: {counts} stable_argsort_passes="
+          f"{S.PASSES['stable_argsort']} plain_calls={guard.calls}")
+    return counts
+
+
 def build_phase(*modules) -> None:
     """The kernel libraries of ``modules`` from the checkout's sources,
     one nvcc each, started together."""
@@ -2262,24 +2660,43 @@ def main() -> int:
     from tidb_tpu_torch.copr.cuda import onesweep as os1
     from tidb_tpu_torch.ops import sort as S
 
+    t_lap = [time.perf_counter()]
+
+    def lap(label: str) -> None:
+        """The seconds of the phase that just ended, on a line."""
+        now = time.perf_counter()
+        print(f"phase {label}: s={now - t_lap[0]:.1f}")
+        t_lap[0] = now
+
     build_phase(rk, gr, os1)
+    lap("2 build")
     kern = kernel_phase(torch, rk, radix, dev)
     kern.update(sort_phase(torch, rk, os1, S, dev))
+    lap("3-3b kernels")
     one_lane_err = group_reduce_phase(torch, gr, dev)
     lane_sets_out = group_reduce_lanes_phase(torch, gr, dev)
     lane_sets_out["group_reduce"]["max_abs_err"] = one_lane_err
     kern.update(lane_sets_out)
+    lap("4 group_reduce")
     reference_phase(torch, dev)
     reference_phase4(torch, dev)
+    lap("5 reference")
     counts = slice_phase(torch, rk, gr, args.sf)
+    lap("6 SCATTER")
     counts["group_reduce"], main_res, main_data = main_path_phase(
         torch, gr, args.main_sf)
+    lap("7 main path")
     s4_counts, s4_res = slice4_phase(torch, rk, os1, gr, S, args.s4_sf)
     counts.update(s4_counts)
+    lap("8 slice 4")
     _sql_counts, s4_data = sql_phase(gr, os1, S, main_data, main_res,
                                      args.s4_sf, s4_res)
+    lap("9 sql")
     join_phase(torch, gr, os1, S, main_data, args.main_sf, s4_data,
                args.s4_sf)
+    lap("10 joins")
+    store_phase(torch, gr, os1, S)
+    lap("11 store")
 
     cu = "tidb_tpu_torch/copr/cuda/"
     sources = {"radix_hist": cu + "radix_kernel.cu",

@@ -32,7 +32,20 @@ JOIN_MODULES = ["tidb_tpu_torch/copr/join.py",
                 "tidb_tpu_torch/planner/cardinality.py"]
 
 
-@pytest.mark.parametrize("path", JOIN_MODULES)
+# the store slice's modules, the native engine's loader among them
+STORE_MODULES = ["tidb_tpu_torch/store/kv.py",
+                 "tidb_tpu_torch/store/codec.py",
+                 "tidb_tpu_torch/store/gcworker.py",
+                 "tidb_tpu_torch/session/codec_io.py",
+                 "tidb_tpu_torch/session/autoid.py",
+                 "tidb_tpu_torch/session/meta.py",
+                 "tidb_tpu_torch/ddl/mdl.py",
+                 "tidb_tpu_torch/ddl/jobs.py",
+                 "tidb_tpu_torch/ddl/election.py",
+                 "tidb_tpu_torch/ddl/owner.py"]
+
+
+@pytest.mark.parametrize("path", JOIN_MODULES + STORE_MODULES)
 def test_join_modules_are_checked(path):
     assert path in SOURCES
 

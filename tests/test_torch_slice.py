@@ -540,10 +540,11 @@ _UNPORTED_SQL = {
                           "Queue 1 item 5: slice 9"),
     "SQL auto-analyze on": ("set tidb_enable_auto_analyze = 1",
                             "Queue 1 item 5: slice 9"),
-    "SQL insert": ("insert into part values (1, 'Brand#1', 3)",
-                   "Queue 1 item 1, sub-step 2"),
-    "SQL create table": ("create table t2 (a int)",
-                         "Queue 1 item 1, sub-step 2"),
+    "SQL create view": ("create view v as select p_partkey from part",
+                        "Queue 1 item 1, sub-step 2c"),
+    "SQL split table": ("split table part regions 4",
+                        "Queue 1 item 1, sub-step 2c"),
+    "SQL show tables": ("show tables", "Queue 1 item 1, sub-step 2d"),
 }
 
 

@@ -20,16 +20,22 @@ repartition join over the logical devices) over a
 ``store.columnar.ColumnarSnapshot``, on the hand-written CUDA kernels
 of ``copr/cuda/``; and above it the SELECT path from SQL text: the
 parser (``sql/``), the planner (``planner/``, with the join reorder),
-the executor (``executor/``: the device joins and the host join
-operators), the catalog and a ``session.Session`` whose plans are the
-JAX package's with auto-analyze off.  What the port does not run yet raises
+the executor (``executor/``: the device joins, the host join
+operators and the index readers), the catalog and a ``session.Session``
+whose plans are the JAX package's with auto-analyze off; and beneath the
+session the row store: the native MVCC engine (``native/kvstore.cpp``,
+built with g++ at first use by ``store/kv.py``), the row codec, the
+catalog on KV, the write statements, transactions and the online DDL
+(``ddl/``).  What the port does not run yet raises
 ``NotImplementedError`` naming its ROADMAP.md item (below).
 """
 
 # ROADMAP.md items of the paths the port does not run yet, named by the
 # NotImplementedError each raises
 HOST_BASE = "Queue 1 item 1, sub-step 1: the rest of the host base"
-STORE = "Queue 1 item 1, sub-step 2: the store, DML and DDL"
+SCHEMA_OBJECTS = ("Queue 1 item 1, sub-step 2c: views, sequences, "
+                  "SPLIT TABLE and partitioned tables")
+SHOW = "Queue 1 item 1, sub-step 2d: the SHOW statements"
 EVALUATOR = "Queue 1 item 1, sub-step 4: device evaluator breadth"
 PLAN_CACHE = "Queue 1 item 1, sub-step 5: the plan cache and bindings"
 HOST_OPS = "Queue 1 item 1, sub-step 6: the host operators of later slices"

@@ -1,4 +1,4 @@
-# ported from tidb_tpu/executor/physical.py @ 9d319cb
+# ported from tidb_tpu/executor/physical.py @ 3951242
 """Physical planning (pushdown split) + host root executors.
 
 Reference analog: pkg/planner/core physicalOptimize's engine split (what
@@ -36,7 +36,6 @@ from ..planner.logical import (AggItem, DataSource, LogicalAggregate,
                                LogicalSort, LogicalTopN)
 from ..planner.build import DualSource
 from ..types import dtypes as dt
-from .. import STORE, unported
 
 K = dt.TypeKind
 
@@ -1353,7 +1352,9 @@ class HostIndexLookupJoin(HostHashJoin):
 
     def _fetch_inner(self, och: ResultChunk, ts: int) -> ResultChunk:
         """Distinct outer keys -> index range reads -> inner ResultChunk."""
-        raise unported("index reads from the KV store", STORE)
+        from ..store.codec import (decode_index_handle, decode_row,
+                                   encode_index_value, index_key,
+                                   record_key)
         lk = self.eq_keys[0][0]
         kcol = och.columns[lk]
         keys = set()
@@ -2368,7 +2369,7 @@ class IndexLookUpExec(PhysOp):
 def _index_handles(tbl, acc, kv, ts: int) -> list:
     """Row handles matched by one IndexAccess (index-side half of the
     IndexLookUp pipeline; shared with IndexMergeExec)."""
-    raise unported("index reads from the KV store", STORE)
+    from ..store import codec as C
     ix = acc.index
     offs = [tbl.col_names.index(c) for c in ix.columns]
     types = [tbl.col_types[i] for i in offs]
@@ -2404,7 +2405,7 @@ def _fetch_filter_rows(tbl, kv, ts, handles, col_offsets, out_names,
                       conditions) -> ResultChunk:
     """Table-side half of the IndexLookUp pipeline: fetch + decode rows
     by handle, project, apply residual filters."""
-    raise unported("index reads from the KV store", STORE)
+    from ..store import codec as C
     rows = []
     for h in handles:
         rv = kv.get(C.record_key(tbl.table_id, h), ts)

@@ -1,4 +1,6 @@
-# ported from tidb_tpu/session/catalog.py @ 9d319cb
+# ported from tidb_tpu/session/catalog.py @ 3951242
+# (the port frees a snapshot's placement on the card when a write
+# invalidates it: TableInfo._invalidate)
 """Catalog + table storage.
 
 Reference analog: pkg/meta (catalog) + pkg/infoschema (cached schema) +
@@ -22,7 +24,6 @@ import numpy as np
 from ..chunk.column import Column, StringDict
 from ..store.columnar import ColumnarSnapshot, snapshot_from_columns
 from ..types import dtypes as dt
-from .. import STORE, unported
 
 # per-session temporary-table overlay: {(db, name): TableInfo}, installed
 # by Session.execute for the duration of each statement
@@ -188,7 +189,7 @@ class TableInfo:
         return [self.col_names.index(c) for c in ix.columns]
 
     def _index_entry(self, ix: IndexInfo, row: tuple, handle: int):
-        raise unported("the KV row store and its indexes", STORE)
+        from ..store.codec import encode_index_entry
         offs = self._index_cols(ix)
         vals = [row[i] for i in offs]
         types = [self.col_types[i] for i in offs]
@@ -240,7 +241,7 @@ class TableInfo:
         self._next_index_id += 1
         ix = IndexInfo(name, self._next_index_id, list(columns), unique)
         # backfill existing rows before publishing
-        raise unported("the KV row store and its indexes", STORE)
+        from .codec_io import scan_table_rows
         ts = self.kv.alloc_ts()
         handles, rows = scan_table_rows(self.kv, self.table_id, ts,
                                         self.col_types)
@@ -266,7 +267,7 @@ class TableInfo:
             if if_exists:
                 return
             raise CatalogError(f"unknown index {name!r}")
-        raise unported("the KV row store and its indexes", STORE)
+        from ..store.codec import index_prefix, index_prefix_end
         txn = self.kv.begin()
         for k, _ in self.kv.scan(index_prefix(self.table_id, ix.index_id),
                                  index_prefix_end(self.table_id, ix.index_id),
@@ -328,7 +329,7 @@ class TableInfo:
         (including intra-batch duplicates) before any buffered write, so a
         DuplicateKeyError leaves the txn clean — statement atomicity
         inside an explicit transaction."""
-        raise unported("the KV row store and its indexes", STORE)
+        from .codec_io import encode_table_row
         uix = [ix for ix in self.writable_indexes() if ix.unique]
         seen: set = set()
         for j, r in enumerate(fixed):
@@ -437,7 +438,7 @@ class TableInfo:
         then insert.  Returns deleted + inserted (MySQL affected-rows
         counting).  Rows process in order, so later rows replace earlier
         ones within one batch."""
-        raise unported("the KV row store and its indexes", STORE)
+        from ..store.codec import decode_index_handle, decode_row, record_key
         uix = [ix for ix in self.indexes
                if ix.unique and ix.state == "public"]
         if self.kv is None:
@@ -483,7 +484,7 @@ class TableInfo:
         store — the UpdateExec analog.  Inside an explicit transaction the
         caller's txn buffers the writes (and, in pessimistic mode, locks
         each record key at DML time via Txn.put)."""
-        raise unported("the KV row store and its indexes", STORE)
+        from .codec_io import encode_table_row
         new_rows = self._apply_generated(new_rows)
         self._fk_check_rows(new_rows)
         new_rows = [tuple(canon_write_value(t_, v, n)
@@ -543,7 +544,7 @@ class TableInfo:
                             txn=None) -> int:
         own = txn is None
         t = txn or self.kv.begin()
-        raise unported("the KV row store and its indexes", STORE)
+        from ..store.codec import record_key
         drop = np.nonzero(~np.asarray(keep_mask))[0]
         # materialize ONLY the dropped rows for index-entry removal
         drop_rows = None
@@ -567,13 +568,14 @@ class TableInfo:
         return deleted
 
     def replace_columns(self, cols: list[Column]) -> None:
-        """Full rewrite (UPDATE path)."""
+        """Full rewrite (UPDATE path, round 1)."""
         if self.kv is not None:
             # rewrite through the row store in ONE txn so a failed rewrite
             # (e.g. a duplicate-key error on re-insert) leaves the table
             # untouched, keeping MVCC history coherent
             t = self.kv.begin()
-            raise unported("the KV row store and its indexes", STORE)
+            from ..store.codec import (index_prefix, index_prefix_end,
+                                       record_prefix, record_prefix_end)
             for k, _ in self.kv.scan(record_prefix(self.table_id),
                                      record_prefix_end(self.table_id),
                                      t.start_ts):
@@ -601,7 +603,8 @@ class TableInfo:
         n = 0
         if self.kv is not None:
             t = self.kv.begin()
-            raise unported("the KV row store and its indexes", STORE)
+            from ..store.codec import (index_prefix, index_prefix_end,
+                                       record_prefix, record_prefix_end)
             for k, _ in self.kv.scan(record_prefix(self.table_id),
                                      record_prefix_end(self.table_id),
                                      t.start_ts):
@@ -650,8 +653,13 @@ class TableInfo:
         self._invalidate()
 
     def _invalidate(self):
-        self._snapshot = None
+        old, self._snapshot = self._snapshot, None
         self._epoch += 1
+        if old is not None:
+            # the port frees the old epoch's placement on the card at
+            # once, so a write/read round holds one placement of the
+            # table, not one per write until the old snapshot is freed
+            old._device_cache.clear()
 
     def split_regions(self, n_shards: int) -> None:
         """Re-shard the table's scan fan-out (SPLIT TABLE ... REGIONS n,
@@ -704,7 +712,7 @@ class TableInfo:
         uncached (one-shot reads; GC may reclaim very old versions)."""
         if self.kv is None:
             raise CatalogError("snapshot_at needs the KV row store")
-        raise unported("the KV row store and its indexes", STORE)
+        from .codec_io import scan_table_rows
         _handles, rows = scan_table_rows(self.kv, self.table_id, int(ts),
                                          self.col_types)
         cols = [Column.from_values(t, [r[i] for r in rows])
@@ -772,7 +780,7 @@ class TableInfo:
 
     def _columnarize(self) -> list[Column]:
         if self.kv is not None:
-            raise unported("the KV row store and its indexes", STORE)
+            from .codec_io import scan_table_rows
             ts = self.kv.alloc_ts()
             handles, rows = scan_table_rows(self.kv, self.table_id, ts,
                                             self.col_types)

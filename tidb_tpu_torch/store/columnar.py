@@ -48,6 +48,11 @@ class ColumnarSnapshot:
     def num_rows(self) -> int:
         return len(self.columns[0]) if self.columns else 0
 
+    @property
+    def dictionaries(self) -> dict[int, StringDict]:
+        return {i: c.dictionary for i, c in enumerate(self.columns)
+                if c.dictionary is not None}
+
     def _even_ranges(self) -> list:
         s = self.n_shards
         n = self.num_rows

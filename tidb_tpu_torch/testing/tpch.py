@@ -172,6 +172,121 @@ def gen_orders_mini(n: int = 1024, seed: int = 7) -> tuple[list[str], list[Colum
     return ORDERS_MINI_NAMES, cols
 
 
+
+# ------------------------------------------------------------------ #
+# the row store's path: TPC-H tables as '|'-separated files for LOAD
+# DATA, with the column types of tests/test_tpch_diff.py (its DDL)
+# ------------------------------------------------------------------ #
+
+TPCH_DDL = {
+    "orders": "(o_orderkey bigint, o_custkey bigint, o_orderstatus varchar(1),"
+              " o_totalprice double, o_orderdate date,"
+              " o_orderpriority varchar(15), o_clerk varchar(15),"
+              " o_shippriority bigint, o_comment varchar(79))",
+    "lineitem": "(l_orderkey bigint, l_partkey bigint, l_suppkey bigint,"
+                " l_linenumber bigint, l_quantity double,"
+                " l_extendedprice double, l_discount double, l_tax double,"
+                " l_returnflag varchar(1), l_linestatus varchar(1),"
+                " l_shipdate date, l_commitdate date, l_receiptdate date,"
+                " l_shipinstruct varchar(25), l_shipmode varchar(10),"
+                " l_comment varchar(44))",
+}
+
+ORDERS_NAMES = ["o_orderkey", "o_custkey", "o_orderstatus", "o_totalprice",
+                "o_orderdate", "o_orderpriority", "o_clerk",
+                "o_shippriority", "o_comment"]
+PRIORITIES = ["1-URGENT", "2-HIGH", "3-MEDIUM", "4-NOT SPECIFIED", "5-LOW"]
+_WORDS = ["blithely", "carefully", "deposits", "final", "furiously",
+          "ironic", "packages", "quickly", "regular", "requests", "slyly",
+          "accounts", "express", "pending", "special", "theodolites"]
+
+
+def _text_column(rng, n: int, n_values: int, max_len: int) -> Column:
+    """A varchar column of ``n`` comments drawn from ``n_values``
+    sentences of the spec's word list, each under ``max_len`` chars."""
+    words = np.asarray(_WORDS)
+    pool = set()
+    while len(pool) < n_values:
+        k = int(rng.integers(2, 7))
+        pool.add(" ".join(words[rng.integers(0, len(words), k)])[:max_len])
+    d = StringDict(sorted(pool))
+    codes = rng.integers(0, len(d), n).astype(np.int32)
+    return Column(dt.varchar(False), codes, np.ones(n, bool), d)
+
+
+def gen_orders(sf: float = 1.0, seed: int = 0
+               ) -> tuple[list[str], list[Column]]:
+    """TPC-H orders at ``sf`` (1,500,000 rows a unit), the nine columns
+    of ``TPCH_DDL``.  Keys follow the spec's sparse scheme (the first
+    8 of every 32), so they span ``gen_lineitem``'s ``l_orderkey``
+    domain, [1, 6,000,000 sf]."""
+    n = int(1_500_000 * sf)
+    rng = np.random.default_rng([seed, 101])
+    k = np.arange(n, dtype=np.int64)
+    okey = (k // 8) * 32 + (k % 8) + 1
+
+    def dict_col(values, codes):
+        return Column(dt.varchar(False), codes.astype(np.int32),
+                      np.ones(n, bool), StringDict(values))
+    clerks = [f"Clerk#{i:09d}" for i in range(1, max(int(1000 * sf), 1) + 1)]
+    cols = [
+        Column.from_numpy(dt.bigint(False), okey),
+        Column.from_numpy(dt.bigint(False), rng.integers(
+            1, max(int(150_000 * sf), 1) + 1, n)),
+        dict_col(["F", "O", "P"], rng.choice(3, n, p=[0.49, 0.49, 0.02])),
+        Column.from_numpy(dt.double(False),
+                          rng.integers(85_000, 55_000_000, n) / 100.0),
+        Column.from_numpy(dt.date(False),
+                          _STARTDATE + rng.integers(0, 2406 - 151, n)),
+        dict_col(PRIORITIES, rng.integers(0, len(PRIORITIES), n)),
+        dict_col(clerks, rng.integers(0, len(clerks), n)),
+        Column.from_numpy(dt.bigint(False), np.zeros(n, np.int64)),
+        _text_column(rng, n, 1000, 79),
+    ]
+    return ORDERS_NAMES, cols
+
+
+def lineitem_comments(n: int, seed: int = 0) -> Column:
+    """``l_comment`` for ``n`` lineitem rows (``gen_lineitem`` leaves it
+    out: no query of the corpus reads it)."""
+    return _text_column(np.random.default_rng([seed, 102]), n, 1000, 44)
+
+
+def _as_text(col: Column) -> np.ndarray:
+    """A column as the text LOAD DATA reads: ``\\N`` for NULL, a DECIMAL
+    with its scale's digits, a DATE as ISO, a DOUBLE by ``repr``."""
+    k = col.dtype.kind
+    data = col.data
+    if k == dt.TypeKind.STRING:
+        out = np.asarray(col.dictionary.values, dtype=object)[data]
+    elif k == dt.TypeKind.DATE:
+        out = (np.datetime64("1970-01-01", "D")
+               + data.astype("timedelta64[D]")).astype(str).astype(object)
+    elif k == dt.TypeKind.DECIMAL:
+        p = 10 ** col.dtype.scale
+        out = np.asarray([("-" if v < 0 else "") + f"{abs(v) // p}."
+                          f"{abs(v) % p:0{col.dtype.scale}d}"
+                          for v in data.tolist()], dtype=object)
+    elif k == dt.TypeKind.FLOAT64:
+        out = np.asarray([repr(v) for v in data.tolist()], dtype=object)
+    else:
+        out = data.astype(str).astype(object)
+    if not col.validity.all():
+        out = np.where(col.validity, out, "\\N")
+    return out
+
+
+def write_tbl(path, cols: list[Column]) -> int:
+    """Write ``cols`` as a '|'-separated file, a row a line (the dbgen
+    ``.tbl`` layout without the trailing separator); returns the rows."""
+    texts = [_as_text(c) for c in cols]
+    with open(path, "w") as f:
+        for lo in range(0, len(texts[0]), 65536):
+            f.write("\n".join("|".join(r) for r in zip(
+                *[t[lo:lo + 65536] for t in texts])))
+            f.write("\n")
+    return len(texts[0])
+
 # ------------------------------------------------------------------ #
 # plan corpus: the TPC-H-shaped statements every static-analysis gate
 # run and tests/test_analysis.py push through analysis.verify_plan.
@@ -429,4 +544,5 @@ __all__ = ["gen_lineitem", "gen_part", "gen_orders_mini", "LINEITEM_NAMES",
            "PART_NAMES", "ORDERS_MINI_NAMES", "DEC2", "TPCH_PLAN_QUERIES",
            "TPCH_SHUFFLE_QUERIES", "MULTICHIP_PLAN_QUERIES", "TPCH_Q1",
            "TPCH_Q6", "TPCH_Q19", "SQL_QUERIES", "JOIN_QUERIES",
-           "sql_session", "tpch_sql_session"]
+           "sql_session", "tpch_sql_session", "TPCH_DDL", "ORDERS_NAMES",
+           "gen_orders", "lineitem_comments", "write_tbl"]
