@@ -7,7 +7,9 @@
                                      # SQL: Q1, Q6 at SF=10, the corpus
                                      # statements at SF=1; joins at
                                      # SF=10 and SF=1; the store at
-                                     # SF=0.1
+                                     # SF=0.1; the SELECT surface: the
+                                     # lanes and rollup at SF=10, the
+                                     # 22 TPC-H statements at SF=0.01
     python3 chip_smoke.py --sf 0.05 --main-sf 0.1 --s4-sf 0.05   # quicker
     python3 chip_smoke.py --perm-of DIR   # only scatter_permutation's
                                           # time, of DIR/tidb_tpu_torch
@@ -139,7 +141,34 @@ script exits non-zero without printing a result:
    COMMIT and index ms, the memory after each round and the hand
    kernels' launches (``group_reduce``, the onesweep pair for TopN), no
    plain version of them run;
-12. the ``kernels`` JSON line, then the last line
+12. select surface, through one port ``Session`` on ``cuda:0``:
+   12a, over phase 7's lineitem (``--main-sf``), twelve statements whose
+   filters, group keys and aggregate arguments hold every family of the
+   device evaluator's lanes (decimal and double ``/``, ``DIV``, ``%``,
+   ``CAST`` to signed, unsigned, double, decimal and datetime, DATE
+   against DATETIME, BIGINT UNSIGNED compare and arithmetic, ``XOR``,
+   ``ROUND``, ``TRUNCATE``, ``SQRT``, ``LN``, ``POW``, ``GREATEST``,
+   ``SIGN``, ``YEAR``, ``QUARTER``, ``DAYOFWEEK``, ``DATEDIFF``,
+   ``DATE_ADD ... INTERVAL n MONTH``, ``LAST_DAY``), each with its lanes
+   inside its cop task (``testing.tpch.pushed_ops`` over the session's
+   own plan) and its result equal to a numpy oracle (integers, decimals
+   and dates exactly, double sums within ``SELECT_FRTOL``); 12b, TPC-H
+   Q1's grouping ``WITH ROLLUP`` (two keys, three levels) and a one-key
+   rollup with ``GROUPING()``, each equal to the union of its levels'
+   numpy oracles, one ``group_reduce`` launch a level, its peak
+   ``torch.cuda.max_memory_allocated`` beside the bytes a materialized
+   ``levels x n`` expand would take; 12c, the eight tables of
+   ``testing.tpch.gen_tpch`` at ``--tpch-sf`` (default 0.01: TPC-H Q20's
+   correlated subquery runs as a host apply a correlated value, whose
+   time grows as the square of the scale) and the 22 statements of
+   ``TPCH_22`` with Q15 through its view, each equal to sqlite3 over the
+   same rows (``tests/test_sqlite_diff.py``'s ``rows_equal`` rule).
+   Each statement prints its first and warm ms, the client's split
+   summed over its cop calls, and, for 12c, its plan's top operators and
+   whether the device or the host sets its wall; the phase's hand-kernel
+   launches are counted, no plain version of them runs and no join
+   takes its host plan;
+13. the ``kernels`` JSON line, then the last line
    ``{"ok": true, "device": {...}}``.  A ``phase ...: s=`` line after
    each phase gives its seconds.
 
@@ -2602,6 +2631,516 @@ def store_phase(torch, gr, os1, S, sf: float = STORE_SF) -> dict:
     return counts
 
 
+# --------------------------------------------------------------------- #
+# phase 12: the rest of the SELECT surface
+# --------------------------------------------------------------------- #
+
+SELECT_DEVICE = "cuda"
+TPCH_SF = 0.01       # phase 12c's scale: Q20's host apply grows as its square
+SELECT_FRTOL = 1e-9  # doubles: of the sum of |terms| (a SUM) or |value|
+SELECT_WARM = 1      # warm calls of a TPC-H statement after its first
+# the statements whose broadcast joins take the JAX package's host plan
+# at TPCH_SF: Q7's plan probes customer against the orders chain keyed
+# by o_custkey, a key with duplicates (tests/test_torch_tpch.py holds
+# the port's count a statement equal to the JAX package's branch)
+TPCH_FALLBACKS = {"Q7"}
+MICROS_PER_DAY = 86_400_000_000
+
+# 12a: (name, statement, the lanes its cop task must evaluate); lineitem
+# at --main-sf, phase 7's columns
+LANE_SQL = [
+    ("decimal /", """select l_returnflag, sum(l_extendedprice / l_quantity),
+        count(*) from lineitem where l_discount / l_tax > 1
+        group by l_returnflag order by l_returnflag""", {"div"}),
+    ("double /", """select l_linestatus,
+        sum(cast(l_extendedprice as double) / l_quantity), count(*)
+        from lineitem where cast(l_discount as double) / l_tax > 1
+        group by l_linestatus order by l_linestatus""", {"div", "cast"}),
+    ("DIV and %", """select l_linestatus,
+        sum(cast(l_quantity as signed) div 7),
+        sum(cast(l_extendedprice as signed) % 1000), count(*)
+        from lineitem where cast(l_quantity as signed) % 5 = 0
+        group by l_linestatus order by l_linestatus""",
+     {"cast", "intdiv", "mod"}),
+    ("CAST", """select count(*), sum(cast(l_discount as double)),
+        sum(cast(l_tax as decimal(15,4))),
+        min(cast(l_shipdate as datetime)),
+        max(cast(l_extendedprice as decimal(15,0)))
+        from lineitem where cast(l_extendedprice as unsigned) > 50000""",
+     {"cast"}),
+    ("DATE against DATETIME", """select count(*), sum(l_quantity)
+        from lineitem
+        where l_shipdate < cast('1995-03-15 12:00:00' as datetime)
+          and l_shipdate >= cast('1994-01-01 00:00:01' as datetime)""",
+     {"lt", "ge"}),
+    ("BIGINT UNSIGNED", """select count(*),
+        sum(cast(l_quantity as unsigned) * 3) from lineitem
+        where cast(l_quantity as unsigned) - 25 > 9223372036854775807""",
+     {"cast", "sub", "mul", "gt"}),
+    ("XOR", """select count(*) from lineitem
+        where (l_discount > 0.05) xor (l_tax < 0.04)""", {"xor"}),
+    ("ROUND and TRUNCATE", """select l_returnflag,
+        sum(round(l_extendedprice * (1 - l_discount), 1)),
+        sum(truncate(l_extendedprice / 3, 2)),
+        max(round(cast(l_extendedprice as double) / 7, 2))
+        from lineitem group by l_returnflag order by l_returnflag""",
+     {"round", "truncate", "div"}),
+    ("math", """select count(*), sum(sqrt(l_quantity)),
+        sum(ln(l_extendedprice)), sum(pow(l_discount, 2)),
+        max(greatest(l_discount, l_tax)), sum(sign(l_tax - 0.04))
+        from lineitem""", {"sqrt", "ln", "pow", "greatest", "sign"}),
+    ("YEAR and QUARTER", """select year(l_shipdate), quarter(l_shipdate),
+        count(*), sum(l_quantity) from lineitem
+        group by year(l_shipdate), quarter(l_shipdate) order by 1, 2""",
+     {"year", "quarter"}),
+    ("DAYOFWEEK and DATEDIFF", """select dayofweek(l_shipdate), count(*),
+        sum(datediff('1998-12-01', l_shipdate)) from lineitem
+        group by dayofweek(l_shipdate) order by 1""",
+     {"dayofweek", "datediff"}),
+    ("DATE_ADD MONTH and LAST_DAY", """select count(*),
+        min(date_add(l_shipdate, interval 3 month)),
+        max(last_day(l_shipdate)) from lineitem
+        where last_day(l_shipdate) = l_shipdate""",
+     {"dateadd_months", "last_day"}),
+]
+
+# 12b: (name, statement, rollup levels)
+ROLLUP_SQL = [
+    ("Q1 rollup", """select l_returnflag, l_linestatus, sum(l_quantity),
+        sum(l_extendedprice), sum(l_extendedprice * (1 - l_discount)),
+        count(*) from lineitem where l_shipdate <= '1998-09-02'
+        group by l_returnflag, l_linestatus with rollup""", 3),
+    ("GROUPING", """select l_returnflag, grouping(l_returnflag), count(*),
+        sum(l_quantity) from lineitem group by l_returnflag with rollup""",
+     2),
+]
+
+
+def _rdiv(a, b):
+    """Integer a / b rounded half away from zero (MySQL decimal ``/``)."""
+    q = (np.abs(a) + np.abs(b) // 2) // np.abs(b)
+    return np.where((a < 0) != (b < 0), -q, q)
+
+
+def _civil(days):
+    """(year, month, day of month) of days since 1970-01-01."""
+    d = np.asarray(days).astype("datetime64[D]")
+    m = d.astype("datetime64[M]")
+    y = m.astype("datetime64[Y]")
+    return (y.astype(np.int64) + 1970,
+            (m - y.astype("datetime64[M]")).astype(np.int64) + 1,
+            (d - m.astype("datetime64[D]")).astype(np.int64) + 1)
+
+
+def _month_add(days, n: int):
+    """DATE_ADD(d, INTERVAL n MONTH): the day clamped to the month."""
+    d = np.asarray(days).astype("datetime64[D]")
+    m = d.astype("datetime64[M]")
+    dom = (d - m.astype("datetime64[D]")).astype(np.int64)
+    m2 = m + n
+    last = ((m2 + 1).astype("datetime64[D]")
+            - m2.astype("datetime64[D]")).astype(np.int64)
+    out = m2.astype("datetime64[D]") + np.minimum(dom, last - 1)
+    return out.astype(np.int64)
+
+
+def _last_day(days):
+    m = np.asarray(days).astype("datetime64[D]").astype("datetime64[M]")
+    return ((m + 1).astype("datetime64[D]") - 1).astype(np.int64)
+
+
+def _by(keys, cols: list) -> dict:
+    """{key tuple: [column values...]} of the rows of each key, keys in
+    ``keys`` (arrays of small-range ints, one a key column): one mixed
+    radix code a row, a bincount for the codes present, then a mask a
+    group (no sort of the rows)."""
+    keys = [np.asarray(a, np.int64) for a in keys]
+    lows = [int(a.min()) for a in keys]
+    spans = [int(a.max()) - lo + 1 for a, lo in zip(keys, lows)]
+    code = np.zeros(len(keys[0]), np.int64)
+    for a, lo, sp in zip(keys, lows, spans):
+        code = code * sp + (a - lo)
+    out = {}
+    for k in np.flatnonzero(np.bincount(code)).tolist():
+        m = code == k
+        key, rest = [], k
+        for lo, sp in zip(reversed(lows), reversed(spans)):
+            key.append(rest % sp + lo)
+            rest //= sp
+        out[tuple(reversed(key))] = [np.asarray(c)[m] for c in cols]
+    return out
+
+
+def _fsum(x) -> tuple:
+    """A double SUM to hold within ``SELECT_FRTOL`` of its terms' sum of
+    magnitudes (each engine adds in its own order)."""
+    x = np.asarray(x, np.float64)
+    return ("f", float(x.sum()), float(np.abs(x).sum()))
+
+
+def lane_oracle(name: str, c: dict) -> list:
+    """The rows statement ``name`` of ``LANE_SQL`` returns, from numpy
+    over the generator's columns (DECIMALs as scaled ints, dates as
+    days; ("f", sum, sum of |terms|) a double to hold within
+    ``SELECT_FRTOL``)."""
+    q, p = c["l_quantity"].data, c["l_extendedprice"].data
+    d, t = c["l_discount"].data, c["l_tax"].data
+    ship = c["l_shipdate"].data
+    rf, ls = c["l_returnflag"], c["l_linestatus"]
+    text = lambda col, k: col.dictionary.values[k]         # noqa: E731
+    if name == "decimal /":
+        m = (t != 0) & (_rdiv(d * 10 ** 6, np.where(t == 0, 1, t)) > 10 ** 6)
+        g = _by([rf.data[m]], [_rdiv(p[m] * 10 ** 6, q[m])])
+        return [(text(rf, k), exact_sum(v), len(v)) for (k,), (v,) in
+                sorted(g.items())]
+    if name == "double /":
+        m = (t != 0) & ((d / 100.0) / np.where(t == 0, 1, t / 100.0) > 1)
+        g = _by([ls.data[m]], [(p[m] / 100.0) / (q[m] / 100.0)])
+        return [(text(ls, k), _fsum(v), len(v)) for (k,), (v,) in
+                sorted(g.items())]
+    if name == "DIV and %":
+        qi, pi = _rdiv(q, 100), _rdiv(p, 100)
+        m = qi % 5 == 0
+        g = _by([ls.data[m]], [qi[m] // 7, pi[m] % 1000])
+        return [(text(ls, k), exact_sum(a), exact_sum(b), len(a))
+                for (k,), (a, b) in sorted(g.items())]
+    if name == "CAST":
+        m = _rdiv(p, 100) > 50000
+        from tidb_tpu_torch.types.temporal import datetime_to_string
+        return [(int(m.sum()), _fsum(d[m] / 100.0), exact_sum(t[m] * 100),
+                 datetime_to_string(int(ship[m].min()) * MICROS_PER_DAY),
+                 int(_rdiv(p[m], 100).max()))]
+    if name == "DATE against DATETIME":
+        from tidb_tpu_torch.types.temporal import parse_datetime
+        us = ship.astype(np.int64) * MICROS_PER_DAY
+        m = (us < parse_datetime("1995-03-15 12:00:00")) \
+            & (us >= parse_datetime("1994-01-01 00:00:01"))
+        return [(int(m.sum()), exact_sum(q[m]))]
+    if name == "BIGINT UNSIGNED":
+        qi = _rdiv(q, 100)
+        m = qi < 25                 # qi - 25 wraps past 2^63 - 1
+        return [(int(m.sum()), exact_sum(qi[m] * 3))]
+    if name == "XOR":
+        return [(int(((d > 5) ^ (t < 4)).sum()),)]
+    if name == "ROUND and TRUNCATE":
+        r1 = _rdiv(p * (100 - d), 1000)
+        tq = _rdiv(p * 10 ** 4, 3)
+        t2 = np.sign(tq) * (np.abs(tq) // 10 ** 4)
+        x = (p / 100.0) / 7.0 * 100.0
+        r2 = np.where(x >= 0, np.floor(x + 0.5), np.ceil(x - 0.5)) / 100.0
+        g = _by([rf.data], [r1, t2, r2])
+        return [(text(rf, k), exact_sum(a), exact_sum(b),
+                 ("f", float(e.max()), float(np.abs(e).max())))
+                for (k,), (a, b, e) in sorted(g.items())]
+    if name == "math":
+        return [(len(q), _fsum(np.sqrt(q / 100.0)), _fsum(np.log(p / 100.0)),
+                 _fsum(np.power(d / 100.0, 2.0)), int(np.maximum(d, t).max()),
+                 exact_sum(np.sign(t - 4)))]
+    if name == "YEAR and QUARTER":
+        y, mo, _ = _civil(ship)
+        g = _by([y, (mo + 2) // 3], [q])
+        return [(yy, qq, len(v), exact_sum(v)) for (yy, qq), (v,) in
+                sorted(g.items())]
+    if name == "DAYOFWEEK and DATEDIFF":
+        from tidb_tpu_torch.types.temporal import parse_date
+        g = _by([(ship + 4) % 7 + 1], [parse_date("1998-12-01") - ship])
+        return [(k, len(v), exact_sum(v)) for (k,), (v,) in sorted(g.items())]
+    if name == "DATE_ADD MONTH and LAST_DAY":
+        m = _last_day(ship) == ship
+        return [(int(m.sum()), int(_month_add(ship[m], 3).min()),
+                 int(_last_day(ship[m]).max()))]
+    raise KeyError(name)
+
+
+def rollup_oracle(name: str, c: dict) -> list:
+    """The rows of ``ROLLUP_SQL``'s ``name``: the union of its levels'
+    GROUP BYs, the rolled keys NULL, sorted with NULLs last."""
+    q, p, d = (c["l_quantity"].data, c["l_extendedprice"].data,
+               c["l_discount"].data)
+    rf, ls = c["l_returnflag"], c["l_linestatus"]
+    out = []
+    if name == "Q1 rollup":
+        m = c["l_shipdate"].data <= 10471                   # 1998-09-02
+        vals = [q[m], p[m], p[m] * (100 - d[m])]
+        for keys in ([rf.data[m], ls.data[m]], [rf.data[m]], []):
+            g = _by(keys or [np.zeros(int(m.sum()), np.int64)], vals)
+            for k, (a, b, e) in g.items():
+                names = ([rf.dictionary.values[k[0]]] if keys else [None]) \
+                    + ([ls.dictionary.values[k[1]]] if len(keys) == 2
+                       else [None])
+                out.append(tuple(names) + (exact_sum(a), exact_sum(b),
+                                           exact_sum(e), len(a)))
+    else:
+        for keys in ([rf.data], []):
+            g = _by(keys or [np.zeros(len(q), np.int64)], [q])
+            for k, (a,) in g.items():
+                out.append((rf.dictionary.values[k[0]] if keys else None,
+                            0 if keys else 1, len(a), exact_sum(a)))
+    return sorted(out, key=_null_last)
+
+
+def _null_last(row):
+    return tuple((x is None, "" if x is None else str(x)) for x in row)
+
+
+def select_cells(rs) -> list:
+    """The result rows with each DECIMAL as its scaled int and each DATE
+    as its days since the epoch."""
+    import datetime as _d
+    from tidb_tpu_torch.types import dtypes as dt
+    out = []
+    for r in rs.rows:
+        row = []
+        for v, t in zip(r, rs.dtypes):
+            if v is not None and t.kind == dt.TypeKind.DECIMAL:
+                v = int(v.scaleb(t.scale))
+            elif isinstance(v, _d.date):
+                v = (v - _d.date(1970, 1, 1)).days
+            row.append(v)
+        out.append(tuple(row))
+    return out
+
+
+def select_rows_equal(got: list, want: list) -> bool:
+    """Cell by cell: ints, strings and NULLs equal; a double, given as
+    ("f", value, magnitude), within ``SELECT_FRTOL`` of its magnitude
+    (the card's torch divides a tensor by a scalar as a product with its
+    reciprocal, so the last bit may differ from numpy's quotient)."""
+    if len(got) != len(want):
+        return False
+    for g, w in zip(got, want):
+        if len(g) != len(w):
+            return False
+        for x, y in zip(g, w):
+            if isinstance(y, tuple):
+                if x is None or abs(x - y[1]) > SELECT_FRTOL * max(y[2],
+                                                                   1.0):
+                    return False
+            elif x != y:
+                return False
+    return True
+
+
+class statement_timings:
+    """The client's timings summed over every cop call of a statement:
+    each public call's timings fold in before the next call resets
+    them."""
+
+    CALLS = ("execute_agg", "execute_rows", "execute_shuffle_agg",
+             "execute_shuffle_rows")
+
+    def __init__(self, client):
+        self.client, self.acc = client, {}
+        for name in self.CALLS:
+            fn = getattr(client, name)
+
+            def wrapped(*a, _fn=fn, **k):
+                self.fold()
+                return _fn(*a, **k)
+            setattr(client, name, wrapped)
+
+    def fold(self) -> None:
+        for k, v in self.client.timings.items():
+            if isinstance(v, float):
+                self.acc[k] = self.acc.get(k, 0.0) + v
+        self.client.timings = {}
+
+    def run(self, sess, sql: str) -> tuple:
+        """``sess.execute(sql)``: its result, wall seconds and summed
+        client timings."""
+        self.client.timings, self.acc = {}, {}
+        gc.collect()
+        t0 = time.perf_counter()
+        rs = sess.execute(sql)
+        wall = time.perf_counter() - t0
+        self.fold()
+        return rs, wall, dict(self.acc)
+
+
+def select_line(tag: str, name: str, first: float, warm: float,
+                acc: dict, extra: str = "") -> None:
+    # a broadcast join's ``build`` holds its build side's own joins, so
+    # it is not summed over a statement's nested joins
+    split = " ".join(f"{k}_ms={v * 1e3:.3f}" for k, v in acc.items()
+                     if k != "build")
+    print(f"{tag} {name}: first_ms={first * 1e3:.3f} "
+          f"warm_ms={warm * 1e3:.3f} {split} {extra}".rstrip())
+
+
+def tpch_sqlite(data: dict):
+    """An in-memory sqlite3 database of ``gen_tpch``'s tables (dates as
+    ISO text, as tests/test_tpch_diff.py loads them), with indexes on the
+    join keys so that its correlated subqueries finish."""
+    import sqlite3
+    from tidb_tpu_torch.testing import tpch
+    lite = sqlite3.connect(":memory:")
+    lite.create_function("year", 1, lambda d: None if d is None
+                         else int(str(d)[:4]))
+    for tbl, (names, cols) in data.items():
+        lite.execute(f"create table {tbl} {tpch.TPCH_TABLE_DDL[tbl]}")
+        py = [c.to_python() for c in cols]
+        py = [[x.isoformat() for x in col] if col and hasattr(
+            col[0], "isoformat") else col for col in py]
+        lite.executemany(f"insert into {tbl} values "
+                         f"({','.join('?' * len(names))})", zip(*py))
+    for ix in ("lineitem(l_orderkey)", "lineitem(l_partkey, l_suppkey)",
+               "lineitem(l_suppkey)", "orders(o_orderkey)",
+               "orders(o_custkey)", "partsupp(ps_partkey, ps_suppkey)",
+               "customer(c_custkey)", "supplier(s_suppkey)",
+               "part(p_partkey)", "nation(n_nationkey)"):
+        tbl = ix.split("(")[0]
+        cols = ix[len(tbl) + 1:-1].replace(", ", "_")
+        lite.execute(f"create index ix_{tbl}_{cols} on {ix}")
+    lite.commit()
+    return lite
+
+
+def tpch_rows_equal(a: list, b: list) -> bool:
+    """tests/test_sqlite_diff.py's ``rows_equal``: a Decimal as a float,
+    floats within a relative (and absolute) 1e-9, the rest as text."""
+    import decimal
+    import math
+
+    def norm(v):
+        if isinstance(v, decimal.Decimal):
+            return float(v)
+        if isinstance(v, float):
+            return round(v, 6)
+        if hasattr(v, "isoformat"):
+            return v.isoformat()
+        return v
+    if len(a) != len(b):
+        return False
+    for ra, rb in zip(a, b):
+        if len(ra) != len(rb):
+            return False
+        for x, y in zip(map(norm, ra), map(norm, rb)):
+            if x is None or y is None:
+                if x is not y:
+                    return False
+            elif isinstance(x, float) or isinstance(y, float):
+                if not math.isclose(float(x), float(y), rel_tol=1e-9,
+                                    abs_tol=1e-9):
+                    return False
+            elif str(x) != str(y):
+                return False
+    return True
+
+
+def select_phase(torch, gr, os1, S, main_data, main_sf: float,
+                 tpch_sf: float = TPCH_SF) -> dict:
+    """Phase 12 through the port's ``Session`` on ``SELECT_DEVICE``: the
+    device lanes over lineitem at ``--main-sf`` (12a), rollup over it
+    (12b), and the 22 TPC-H statements and Q15's view over
+    ``gen_tpch(tpch_sf)`` against sqlite (12c).  Returns the phase's
+    launch counts."""
+    from tidb_tpu_torch.testing import tpch
+    counters = (gr.LAUNCHES, os1.LAUNCHES)
+    on_card = SELECT_DEVICE == "cuda"
+    c = dict(zip(*main_data))
+    n_rows = len(next(iter(c.values())))
+    sess = tpch.sql_session({"lineitem": main_data}, device=SELECT_DEVICE)
+    timer = statement_timings(sess.domain.client)
+    reset(counters + (S.PASSES,))           # counts of this path only
+    with plain_guard({"gr": gr, "os1": os1}) as guard:
+        # -- 12a: the lanes ------------------------------------------- #
+        for name, sql, lanes in LANE_SQL:
+            pushed = tpch.pushed_ops(sess, sql)
+            check(lanes <= pushed, f"12a {name}: lanes {lanes - pushed} "
+                  f"not in a cop task (pushed {sorted(pushed)})")
+            plan = [r[0] for r in sess.execute("explain " + sql).rows]
+            check(any("CopTask" in ln for ln in plan),
+                  f"12a {name}: no cop task in {plan}")
+            rs, first, acc = timer.run(sess, sql)
+            got, want = select_cells(rs), lane_oracle(name, c)
+            check(select_rows_equal(got, want),
+                  f"12a {name}: {got[:4]} != numpy {want[:4]}")
+            _rs, warm, acc = timer.run(sess, sql)
+            select_line("12a", name, first, warm, acc,
+                        f"rows={n_rows} out_rows={len(got)} "
+                        f"lanes={','.join(sorted(lanes))} "
+                        f"plan={plan[0].strip()}|{plan[-1].strip()} "
+                        "exact=True")
+        # -- 12b: rollup ------------------------------------------------ #
+        for name, sql, levels in ROLLUP_SQL:
+            check("CopTask[agg]" in "\n".join(
+                r[0] for r in sess.execute("explain " + sql).rows),
+                f"12b {name}: the rollup is not a cop task")
+            sess.execute(sql)                       # placed, warm
+            before = gr.LAUNCHES.get("group_reduce", 0)
+            if on_card:
+                torch.cuda.synchronize()
+                base = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+            rs, first, acc = timer.run(sess, sql)
+            peak = (torch.cuda.max_memory_allocated() - base) if on_card \
+                else 0
+            launched = gr.LAUNCHES.get("group_reduce", 0) - before
+            if GR:
+                check(launched == levels, f"12b {name}: {launched} "
+                      f"group_reduce launches for {levels} levels")
+            got = sorted(select_cells(rs), key=_null_last)
+            want = rollup_oracle(name, c)
+            check(got == want, f"12b {name}: {got} != numpy {want}")
+            _rs, warm, acc = timer.run(sess, sql)
+            cols = ["l_returnflag", "l_linestatus", "l_quantity",
+                    "l_extendedprice", "l_discount", "l_shipdate"]
+            row_bytes = sum(c[k].narrowed().dtype.itemsize + 1
+                            for k in cols) + 8
+            select_line("12b", name, first, warm, acc,
+                        f"rows={n_rows} levels={levels} "
+                        f"group_reduce_launches={launched} "
+                        f"peak_bytes={peak} "
+                        f"materialized_bytes={levels * n_rows * row_bytes} "
+                        f"out_rows={len(got)} exact=True")
+        check(sess.domain.client.join_fallbacks == 0,
+              "12a-12b: a join took its host plan")
+        del sess, timer
+        gc.collect()
+        # -- 12c: TPC-H ------------------------------------------------- #
+        t0 = time.perf_counter()
+        data = tpch.gen_tpch(tpch_sf, seed=0)
+        lite = tpch_sqlite(data)
+        sess = tpch.sql_session(data, device=SELECT_DEVICE)
+        timer = statement_timings(sess.domain.client)
+        print(f"12c data: sf={tpch_sf} " + " ".join(
+            f"{t}={len(cols[0])}" for t, (_n, cols) in data.items())
+            + f" gen_load_s={time.perf_counter() - t0:.2f}")
+        del data
+        stmts = [(f"Q{k}", v) for k, v in sorted(tpch.TPCH_22.items())]
+        stmts.insert(14, ("Q15", tpch.TPCH_Q15))
+        for name, sql in stmts:
+            if name == "Q15":
+                for e in (sess, lite):
+                    e.execute(tpch.TPCH_Q15_VIEW)
+            plan = [r[0].strip() for r in sess.execute("explain " + sql).rows]
+            fb0 = sess.domain.client.join_fallbacks
+            rs, first, acc = timer.run(sess, sql)
+            warm = first
+            for _ in range(SELECT_WARM):
+                _rs, warm, acc = timer.run(sess, sql)
+            want = lite.execute(sql).fetchall()
+            check(tpch_rows_equal(rs.rows, want),
+                  f"12c {name}: {rs.rows[:4]} != sqlite {want[:4]}")
+            dev_s = acc.get("device", 0.0)
+            fb = sess.domain.client.join_fallbacks - fb0
+            check(fb == 0 or (name in TPCH_FALLBACKS and tpch_sf == TPCH_SF),
+                  f"12c {name}: {fb} broadcast joins took their host plan")
+            select_line("12c", name, first, warm, acc,
+                        f"out_rows={len(rs.rows)} top={'|'.join(plan[:2])} "
+                        f"join_fallbacks={fb} "
+                        f"wall_set_by={'device' if dev_s > warm / 2 else 'host'}"
+                        " equal_sqlite=True")
+    check(guard.calls == 0, f"select path ran {guard.calls} plain-version "
+          "calls of its kernels on the card")
+    counts = {k: v for launches in counters for k, v in launches.items()}
+    for k in GR + OS:
+        check(counts[k] > 0, f"select path: {k} launched {counts[k]} times")
+    print(f"select launches: {counts} stable_argsort_passes="
+          f"{S.PASSES['stable_argsort']} plain_calls={guard.calls}")
+    return counts
+
+
 def build_phase(*modules) -> None:
     """The kernel libraries of ``modules`` from the checkout's sources,
     one nvcc each, started together."""
@@ -2628,6 +3167,9 @@ def main() -> int:
     ap.add_argument("--s4-sf", type=float, default=1.0,
                     help="TPC-H scale factor of the slice-4 statements "
                          "(SORT, SEGMENT, TopN, Limit, filtered rows)")
+    ap.add_argument("--tpch-sf", type=float, default=TPCH_SF,
+                    help="TPC-H scale factor of phase 12's 22 statements "
+                         "(all eight tables, against sqlite)")
     ap.add_argument("--perm-of", metavar="DIR",
                     help="only time scatter_permutation of the "
                          "tidb_tpu_torch package found in DIR (e.g. an "
@@ -2697,6 +3239,8 @@ def main() -> int:
     lap("10 joins")
     store_phase(torch, gr, os1, S)
     lap("11 store")
+    select_phase(torch, gr, os1, S, main_data, args.main_sf, args.tpch_sf)
+    lap("12 select surface")
 
     cu = "tidb_tpu_torch/copr/cuda/"
     sources = {"radix_hist": cu + "radix_kernel.cu",

@@ -45,7 +45,15 @@ STORE_MODULES = ["tidb_tpu_torch/store/kv.py",
                  "tidb_tpu_torch/ddl/owner.py"]
 
 
-@pytest.mark.parametrize("path", JOIN_MODULES + STORE_MODULES)
+# the SELECT surface's modules: partition pruning copied, the evaluator
+# and the rollup program grown
+SELECT_MODULES = ["tidb_tpu_torch/planner/partition_prune.py",
+                  "tidb_tpu_torch/expr/compile.py",
+                  "tidb_tpu_torch/copr/exec.py"]
+
+
+@pytest.mark.parametrize("path", JOIN_MODULES + STORE_MODULES
+                         + SELECT_MODULES)
 def test_join_modules_are_checked(path):
     assert path in SOURCES
 

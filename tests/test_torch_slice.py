@@ -483,35 +483,11 @@ def _unported_cases():
     i64, f64, u64 = dt.bigint(False), dt.double(False), dt.ubigint(False)
     count = (D.AggDesc(D.AggFunc.COUNT, None, i64),)
     scan = D.TableScan((0, 1, 2), (i64, f64, u64))
-    key = (ColumnRef(i64, 0),)
-
-    def agg(child=scan, group_by=key, aggs=count, strategy="SCATTER"):
-        return D.Aggregation(child, group_by, aggs,
-                             D.GroupStrategy[strategy], num_buckets=16,
-                             group_capacity=16)
-    def keyed(op):
-        return agg(child=D.Selection(scan, (b.compare(
-            "lt", b.arith(op, ColumnRef(i64, 0), b.lit(2)), b.lit(3)),)))
     return {
-        "two physical devices": agg(strategy="SCALAR", group_by=()),
-        "Expand under SORT": agg(child=D.Expand(scan, key, 2),
-                                 strategy="SORT"),
-        "Expand node": agg(child=D.Expand(scan, key, 2), group_by=(),
-                           strategy="SCALAR"),
-        "MOD": keyed("mod"),
-        "integer DIV": keyed("intdiv"),
-        "unsigned arithmetic": agg(child=D.Selection(scan, (b.compare(
-            "lt", b.arith("add", ColumnRef(u64, 2), b.lit(1)),
-            b.lit(3)),))),
-        "unsigned compare": agg(child=D.Selection(scan, (b.compare(
-            "lt", ColumnRef(u64, 2), b.lit(3)),))),
-        "division": agg(child=D.Selection(scan, (b.compare(
-            "lt", b.arith("div", ColumnRef(i64, 0), b.lit(2)),
-            b.lit(3)),)), group_by=(), strategy="SCALAR"),
-        "DATE against DATETIME compare": agg(child=D.Selection(scan, (
-            b.compare("lt", b.lit("2020-01-01", dt.date()),
-                      b.lit("2020-01-01 10:00:00", dt.datetime())),)),
-            group_by=(), strategy="SCALAR"),
+        # shards over several GPUs arrive with the multi-GPU slice
+        "two physical devices": D.Aggregation(
+            scan, (), count, D.GroupStrategy.SCALAR, num_buckets=16,
+            group_capacity=16),
     }
 
 
@@ -524,27 +500,42 @@ _UNPORTED_SQL = {
                                   where p_partkey = l_partkey
                                   and p_size < 25""",
                                "Queue 1 item 4: slice 8"),
-    "SQL rollup": ("""select l_returnflag, l_linestatus, sum(l_quantity)
-                      from lineitem group by l_returnflag, l_linestatus
-                      with rollup""", "Queue 1 item 3: slice 7, rollup"),
     "SQL window": ("""select l_orderkey, row_number() over (partition by
                       l_returnflag order by l_extendedprice desc) as rn
                       from lineitem limit 10""",
                    "Queue 1 item 4: slice 8"),
-    "SQL set operation": ("""select l_partkey from lineitem
-                             where l_quantity < 2
-                             union select p_partkey from part
-                             where p_size = 1""",
-                          "Queue 1 item 1, sub-step 6"),
     "SQL analyze table": ("analyze table lineitem",
                           "Queue 1 item 5: slice 9"),
     "SQL auto-analyze on": ("set tidb_enable_auto_analyze = 1",
                             "Queue 1 item 5: slice 9"),
-    "SQL create view": ("create view v as select p_partkey from part",
-                        "Queue 1 item 1, sub-step 2c"),
-    "SQL split table": ("split table part regions 4",
-                        "Queue 1 item 1, sub-step 2c"),
     "SQL show tables": ("show tables", "Queue 1 item 1, sub-step 2d"),
+    "SQL show databases": ("show databases",
+                           "Queue 1 item 1, sub-step 2d"),
+    "SQL prepare": ("prepare s1 from 'select count(*) from part'",
+                    "Queue 1 item 1, sub-step 5"),
+    "SQL execute": ("execute s1", "Queue 1 item 1, sub-step 5"),
+    "SQL optimizer hint": ("""select /*+ hash_join(lineitem, part) */
+                              count(*) from lineitem, part
+                              where p_partkey = l_partkey""",
+                           "Queue 1 item 1, sub-step 5"),
+    "SQL create binding": ("""create global binding for select count(*)
+                              from part using select count(*) from part""",
+                           "Queue 1 item 1, sub-step 5"),
+    "SQL cascades planner": ("""set tidb_enable_cascades_planner = 1;
+                                select count(*) from part""",
+                             "Queue 1 item 1, sub-step 7"),
+    "SQL explain analyze": ("explain analyze select count(*) from part",
+                            "Queue 1 item 8: slice 12"),
+    "SQL trace": ("trace select count(*) from part",
+                  "Queue 1 item 8: slice 12"),
+    "SQL create resource group": ("create resource group rg1 ru_per_sec = 100",
+                                  "Queue 1 item 8: slice 12"),
+    "SQL memtable": ("select count(*) from information_schema.tables",
+                     "Queue 1 item 9: slice 13"),
+    "SQL admin recommend index": ("admin recommend index",
+                                  "Queue 1 item 8: slice 12"),
+    "SQL plan replayer": ("plan replayer dump explain select * from part",
+                          "Queue 1 item 8: slice 12"),
 }
 
 
@@ -581,9 +572,7 @@ def test_unported_paths_raise(case):
         {"kind": "UINT64", "nullable": False,
          "data": np.arange(10, dtype=np.uint64)}])
     client = CopClient("cpu")
-    if case == "two physical devices":
-        # shards over several GPUs arrive with the multi-GPU slice
-        client.devices = (torch.device("cpu"), torch.device("meta"))
+    client.devices = (torch.device("cpu"), torch.device("meta"))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         client.execute_agg(_unported_cases()[case], snap,
                            [GroupKeyMeta(dt.bigint(False), 0)])

@@ -22,9 +22,11 @@ of ``copr/cuda/``; and above it the SELECT path from SQL text: the
 parser (``sql/``), the planner (``planner/``, with the join reorder),
 the executor (``executor/``: the device joins, the host join
 operators and the index readers), the catalog and a ``session.Session``
-whose plans are the JAX package's with auto-analyze off; and beneath the
-session the row store: the native MVCC engine (``native/kvstore.cpp``,
-built with g++ at first use by ``store/kv.py``), the row codec, the
+whose plans are the JAX package's with auto-analyze off (every device
+evaluator lane, rollup, views, sequences, partitioned tables, set
+operations and CTEs among them); and beneath the session the row
+store: the native MVCC engine (``native/kvstore.cpp``, built with g++
+at first use by ``store/kv.py``), the row codec, the
 catalog on KV, the write statements, transactions and the online DDL
 (``ddl/``).  What the port does not run yet raises
 ``NotImplementedError`` naming its ROADMAP.md item (below).
@@ -33,14 +35,9 @@ catalog on KV, the write statements, transactions and the online DDL
 # ROADMAP.md items of the paths the port does not run yet, named by the
 # NotImplementedError each raises
 HOST_BASE = "Queue 1 item 1, sub-step 1: the rest of the host base"
-SCHEMA_OBJECTS = ("Queue 1 item 1, sub-step 2c: views, sequences, "
-                  "SPLIT TABLE and partitioned tables")
 SHOW = "Queue 1 item 1, sub-step 2d: the SHOW statements"
-EVALUATOR = "Queue 1 item 1, sub-step 4: device evaluator breadth"
 PLAN_CACHE = "Queue 1 item 1, sub-step 5: the plan cache and bindings"
-HOST_OPS = "Queue 1 item 1, sub-step 6: the host operators of later slices"
 PLANNER = "Queue 1 item 1, sub-step 7: the cascades planner"
-ROLLUP = "Queue 1 item 3: slice 7, rollup"
 EXCHANGE = "Queue 1 item 4: slice 8, multiple GPUs, windows and exchanges"
 STATS = "Queue 1 item 5: slice 9, ANALYZE and statistics"
 ANALYSIS = "Queue 1 item 7: slice 11, the analysis gates"

@@ -1,4 +1,4 @@
-# ported from tidb_tpu/copr/exec.py @ a9e9482
+# ported from tidb_tpu/copr/exec.py @ 70ba47f
 """Coprocessor execution on torch: DAG nodes over one device's batch.
 
 The JAX package traces a DAG into one fused XLA program; the port runs
@@ -7,8 +7,9 @@ batch.  Static shapes carry over: a shard is a fixed-capacity batch of
 columns and live rows ride a selection mask ``sel`` instead of being
 compacted.
 
-Ported so far: the TableScan, Selection, Projection, Limit and TopN
-nodes, the LookupJoin node (a broadcast join against build sides passed
+It runs every node of the JAX package's: the TableScan, Selection,
+Projection, Expand (WITH ROLLUP), Limit and TopN nodes, the LookupJoin
+node (a broadcast join against build sides passed
 in as ``aux`` groups, copr/join.py), the device-side compaction of a
 row-returning program (``compact``), and the partial states of the
 SCALAR, DENSE, SORT, SEGMENT and SCATTER aggregations.  Every state
@@ -170,7 +171,10 @@ def reduce_states(plan: dict, gids, num_groups: int) -> dict:
     for k, v in plan.items():
         flat += [(k, None, v)] if isinstance(v, Lane) \
             else [(k, f, ln) for f, ln in v.items()]
-    tables = _reduce_lanes(gids, num_groups, [ln for *_, ln in flat])
+    lanes, flipped = _signed_lanes([ln for *_, ln in flat])
+    tables = _reduce_lanes(gids, num_groups, lanes)
+    for j in flipped:
+        tables[j] = (tables[j] ^ _I64_MIN).view(torch.uint64)
     states: dict[str, Any] = {}
     for (k, f, _), t in zip(flat, tables):
         t = t.reshape(()) if gids is None else t
@@ -179,6 +183,43 @@ def reduce_states(plan: dict, gids, num_groups: int) -> dict:
         else:
             states.setdefault(k, {})[f] = t
     return states
+
+
+_I64_MIN = -2 ** 63
+
+
+def minmax(t: torch.Tensor, how: str, dim: int = 0) -> torch.Tensor:
+    """``amin``/``amax`` along ``dim``, a uint64 tensor in unsigned order
+    (torch has no uint64 min or max): through its bits with the sign bit
+    flipped, and back."""
+    if t.dtype != torch.uint64:
+        return t.amin(dim) if how == "min" else t.amax(dim)
+    k = as_int64_bits(t) ^ _I64_MIN
+    k = k.amin(dim) if how == "min" else k.amax(dim)
+    return (k ^ _I64_MIN).view(torch.uint64)
+
+
+def _signed_lanes(lanes: list) -> tuple[list, list]:
+    """The lanes with every BIGINT UNSIGNED source as int64, which
+    ``group_reduce`` reduces: a sum reads the bits (the JAX package sums
+    ``astype(int64)``), a MIN or MAX the bits with the sign bit flipped,
+    whose signed order is the unsigned one; the indexes of those lanes
+    come back too, their tables to flip back.  One tensor a source, so
+    the lanes of one column still share it."""
+    out, flipped, cache = [], [], {}
+    for j, ln in enumerate(lanes):
+        if ln.src is None or ln.src.dtype != torch.uint64:
+            out.append(ln)
+            continue
+        flip = ln.kind in ("min", "max")
+        key = (id(ln.src), flip)
+        if key not in cache:
+            bits = as_int64_bits(ln.src)
+            cache[key] = bits ^ _I64_MIN if flip else bits
+        out.append(Lane(ln.kind, cache[key], ln.mask))
+        if flip:
+            flipped.append(j)
+    return out, flipped
 
 
 _COMBINE = {"count": torch.add, "sum": torch.add, "sum_hi32": torch.add,
@@ -215,9 +256,68 @@ def _reduce_lanes(gids, num_groups: int, lanes: list) -> list:
 def agg_states(agg: D.Aggregation, scan_cols, row_count, ev: Evaluator,
                aux=()) -> tuple:
     """Execute agg.child and build its partial states.  Returns
-    ``(states, child batch)``: the batch's extras reach the client."""
-    batch = _exec_node(agg.child, scan_cols, row_count, ev, aux)
+    ``(states, child batch)``: the batch's extras reach the client.
+
+    A DENSE aggregation over an Expand (WITH ROLLUP) aggregates level by
+    level over the un-expanded batch: each grouping-set level builds its
+    key and gid columns over the same n-row batch, reduces them in one
+    ``group_reduce_lanes`` call, and the levels' tables merge with the
+    shard-merge combiners (``_MERGE``), so the peak memory is one level,
+    not the ``levels x n`` replication.  The JAX package takes this
+    branch on the TPU only (its CPU fuses the replication into one pass);
+    the port takes it on the card and on the CPU alike, the same program
+    wherever it runs.  SORT, SEGMENT and SCATTER read the materialized
+    Expand node, as in the JAX package."""
+    ch = agg.child
+    if isinstance(ch, D.Expand) and agg.strategy == D.GroupStrategy.DENSE:
+        base = _exec_node(ch.child, scan_cols, row_count, ev, aux)
+        return _expand_level_states(agg, ch, base, ev), base
+    batch = _exec_node(ch, scan_cols, row_count, ev, aux)
     return _agg_partial_states(agg, batch, ev, {}), batch
+
+
+def _expand_level_states(agg: D.Aggregation, exp: D.Expand,
+                         base: DeviceBatch, ev: Evaluator) -> dict:
+    """The DENSE states of ``agg`` over ``exp``'s levels, one level at a
+    time: level ``l`` keeps the first ``len(keys) - l`` rollup keys, the
+    others NULL on every row, and appends the level as the gid column."""
+    from .aggregate import _MERGE
+    n = len(base.cols[0][0]) if base.cols else 0
+    L = len(exp.keys)
+    memo: dict = {}
+    child_cols = [(_ensure_array(v, n, ev.device), m) for v, m in base.cols]
+    keyvals = []
+    for k in exp.keys:
+        v, m = ev.eval(k, base.cols, memo)
+        keyvals.append((_ensure_array(v, n, ev.device), m))
+    rolled = torch.zeros(n, dtype=torch.bool, device=ev.device)
+
+    def combine(name, a, b):
+        how = _MERGE[name]
+        if how == "sum":
+            return a + b
+        return minmax(torch.stack([a, b]), how)
+
+    merged: dict = {}
+    for lvl in range(exp.levels):
+        cols = list(child_cols)
+        for j, (v, m) in enumerate(keyvals):
+            # key j is live on the levels below L - j, NULL above
+            cols.append((v, m) if lvl + j < L else (v, rolled))
+        cols.append((torch.full((n,), lvl, dtype=torch.int64,
+                                device=ev.device), True))
+        st = _agg_partial_states(
+            agg, DeviceBatch(cols, base.sel, base.extras), ev, {})
+        if not merged:
+            merged = st
+            continue
+        for k, v in st.items():
+            if isinstance(v, dict):
+                merged[k] = {f: combine(f, merged[k][f], a)
+                             for f, a in v.items()}
+            else:
+                merged[k] = combine(k, merged[k], v)
+    return merged
 
 
 def _agg_partial_states(agg: D.Aggregation, batch: DeviceBatch,
@@ -337,6 +437,11 @@ def _agg_sort_states(agg: D.Aggregation, batch: DeviceBatch, ev: Evaluator,
 # --------------------------------------------------------------------- #
 # Row output: device-side compaction (the paging analog)
 # --------------------------------------------------------------------- #
+
+def _tile(v: torch.Tensor, reps: int) -> torch.Tensor:
+    """``jnp.tile`` of a 1-d column, a uint64 one through its bits."""
+    return as_int64_bits(v).repeat(reps).view(v.dtype)
+
 
 def _gather(v: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """``v[idx]``, a uint64 column through its int64 bits."""
@@ -468,6 +573,32 @@ def _exec_node(node: D.CopNode, scan_cols: Sequence, row_count,
             cols.append((_ensure_array(v, n, ev.device), m))
         return DeviceBatch(cols, batch.sel, batch.extras)
 
+    if isinstance(node, D.Expand):
+        # grouping-set replication: every column tiled ``levels`` times,
+        # then one column a rollup key (NULL on the levels that roll it
+        # up) and the level as the gid column
+        batch = _exec_node(node.child, scan_cols, row_count, ev, aux)
+        n = len(batch.cols[0][0]) if batch.cols else 0
+        L, LV = len(node.keys), node.levels
+        memo = {}
+        sel = _sel_array(batch.sel, n, ev.device)
+        out_cols = []
+        for v, m in batch.cols:
+            v = _ensure_array(v, n, ev.device)
+            out_cols.append((_tile(v, LV), True if m is True
+                             else _tile(_sel_array(m, n, ev.device), LV)))
+        lvl = torch.arange(LV, dtype=torch.int64,
+                           device=ev.device).repeat_interleave(n)
+        for j, k in enumerate(node.keys):
+            v, m = ev.eval(k, batch.cols, memo)
+            v = _tile(_ensure_array(v, n, ev.device), LV)
+            keep = (lvl + j) < L       # key j live on levels l < L - j
+            mj = keep if m is True \
+                else (_tile(_sel_array(m, n, ev.device), LV) & keep)
+            out_cols.append((v, mj))
+        out_cols.append((lvl, True))
+        return DeviceBatch(out_cols, _tile(sel, LV), batch.extras)
+
     if isinstance(node, D.Limit):
         batch = _exec_node(node.child, scan_cols, row_count, ev, aux)
         n = len(batch.cols[0][0])
@@ -484,7 +615,7 @@ def _exec_node(node: D.CopNode, scan_cols: Sequence, row_count,
         batch = _exec_node(node.child, scan_cols, row_count, ev, aux)
         return _exec_lookup_join(node, batch, ev, aux)
 
-    raise _unported(f"the {type(node).__name__} node")
+    raise TypeError(node)
 
 
 def _exec_lookup_join(node: D.LookupJoin, batch: DeviceBatch, ev: Evaluator,

@@ -25,7 +25,7 @@ from ..planner.logical import (DataSource, LogicalAggregate, LogicalCTEScan,
                                LogicalSetOp, LogicalSort, LogicalTopN,
                                LogicalWindow)
 from ..types import dtypes as dt
-from .. import ANALYSIS, SCHEMA_OBJECTS, unported
+from .. import ANALYSIS, unported
 from ..planner.ranger import LogicalIndexScan
 from .physical import (CopTaskExec, CTEScanExec, DualExec, HostAgg,
                        HostHashJoin, HostLimit, HostProjection, HostSelection,
@@ -320,7 +320,8 @@ def _try_cop(p: LogicalPlan, no_device_join: bool = False) -> Optional[PhysOp]:
                 if not isinstance(m, LogicalSelection):
                     break
                 conds.extend(m.conditions)
-            raise unported("partitioned tables", SCHEMA_OBJECTS)
+            from ..planner.partition_prune import prune_partitions
+            pruned = prune_partitions(spec, scan_ix, conds)
 
     # stale reads bind against the HISTORICAL snapshot: its string
     # dictionaries (and data) differ from the current epoch's

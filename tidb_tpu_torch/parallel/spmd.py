@@ -52,7 +52,7 @@ def _collective_merge(per_dev: Sequence[dict]) -> dict:
         how = _MERGE[name]
         if how == "sum":
             return g.sum(0, dtype=g.dtype)
-        return g.amin(0) if how == "min" else g.amax(0)
+        return _exec.minmax(g, how)
 
     out: dict = {}
     for k, v in per_dev[0].items():

@@ -16,13 +16,16 @@ with ``ORDER BY``/``LIMIT`` and the foreign-key actions); transactions
 savepoint a statement); and the DDL (``CREATE``/``DROP``
 ``TABLE``/``DATABASE``, ``TRUNCATE``, ``ALTER TABLE``, online ``CREATE
 INDEX``/``DROP INDEX`` through the DDL owner) with ``ADMIN CHECK
-TABLE``.  Its ``_plan_select`` is the JAX package's without the plan
-cache, plan bindings, cascades, the inline auto-analyze and the analysis
-gates, and with its greedy join reorder run without statistics; so its
+TABLE``; views, sequences (``NEXTVAL``/``LASTVAL``/``SETVAL`` through
+the host evaluator), ``SPLIT TABLE`` and partitioned tables (pruned at
+plan time, planner/partition_prune.py); and in a SELECT, ``WITH
+ROLLUP``, ``UNION``/``INTERSECT``/``EXCEPT`` and CTEs.  Its
+``_plan_select`` is the JAX package's without the plan cache, plan
+bindings, cascades, the inline auto-analyze and the analysis gates, and with its greedy join reorder run without statistics; so its
 plans are the JAX package's plans with ``tidb_enable_auto_analyze = 0``.
-A physical plan that holds an operator of a later slice (rollup, a
-window, a set operation or a memtable) raises ``NotImplementedError``
-naming its ROADMAP.md item, as does every other statement kind.
+A physical plan that holds an operator of a later slice (a window or a
+memtable) raises ``NotImplementedError`` naming its ROADMAP.md item, as
+does every other statement kind.
 """
 
 from __future__ import annotations
@@ -34,15 +37,14 @@ from typing import Any, Optional
 
 import numpy as np
 
-from .. import (CONTROL, EXCHANGE, HOST_OPS, HOST_SURFACE, PLAN_CACHE,
-                PLANNER, ROLLUP, SCHEMA_OBJECTS, SHOW, STATS, unported)
-from ..copr import dag as D
+from .. import (CONTROL, EXCHANGE, HOST_SURFACE, PLAN_CACHE, PLANNER,
+                SHOW, STATS, unported)
 from ..copr.coordinator import KILL_EVENT, QUERY_HANDLE, Coordinator
 from ..executor import physical as P
 from ..executor.plan import to_physical
 from ..planner.join_reorder import reorder_joins
-from ..planner.build import (PLAN_TAINTS, SESSION_INFO, SUBQUERY_EXECUTOR,
-                             PlanError, build_query)
+from ..planner.build import (PLAN_TAINTS, SEQUENCE_RESOLVER, SESSION_INFO,
+                             SUBQUERY_EXECUTOR, PlanError, build_query)
 from ..planner.optimize import optimize_plan
 from ..planner.ranger import apply_index_paths
 from ..sql import ast as A
@@ -161,9 +163,6 @@ class Domain:
 
 # statement kinds of later slices, by the ROADMAP.md item that ports them
 _UNPORTED_STMTS = {
-    "CreateView": SCHEMA_OBJECTS, "DropView": SCHEMA_OBJECTS,
-    "CreateSequence": SCHEMA_OBJECTS, "DropSequence": SCHEMA_OBJECTS,
-    "SplitTable": SCHEMA_OBJECTS,
     "ShowStmt": SHOW,
     "AnalyzeTable": STATS,
     "PrepareStmt": PLAN_CACHE, "ExecutePrepared": PLAN_CACHE,
@@ -177,30 +176,21 @@ _UNPORTED_STMTS = {
 # physical operators of later slices, by the ROADMAP.md item that ports
 # them; every other operator of executor/physical.py runs
 _UNPORTED_OPS = {
-    "HostExpandExec": ROLLUP,
     "CopWindowExec": EXCHANGE, "HostWindow": EXCHANGE,
-    "HostSetOp": HOST_OPS, "CTEScanExec": HOST_OPS,
-    "HostTableScanExec": HOST_OPS,
     "MemTableExec": HOST_SURFACE,
 }
 
 
 def check_ported(phys: P.PhysOp) -> None:
     """Raise ``NotImplementedError`` naming its ROADMAP.md item for the
-    first operator of ``phys`` that the port does not run yet: one of
-    ``_UNPORTED_OPS``, or a cop task whose DAG holds a rollup node."""
+    first operator of ``phys`` that the port does not run yet (one of
+    ``_UNPORTED_OPS``)."""
     stack = [phys]
     while stack:
         op = stack.pop()
         name = type(op).__name__
         if name in _UNPORTED_OPS:
             raise unported(f"the {name} operator", _UNPORTED_OPS[name])
-        if isinstance(op, P.CopTaskExec):
-            node = op.dag
-            while node is not None:
-                if isinstance(node, D.Expand):
-                    raise unported("the rollup Expand node", ROLLUP)
-                node = getattr(node, "child", None)
         stack.extend(getattr(op, "children", ()) or ())
 
 
@@ -273,11 +263,14 @@ class Session:
                 "getvar": _getvar,
                 "getuservar":
                     lambda name, _s="": self.user_vars.get(name)})
+            qtok = SEQUENCE_RESOLVER.set(
+                lambda nm: self.domain.catalog.get_sequence(self.db, nm))
             ttok = TEMP_TABLES.set(self.temp_tables)
             try:
                 out = self._exec_stmt(stmt)
             finally:
                 TEMP_TABLES.reset(ttok)
+                SEQUENCE_RESOLVER.reset(qtok)
                 SESSION_INFO.reset(stok)
                 QUERY_HANDLE.reset(htok)
                 KILL_EVENT.reset(ktok)
@@ -321,6 +314,35 @@ class Session:
             return self._exec_create_table(stmt)
         if isinstance(stmt, A.DropTable):
             return self._exec_drop_table(stmt)
+        if isinstance(stmt, A.SplitTable):
+            tbl = self.domain.catalog.get_table(
+                getattr(stmt, 'db', None) or self.db, stmt.table)
+            tbl.split_regions(stmt.regions)
+            return ResultSet(affected=stmt.regions)
+        if isinstance(stmt, A.CreateSequence):
+            from .catalog import SequenceInfo
+            seq = SequenceInfo(stmt.name, self.db, start=stmt.start,
+                               increment=stmt.increment,
+                               min_value=stmt.min_value,
+                               max_value=stmt.max_value, cache=stmt.cache,
+                               cycle=stmt.cycle, kv=self.domain.kv)
+            self.domain.catalog.create_sequence(self.db, seq,
+                                                stmt.if_not_exists)
+            return ResultSet()
+        if isinstance(stmt, A.DropSequence):
+            self.domain.catalog.drop_sequence(self.db, stmt.name,
+                                              stmt.if_exists)
+            return ResultSet()
+        if isinstance(stmt, A.CreateView):
+            from .catalog import ViewInfo
+            self.domain.catalog.create_view(
+                self.db, ViewInfo(stmt.name, list(stmt.columns),
+                                  stmt.select_sql), stmt.or_replace)
+            return ResultSet()
+        if isinstance(stmt, A.DropView):
+            for n in stmt.names:
+                self.domain.catalog.drop_view(self.db, n, stmt.if_exists)
+            return ResultSet()
         if isinstance(stmt, A.CreateDatabase):
             self.domain.catalog.create_database(stmt.name, stmt.if_not_exists)
             return ResultSet()
@@ -683,10 +705,15 @@ class Session:
             tbl.ttl_interval_sec = stmt.ttl.interval_sec
             tbl.ttl_enable = stmt.ttl.enable
         if stmt.partition is not None:
-            # the JAX package checks the partition column and keeps the
-            # spec; partition pruning and the partitioned write path are
-            # ported with views and sequences
-            raise unported("partitioned tables", SCHEMA_OBJECTS)
+            pc = stmt.partition.column
+            if pc not in names:
+                raise CatalogError(f"unknown partition column {pc!r}")
+            t = types[names.index(pc)]
+            if t.kind not in (dt.TypeKind.INT64, dt.TypeKind.UINT64,
+                              dt.TypeKind.DATE, dt.TypeKind.DATETIME):
+                raise CatalogError(
+                    "partition column must be integer or date typed")
+            tbl.partition = stmt.partition
         if stmt.foreign_keys:
             # integer keys only: FK comparison runs over raw int64 column
             # data; date/string values are not canonical at check time

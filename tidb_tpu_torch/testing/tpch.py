@@ -509,6 +509,525 @@ JOIN_QUERIES = {
 }
 
 
+# ------------------------------------------------------------------ #
+# the eight TPC-H tables at the specification's widths
+# ------------------------------------------------------------------ #
+
+NATIONS = [
+    ("ALGERIA", 0), ("ARGENTINA", 1), ("BRAZIL", 1), ("CANADA", 1),
+    ("EGYPT", 4), ("ETHIOPIA", 0), ("FRANCE", 3), ("GERMANY", 3),
+    ("INDIA", 2), ("INDONESIA", 2), ("IRAN", 4), ("IRAQ", 4),
+    ("JAPAN", 2), ("JORDAN", 4), ("KENYA", 0), ("MOROCCO", 0),
+    ("MOZAMBIQUE", 0), ("PERU", 1), ("CHINA", 2), ("ROMANIA", 3),
+    ("SAUDI ARABIA", 4), ("VIETNAM", 2), ("RUSSIA", 3),
+    ("UNITED KINGDOM", 3), ("UNITED STATES", 1),
+]
+REGIONS = ["AFRICA", "AMERICA", "ASIA", "EUROPE", "MIDDLE EAST"]
+SEGMENTS = ["AUTOMOBILE", "BUILDING", "FURNITURE", "MACHINERY", "HOUSEHOLD"]
+TYPES = [f"{a} {b} {c}" for a in ["STANDARD", "SMALL", "MEDIUM", "LARGE",
+                                  "ECONOMY", "PROMO"]
+         for b in ["ANODIZED", "BURNISHED", "PLATED", "POLISHED", "BRUSHED"]
+         for c in ["TIN", "NICKEL", "BRASS", "STEEL", "COPPER"]]
+# the specification's 92 P_NAME colour words (TPC-H 4.2.3)
+COLORS = [
+    "almond", "antique", "aquamarine", "azure", "beige", "bisque", "black",
+    "blanched", "blue", "blush", "brown", "burlywood", "burnished",
+    "chartreuse", "chiffon", "chocolate", "coral", "cornflower", "cornsilk",
+    "cream", "cyan", "dark", "deep", "dim", "dodger", "drab", "firebrick",
+    "floral", "forest", "frosted", "gainsboro", "ghost", "goldenrod",
+    "green", "grey", "honeydew", "hot", "indian", "ivory", "khaki", "lace",
+    "lavender", "lawn", "lemon", "light", "lime", "linen", "magenta",
+    "maroon", "medium", "metallic", "midnight", "mint", "misty", "moccasin",
+    "navajo", "navy", "olive", "orange", "orchid", "pale", "papaya",
+    "peach", "peru", "pink", "plum", "powder", "puff", "purple", "red",
+    "rose", "rosy", "royal", "saddle", "salmon", "sandy", "seashell",
+    "sienna", "sky", "slate", "smoke", "snow", "spring", "steel", "tan",
+    "thistle", "tomato", "turquoise", "violet", "wheat", "white", "yellow",
+]
+_ENDDATE = _days("1998-12-31")
+
+# the tables' DDL as tests/test_tpch_diff.py writes it (DOUBLE money and
+# quantities, DATE dates, VARCHAR text)
+TPCH_TABLE_DDL = {
+    "region": "(r_regionkey bigint, r_name varchar(25), r_comment varchar(120))",
+    "nation": "(n_nationkey bigint, n_name varchar(25), n_regionkey bigint,"
+              " n_comment varchar(120))",
+    "supplier": "(s_suppkey bigint, s_name varchar(25), s_address varchar(40),"
+                " s_nationkey bigint, s_phone varchar(15),"
+                " s_acctbal double, s_comment varchar(101))",
+    "customer": "(c_custkey bigint, c_name varchar(25), c_address varchar(40),"
+                " c_nationkey bigint, c_phone varchar(15), c_acctbal double,"
+                " c_mktsegment varchar(10), c_comment varchar(117))",
+    "part": "(p_partkey bigint, p_name varchar(55), p_mfgr varchar(25),"
+            " p_brand varchar(10), p_type varchar(25), p_size bigint,"
+            " p_container varchar(10), p_retailprice double,"
+            " p_comment varchar(23))",
+    "partsupp": "(ps_partkey bigint, ps_suppkey bigint, ps_availqty bigint,"
+                " ps_supplycost double, ps_comment varchar(199))",
+    "orders": TPCH_DDL["orders"],
+    "lineitem": TPCH_DDL["lineitem"],
+}
+
+
+def _str_col(values) -> Column:
+    """A varchar column of the strings ``values`` (one a row)."""
+    uniq, codes = np.unique(np.asarray(values, dtype=str),
+                            return_inverse=True)
+    n = len(codes)
+    return Column(dt.varchar(False), codes.astype(np.int32).reshape(n),
+                  np.ones(n, bool), StringDict(uniq.tolist()))
+
+
+def _int_col(a) -> Column:
+    return Column.from_numpy(dt.bigint(False), np.asarray(a, np.int64))
+
+
+def _dbl_col(a) -> Column:
+    return Column.from_numpy(dt.double(False), np.asarray(a, np.float64))
+
+
+def _money(rng, lo: float, hi: float, n: int) -> np.ndarray:
+    """Uniform cents in [lo, hi], as DOUBLE with two decimals."""
+    return rng.integers(int(round(lo * 100)), int(round(hi * 100)) + 1,
+                        n) / 100.0
+
+
+def _phones(rng, nation: np.ndarray) -> list:
+    """'CC-LLL-LLL-LLLL', the country code 10 + the nation key."""
+    a = rng.integers(100, 1000, (len(nation), 3))
+    b = rng.integers(1000, 10000, len(nation))
+    return [f"{cc}-{x}-{y}-{z}" for cc, x, y, z in zip(
+        (nation + 10).tolist(), a[:, 0].tolist(), a[:, 1].tolist(),
+        b.tolist())]
+
+
+def _comments(rng, n: int, max_len: int, marks=(), p: float = 0.0
+              ) -> Column:
+    """``n`` comments from a pool of the spec's words; a share ``p`` of
+    rows gets ``marks`` (e.g. 'Customer ... Complaints') inside."""
+    col = _text_column(rng, n, min(1000, max(n, 16)), max_len)
+    if not marks or p <= 0:
+        return col
+    text = np.asarray(col.dictionary.values, dtype=object)[col.data]
+    hit = np.flatnonzero(rng.random(n) < p)
+    filler = " ".join(_WORDS[:2])
+    for i in hit.tolist():
+        text[i] = f"{marks[0]} {filler} {marks[1]}"[:max_len]
+    return _str_col(text)
+
+
+def _ps_supp(partkey: np.ndarray, i, n_supp: int) -> np.ndarray:
+    """The ``i``-th of a part's four suppliers: the specification's
+    PS_SUPPKEY formula (TPC-H 4.2.3), its per-part stride wrapped under
+    ``n_supp / 3`` so that a part's four suppliers stay distinct below
+    SF=0.01 too (the same stride as the formula's from there up)."""
+    wrap = (n_supp - 1) // 3 - n_supp // 4 + 1
+    stride = n_supp // 4 + ((partkey - 1) // n_supp) % wrap
+    return (partkey + i * stride) % n_supp + 1
+
+
+def gen_tpch(sf: float = 1.0, seed: int = 0) -> dict:
+    """The eight TPC-H tables at ``sf`` with every column of
+    ``TPCH_TABLE_DDL``, as ``{table: (names, columns)}`` (numpy,
+    vectorized; SF=1 is 6,000,000-odd lineitem rows).
+
+    The key relations follow the specification, so its joins match:
+    four suppliers a part in partsupp, a lineitem's supplier one of its
+    part's four, ``l_orderkey`` from orders' sparse keys (1 to 7 lines an
+    order), ship and commit dates after ``o_orderdate``, customers whose
+    key is a multiple of 3 with no orders, ``o_orderstatus`` and
+    ``o_totalprice`` from the order's lines, and ``p_name`` five of the
+    spec's colour words (so ``like '%green%'`` selects).  The other text
+    columns draw from word pools."""
+    def crng(tag):
+        return np.random.default_rng([seed, 200 + tag])
+    n_supp = max(int(10_000 * sf), 4)
+    n_cust = max(int(150_000 * sf), 3)
+    n_part = max(int(200_000 * sf), 1)
+    n_ord = max(int(1_500_000 * sf), 1)
+    out = {}
+
+    rng = crng(1)
+    out["region"] = (["r_regionkey", "r_name", "r_comment"], [
+        _int_col(np.arange(5)), _str_col(REGIONS), _comments(rng, 5, 120)])
+    out["nation"] = (["n_nationkey", "n_name", "n_regionkey", "n_comment"], [
+        _int_col(np.arange(25)), _str_col([n for n, _ in NATIONS]),
+        _int_col([r for _, r in NATIONS]), _comments(rng, 25, 120)])
+
+    rng = crng(2)
+    sk = np.arange(1, n_supp + 1)
+    snat = rng.integers(0, 25, n_supp)
+    out["supplier"] = (
+        ["s_suppkey", "s_name", "s_address", "s_nationkey", "s_phone",
+         "s_acctbal", "s_comment"],
+        [_int_col(sk), _str_col([f"Supplier#{k:09d}" for k in sk.tolist()]),
+         _comments(rng, n_supp, 40), _int_col(snat),
+         _str_col(_phones(rng, snat)), _dbl_col(_money(rng, -999.99,
+                                                       9999.99, n_supp)),
+         _comments(rng, n_supp, 101, ("Customer", "Complaints"), 0.005)])
+
+    rng = crng(3)
+    ck = np.arange(1, n_cust + 1)
+    cnat = rng.integers(0, 25, n_cust)
+    out["customer"] = (
+        ["c_custkey", "c_name", "c_address", "c_nationkey", "c_phone",
+         "c_acctbal", "c_mktsegment", "c_comment"],
+        [_int_col(ck), _str_col([f"Customer#{k:09d}" for k in ck.tolist()]),
+         _comments(rng, n_cust, 40), _int_col(cnat),
+         _str_col(_phones(rng, cnat)),
+         _dbl_col(_money(rng, -999.99, 9999.99, n_cust)),
+         _str_col(np.asarray(SEGMENTS)[rng.integers(0, 5, n_cust)]),
+         _comments(rng, n_cust, 117)])
+
+    rng = crng(4)
+    pk = np.arange(1, n_part + 1)
+    words = np.asarray(COLORS)[rng.integers(0, len(COLORS), (n_part, 5))]
+    mfgr = rng.integers(1, 6, n_part)
+    retail = (90000 + (pk // 10) % 20001 + 100 * (pk % 1000)) / 100.0
+    out["part"] = (
+        ["p_partkey", "p_name", "p_mfgr", "p_brand", "p_type", "p_size",
+         "p_container", "p_retailprice", "p_comment"],
+        [_int_col(pk), _str_col([" ".join(w) for w in words.tolist()]),
+         _str_col([f"Manufacturer#{m}" for m in mfgr.tolist()]),
+         _str_col([f"Brand#{m}{b}" for m, b in zip(
+             mfgr.tolist(), rng.integers(1, 6, n_part).tolist())]),
+         _str_col(np.asarray(TYPES)[rng.integers(0, len(TYPES), n_part)]),
+         _int_col(rng.integers(1, 51, n_part)),
+         _str_col(np.asarray(CONTAINERS)[rng.integers(0, len(CONTAINERS),
+                                                      n_part)]),
+         _dbl_col(retail), _comments(rng, n_part, 23)])
+
+    rng = crng(5)
+    ps_part = np.repeat(pk, 4)
+    ps_supp = _ps_supp(ps_part, np.tile(np.arange(4), n_part), n_supp)
+    out["partsupp"] = (
+        ["ps_partkey", "ps_suppkey", "ps_availqty", "ps_supplycost",
+         "ps_comment"],
+        [_int_col(ps_part), _int_col(ps_supp),
+         _int_col(rng.integers(1, 10_000, 4 * n_part)),
+         _dbl_col(_money(rng, 1.0, 1000.0, 4 * n_part)),
+         _comments(rng, 4 * n_part, 199)])
+
+    rng = crng(6)
+    k = np.arange(n_ord, dtype=np.int64)
+    okey = (k // 8) * 32 + (k % 8) + 1
+    # a third of the customers (keys divisible by 3) place no order
+    j = rng.integers(0, n_cust - n_cust // 3, n_ord)
+    ocust = (j // 2) * 3 + j % 2 + 1
+    odate = _STARTDATE + rng.integers(0, _ENDDATE - 151 - _STARTDATE + 1,
+                                      n_ord)
+    lines = rng.integers(1, 8, n_ord)
+    n = int(lines.sum())
+    first = np.repeat(np.cumsum(lines) - lines, lines)
+    lok = np.repeat(okey, lines)
+    lod = np.repeat(odate, lines)
+    lnum = np.arange(n) - first + 1
+    lpart = rng.integers(1, n_part + 1, n)
+    lsupp = _ps_supp(lpart, rng.integers(0, 4, n), n_supp)
+    qty = rng.integers(1, 51, n).astype(np.float64)
+    price = np.round(qty * retail[lpart - 1], 2)
+    disc = rng.integers(0, 11, n) / 100.0
+    tax = rng.integers(0, 9, n) / 100.0
+    ship = lod + rng.integers(1, 122, n)
+    commit = lod + rng.integers(30, 91, n)
+    receipt = ship + rng.integers(1, 31, n)
+    returned = receipt <= _CURRENTDATE
+    rflag = np.where(returned, np.where(rng.random(n) < 0.5, "R", "A"), "N")
+    open_ = ship > _CURRENTDATE
+    # an order is F when all its lines are, O when none is, else P
+    n_open = np.add.reduceat(open_.astype(np.int64),
+                             np.cumsum(lines) - lines)
+    status = np.where(n_open == 0, "F", np.where(n_open == lines, "O", "P"))
+    total = np.round(np.add.reduceat(price * (1 + tax) * (1 - disc),
+                                     np.cumsum(lines) - lines), 2)
+    clerks = max(int(1000 * sf), 1)
+    out["orders"] = (list(ORDERS_NAMES), [
+        _int_col(okey), _int_col(ocust), _str_col(status), _dbl_col(total),
+        Column.from_numpy(dt.date(False), odate),
+        _str_col(np.asarray(PRIORITIES)[rng.integers(0, 5, n_ord)]),
+        _str_col([f"Clerk#{c:09d}" for c in rng.integers(
+            1, clerks + 1, n_ord).tolist()]),
+        _int_col(np.zeros(n_ord, np.int64)),
+        _comments(rng, n_ord, 79, ("special", "requests"), 0.01)])
+
+    out["lineitem"] = (
+        LINEITEM_NAMES + ["l_comment"],
+        [_int_col(lok), _int_col(lpart), _int_col(lsupp), _int_col(lnum),
+         _dbl_col(qty), _dbl_col(price), _dbl_col(disc), _dbl_col(tax),
+         _str_col(rflag), _str_col(np.where(open_, "O", "F")),
+         Column.from_numpy(dt.date(False), ship),
+         Column.from_numpy(dt.date(False), commit),
+         Column.from_numpy(dt.date(False), receipt),
+         _str_col(np.asarray(SHIPINSTRUCT)[rng.integers(0, 4, n)]),
+         _str_col(np.asarray(SHIPMODES)[rng.integers(0, 7, n)]),
+         _comments(rng, n, 44)])
+    return out
+
+
+# the 22 TPC-H statements and Q15's view as tests/test_tpch_diff.py
+# writes them (dates pre-folded into literals, some selectivities tuned to
+# small scales; every query's shape as the specification's)
+TPCH_22 = {
+ 1: """select l_returnflag, l_linestatus, sum(l_quantity) as sum_qty,
+        sum(l_extendedprice) as sum_base_price,
+        sum(l_extendedprice * (1 - l_discount)) as sum_disc_price,
+        sum(l_extendedprice * (1 - l_discount) * (1 + l_tax)) as sum_charge,
+        avg(l_quantity) as avg_qty, avg(l_extendedprice) as avg_price,
+        avg(l_discount) as avg_disc, count(*) as count_order
+      from lineitem where l_shipdate <= '1998-09-02'
+      group by l_returnflag, l_linestatus
+      order by l_returnflag, l_linestatus""",
+ 2: """select s_acctbal, s_name, n_name, p_partkey, p_mfgr, s_address,
+        s_phone, s_comment
+      from part, supplier, partsupp, nation, region
+      where p_partkey = ps_partkey and s_suppkey = ps_suppkey
+        and p_size < 30 and p_type like '%BRASS'
+        and s_nationkey = n_nationkey and n_regionkey = r_regionkey
+        and r_name = 'EUROPE'
+        and ps_supplycost = (select min(ps_supplycost)
+              from partsupp, supplier, nation, region
+              where p_partkey = ps_partkey and s_suppkey = ps_suppkey
+                and s_nationkey = n_nationkey
+                and n_regionkey = r_regionkey and r_name = 'EUROPE')
+      order by s_acctbal desc, n_name, s_name, p_partkey limit 100""",
+ 3: """select l_orderkey, sum(l_extendedprice * (1 - l_discount)) as revenue,
+        o_orderdate, o_shippriority
+      from customer, orders, lineitem
+      where c_mktsegment = 'BUILDING' and c_custkey = o_custkey
+        and l_orderkey = o_orderkey and o_orderdate < '1995-03-15'
+        and l_shipdate > '1995-03-15'
+      group by l_orderkey, o_orderdate, o_shippriority
+      order by revenue desc, o_orderdate, l_orderkey limit 10""",
+ 4: """select o_orderpriority, count(*) as order_count from orders
+      where o_orderdate >= '1993-07-01' and o_orderdate < '1993-10-01'
+        and exists (select * from lineitem
+                    where l_orderkey = o_orderkey
+                      and l_commitdate < l_receiptdate)
+      group by o_orderpriority order by o_orderpriority""",
+ 5: """select n_name, sum(l_extendedprice * (1 - l_discount)) as revenue
+      from customer, orders, lineitem, supplier, nation, region
+      where c_custkey = o_custkey and l_orderkey = o_orderkey
+        and l_suppkey = s_suppkey and c_nationkey = s_nationkey
+        and s_nationkey = n_nationkey and n_regionkey = r_regionkey
+        and r_name = 'ASIA' and o_orderdate >= '1994-01-01'
+        and o_orderdate < '1996-01-01'
+      group by n_name order by revenue desc, n_name""",
+ 6: """select sum(l_extendedprice * l_discount) as revenue from lineitem
+      where l_shipdate >= '1994-01-01' and l_shipdate < '1995-01-01'
+        and l_discount between 0.05 and 0.07 and l_quantity < 24""",
+ 7: """select supp_nation, cust_nation, l_year, sum(volume) as revenue
+      from (select n1.n_name as supp_nation, n2.n_name as cust_nation,
+                   year(l_shipdate) as l_year,
+                   l_extendedprice * (1 - l_discount) as volume
+            from supplier, lineitem, orders, customer, nation n1, nation n2
+            where s_suppkey = l_suppkey and o_orderkey = l_orderkey
+              and c_custkey = o_custkey and s_nationkey = n1.n_nationkey
+              and c_nationkey = n2.n_nationkey
+              and ((n1.n_name = 'FRANCE' and n2.n_name = 'GERMANY')
+                or (n1.n_name = 'GERMANY' and n2.n_name = 'FRANCE'))
+              and l_shipdate between '1995-01-01' and '1996-12-31')
+           as shipping
+      group by supp_nation, cust_nation, l_year
+      order by supp_nation, cust_nation, l_year""",
+ 8: """select o_year,
+        sum(case when nation = 'BRAZIL' then volume else 0 end)
+          / sum(volume) as mkt_share
+      from (select year(o_orderdate) as o_year,
+                   l_extendedprice * (1 - l_discount) as volume,
+                   n2.n_name as nation
+            from part, supplier, lineitem, orders, customer,
+                 nation n1, nation n2, region
+            where p_partkey = l_partkey and s_suppkey = l_suppkey
+              and l_orderkey = o_orderkey and o_custkey = c_custkey
+              and c_nationkey = n1.n_nationkey
+              and n1.n_regionkey = r_regionkey and r_name = 'AMERICA'
+              and s_nationkey = n2.n_nationkey
+              and o_orderdate between '1995-01-01' and '1996-12-31'
+              and p_size < 40) as all_nations
+      group by o_year order by o_year""",
+ 9: """select nation, o_year, sum(amount) as sum_profit
+      from (select n_name as nation, year(o_orderdate) as o_year,
+                   l_extendedprice * (1 - l_discount)
+                     - ps_supplycost * l_quantity as amount
+            from part, supplier, lineitem, partsupp, orders, nation
+            where s_suppkey = l_suppkey and ps_suppkey = l_suppkey
+              and ps_partkey = l_partkey and p_partkey = l_partkey
+              and o_orderkey = l_orderkey and s_nationkey = n_nationkey
+              and p_name like '%green%') as profit
+      group by nation, o_year order by nation, o_year desc""",
+ 10: """select c_custkey, c_name,
+         sum(l_extendedprice * (1 - l_discount)) as revenue, c_acctbal,
+         n_name, c_address, c_phone, c_comment
+       from customer, orders, lineitem, nation
+       where c_custkey = o_custkey and l_orderkey = o_orderkey
+         and o_orderdate >= '1993-10-01' and o_orderdate < '1994-10-01'
+         and l_returnflag = 'R' and c_nationkey = n_nationkey
+       group by c_custkey, c_name, c_acctbal, c_phone, n_name, c_address,
+                c_comment
+       order by revenue desc, c_custkey limit 20""",
+ 11: """select ps_partkey, sum(ps_supplycost * ps_availqty) as value
+       from partsupp, supplier, nation
+       where ps_suppkey = s_suppkey and s_nationkey = n_nationkey
+         and n_name = 'GERMANY'
+       group by ps_partkey
+       having sum(ps_supplycost * ps_availqty) >
+         (select sum(ps_supplycost * ps_availqty) * 0.01
+          from partsupp, supplier, nation
+          where ps_suppkey = s_suppkey and s_nationkey = n_nationkey
+            and n_name = 'GERMANY')
+       order by value desc, ps_partkey""",
+ 12: """select l_shipmode,
+         sum(case when o_orderpriority = '1-URGENT'
+                    or o_orderpriority = '2-HIGH'
+                  then 1 else 0 end) as high_line_count,
+         sum(case when o_orderpriority <> '1-URGENT'
+                   and o_orderpriority <> '2-HIGH'
+                  then 1 else 0 end) as low_line_count
+       from orders, lineitem
+       where o_orderkey = l_orderkey and l_shipmode in ('MAIL', 'SHIP')
+         and l_commitdate < l_receiptdate and l_shipdate < l_commitdate
+         and l_receiptdate >= '1994-01-01' and l_receiptdate < '1996-01-01'
+       group by l_shipmode order by l_shipmode""",
+ 13: """select c_count, count(*) as custdist
+       from (select c_custkey, count(o_orderkey) as c_count
+             from customer left outer join orders
+               on c_custkey = o_custkey
+                  and o_comment not like '%special%requests%'
+             group by c_custkey) as c_orders
+       group by c_count order by custdist desc, c_count desc""",
+ 14: """select 100.00 * sum(case when p_type like 'PROMO%'
+                                 then l_extendedprice * (1 - l_discount)
+                                 else 0 end)
+           / sum(l_extendedprice * (1 - l_discount)) as promo_revenue
+       from lineitem, part
+       where l_partkey = p_partkey and l_shipdate >= '1995-01-01'
+         and l_shipdate < '1996-01-01'""",
+ 16: """select p_brand, p_type, p_size,
+         count(distinct ps_suppkey) as supplier_cnt
+       from partsupp, part
+       where p_partkey = ps_partkey and p_brand <> 'Brand#45'
+         and p_type not like 'MEDIUM POLISHED%'
+         and p_size in (49, 14, 23, 45, 19, 3, 36, 9)
+         and ps_suppkey not in (select s_suppkey from supplier
+                                where s_comment like '%Customer%Complaints%')
+       group by p_brand, p_type, p_size
+       order by supplier_cnt desc, p_brand, p_type, p_size""",
+ 17: """select sum(l_extendedprice) / 7.0 as avg_yearly
+       from lineitem, part
+       where p_partkey = l_partkey and p_brand = 'Brand#11'
+         and l_quantity < (select 0.5 * avg(l2.l_quantity)
+                           from lineitem l2
+                           where l2.l_partkey = p_partkey)""",
+ 18: """select c_name, c_custkey, o_orderkey, o_orderdate, o_totalprice,
+         sum(l_quantity)
+       from customer, orders, lineitem
+       where o_orderkey in (select l_orderkey from lineitem
+                            group by l_orderkey
+                            having sum(l_quantity) > 150)
+         and c_custkey = o_custkey and o_orderkey = l_orderkey
+       group by c_name, c_custkey, o_orderkey, o_orderdate, o_totalprice
+       order by o_totalprice desc, o_orderdate, o_orderkey limit 100""",
+ 19: """select sum(l_extendedprice * (1 - l_discount)) as revenue
+       from lineitem, part
+       where (p_partkey = l_partkey and p_brand = 'Brand#11'
+              and p_container in ('SM CASE', 'SM BOX', 'SM PACK', 'SM PKG')
+              and l_quantity >= 1 and l_quantity <= 30
+              and p_size between 1 and 15
+              and l_shipmode in ('AIR', 'REG AIR')
+              and l_shipinstruct = 'DELIVER IN PERSON')
+          or (p_partkey = l_partkey and p_brand = 'Brand#22'
+              and p_container in ('MED BAG', 'MED BOX', 'MED PKG',
+                                  'MED PACK')
+              and l_quantity >= 1 and l_quantity <= 40
+              and p_size between 1 and 20
+              and l_shipmode in ('AIR', 'REG AIR')
+              and l_shipinstruct = 'DELIVER IN PERSON')""",
+ 20: """select s_name, s_address from supplier, nation
+       where s_suppkey in
+           (select ps_suppkey from partsupp
+            where ps_partkey in (select p_partkey from part
+                                 where p_name like '%forest%')
+              and ps_availqty > (select 0.5 * sum(l_quantity)
+                                 from lineitem
+                                 where l_partkey = ps_partkey
+                                   and l_suppkey = ps_suppkey
+                                   and l_shipdate >= '1994-01-01'
+                                   and l_shipdate < '1996-01-01'))
+         and s_nationkey = n_nationkey and n_name = 'CANADA'
+       order by s_name""",
+ 21: """select s_name, count(*) as numwait
+       from supplier, lineitem l1, orders, nation
+       where s_suppkey = l1.l_suppkey and o_orderkey = l1.l_orderkey
+         and o_orderstatus = 'F'
+         and l1.l_receiptdate > l1.l_commitdate
+         and exists (select * from lineitem l2
+                     where l2.l_orderkey = l1.l_orderkey
+                       and l2.l_suppkey <> l1.l_suppkey)
+         and not exists (select * from lineitem l3
+                         where l3.l_orderkey = l1.l_orderkey
+                           and l3.l_suppkey <> l1.l_suppkey
+                           and l3.l_receiptdate > l3.l_commitdate)
+         and s_nationkey = n_nationkey and n_name = 'SAUDI ARABIA'
+       group by s_name order by numwait desc, s_name limit 100""",
+ 22: """select cntrycode, count(*) as numcust, sum(c_acctbal) as totacctbal
+       from (select substr(c_phone, 1, 2) as cntrycode, c_acctbal
+             from customer
+             where substr(c_phone, 1, 2) in
+                     ('13', '31', '23', '29', '30', '18', '17')
+               and c_acctbal > (select avg(c_acctbal) from customer
+                                where c_acctbal > 0.00
+                                  and substr(c_phone, 1, 2) in
+                                    ('13', '31', '23', '29', '30', '18',
+                                     '17'))
+               and not exists (select * from orders
+                               where o_custkey = c_custkey)) as custsale
+       group by cntrycode order by cntrycode""",
+}
+
+TPCH_Q15_VIEW = """create view revenue0 (supplier_no, total_revenue) as
+  select l_suppkey, sum(l_extendedprice * (1 - l_discount))
+  from lineitem
+  where l_shipdate >= '1996-01-01' and l_shipdate < '1996-04-01'
+  group by l_suppkey"""
+TPCH_Q15 = """select s_suppkey, s_name, s_address, s_phone, total_revenue
+  from supplier, revenue0
+  where s_suppkey = supplier_no
+    and total_revenue = (select max(total_revenue) from revenue0)
+  order by s_suppkey"""
+
+
+def pushed_ops(session, sql: str) -> set:
+    """The expression ops that ``sql``'s physical plan evaluates inside
+    its cop tasks (on the device), from the session's own planner."""
+    from ..executor.physical import CopJoinTaskExec, CopTaskExec
+    from ..expr.ir import Func
+    from ..sql.parser import parse_sql
+    _built, phys = session._plan_select(parse_sql(sql)[0])
+    ops, stack = set(), [phys]
+    while stack:
+        op = stack.pop()
+        stack.extend(getattr(op, "children", ()) or ())
+        if getattr(op, "build_exec", None) is not None:
+            stack.append(op.build_exec)
+        if not isinstance(op, (CopTaskExec, CopJoinTaskExec)):
+            continue
+        nodes = [op.dag]
+        while nodes:
+            node = nodes.pop()
+            nodes.extend(node.children())
+            exprs = []
+            for attr in ("conditions", "exprs", "group_by", "keys"):
+                exprs.extend(getattr(node, attr, ()) or ())
+            exprs.extend(a.arg for a in getattr(node, "aggs", ()) or ()
+                         if a.arg is not None)
+            while exprs:
+                e = exprs.pop()
+                if isinstance(e, Func):
+                    ops.add(e.op)
+                    exprs.extend(e.args)
+    return ops
+
+
 def sql_session(tables: dict, device="cuda", n_devices: int = 1):
     """A port ``Session`` over a new ``Domain`` on ``device`` with each
     ``name: (names, cols)`` of ``tables`` registered in database
@@ -540,7 +1059,10 @@ def tpch_sql_session(sf: float = 0.001, seed: int = 42, device="cuda",
     return sql_session(tables, device, n_devices)
 
 
-__all__ = ["gen_lineitem", "gen_part", "gen_orders_mini", "LINEITEM_NAMES",
+__all__ = ["gen_lineitem", "gen_part", "gen_orders_mini", "gen_tpch",
+           "TPCH_TABLE_DDL", "TPCH_22", "TPCH_Q15_VIEW", "TPCH_Q15",
+           "pushed_ops",
+           "LINEITEM_NAMES",
            "PART_NAMES", "ORDERS_MINI_NAMES", "DEC2", "TPCH_PLAN_QUERIES",
            "TPCH_SHUFFLE_QUERIES", "MULTICHIP_PLAN_QUERIES", "TPCH_Q1",
            "TPCH_Q6", "TPCH_Q19", "SQL_QUERIES", "JOIN_QUERIES",
