@@ -125,8 +125,9 @@ script exits non-zero without printing a result:
 11. store: through one port ``Domain(device="cuda", data_dir=...)`` in
    a temporary directory, CREATE TABLE lineitem and orders with the
    types of tests/test_tpch_diff.py, LOAD DATA of each from the
-   generator's '|' files (lineitem at SF=0.1, ``STORE_SF``: 600,000
-   rows, a cut the host row codec forces; orders at its count), TPC-H
+   generator's '|' files (lineitem at SF=0.05, ``STORE_SF``: 300,000
+   rows, a cut the host row codec and the script's time limit force;
+   orders at its count), TPC-H
    Q1 and Q6 in the spec's text, a join of the two and a TopN; one
    transaction of UPDATE, DELETE and INSERT, then COMMIT; the statements
    again, each against a numpy oracle of the written rows; online
@@ -168,7 +169,30 @@ script exits non-zero without printing a result:
    whether the device or the host sets its wall; the phase's hand-kernel
    launches are counted, no plain version of them runs and no join
    takes its host plan;
-13. the ``kernels`` JSON line, then the last line
+13. windows and statistics, through port ``Session``s on ``cuda:0``:
+   13a, over 12a's session and placement of phase 7's lineitem on one
+   logical device (each window program at ``2N`` rows rounded up to a
+   power of two), the top three lines a day by ``row_number``, and
+   ``rank``/``dense_rank`` and whole-partition ``SUM``/``AVG`` (a
+   DECIMAL AVG) a ship mode on one day; 13b, ``rank`` over
+   ``gen_orders_mini(1,500,000)`` on eight logical devices under an
+   outer ``rk = 1``; 13c, ANALYZE of orders (a full build on the card,
+   its statistics equal to a numpy oracle of the kernel's semantics:
+   counts, NDV, bounds, cumulative counts, repeats, TopN, the CM
+   counters and the KMV minima), of the SF=10 lineitem and of phase 8's
+   lineitem (both sampled by the handle's rule), ``SHOW STATS_META``,
+   ``STATS_HISTOGRAMS`` and ``STATS_TOPN``, and two high-NDV GROUP BYs
+   (orders by ``o_custkey``, phase 8's lineitem by ``l_orderkey``) whose
+   strategy the cost model chooses from those statistics.  Every result
+   equals a numpy oracle; every window plan is a ``CopWindow`` on the
+   card; no join takes its host plan, the strategy choice never falls
+   back, no plain kernel version runs, the onesweep launches equal the
+   passes ``stable_argsort`` planned and ``group_reduce`` runs once a
+   device a program run of a window with aggregates and twice a column
+   an ANALYZE.  Each statement prints its first and warm ms and the
+   client's split, the window statements their exchange capacities and
+   peak ``max_memory_allocated``;
+14. the ``kernels`` JSON line, then the last line
    ``{"ok": true, "device": {...}}``.  A ``phase ...: s=`` line after
    each phase gives its seconds.
 
@@ -2258,13 +2282,17 @@ def join_phase(torch, gr, os1, S, main_data, main_sf: float, s4_data,
 # phase 11: the store (DDL, LOAD DATA, DML, transactions, online index)
 # --------------------------------------------------------------------- #
 
-STORE_SF = 0.1        # lineitem 600,000 rows: the host row codec's cut
+STORE_SF = 0.05       # lineitem 300,000 rows: the host row codec's cut,
+#                       halved to keep the script inside its time limit
 STORE_ROUNDS = 5      # write/read rounds of the HBM check
 STORE_WARM = 3        # warm calls of a statement after its first
 STORE_UPDATE_BELOW = 6_000     # UPDATE lineitem ... where l_orderkey < it
-STORE_DELETE = (300_000, 306_000)   # DELETE ... l_orderkey between
+# l_orderkey runs up to 6,000,000 * SF: DELETE ... l_orderkey between the
+# two keys of the middle of that range; index point reads in all of it
+STORE_KEYS = int(6_000_000 * STORE_SF)
+STORE_DELETE = (STORE_KEYS // 2, STORE_KEYS // 2 + 6_000)
 STORE_INSERTS = 100   # rows the committed transaction inserts
-STORE_POINTS = (97, 4_242, 299_999, 590_001)  # index point reads
+STORE_POINTS = (97, 4_242, STORE_KEYS // 2 - 1, STORE_KEYS - 9_999)
 STORE_FRTOL = 1e-9    # float SUM/AVG: of the sum of |terms|
 STORE_JOIN = """select o_orderpriority, count(*), sum(l_quantity)
 from lineitem join orders on l_orderkey = o_orderkey
@@ -2903,9 +2931,10 @@ def select_cells(rs) -> list:
 
 def select_rows_equal(got: list, want: list) -> bool:
     """Cell by cell: ints, strings and NULLs equal; a double, given as
-    ("f", value, magnitude), within ``SELECT_FRTOL`` of its magnitude
-    (the card's torch divides a tensor by a scalar as a product with its
-    reciprocal, so the last bit may differ from numpy's quotient)."""
+    ("f", value, magnitude), within ``SELECT_FRTOL`` of its magnitude:
+    the card's libm (SQRT, LN, POW) differs from numpy's in the last
+    bits, and a float SUM adds in another order (the division lanes
+    equal the CPU's bit for bit, tests/test_torch_cuda.py)."""
     if len(got) != len(want):
         return False
     for g, w in zip(got, want):
@@ -2927,7 +2956,7 @@ class statement_timings:
     them."""
 
     CALLS = ("execute_agg", "execute_rows", "execute_shuffle_agg",
-             "execute_shuffle_rows")
+             "execute_shuffle_rows", "execute_window")
 
     def __init__(self, client):
         self.client, self.acc = client, {}
@@ -2943,6 +2972,8 @@ class statement_timings:
         for k, v in self.client.timings.items():
             if isinstance(v, float):
                 self.acc[k] = self.acc.get(k, 0.0) + v
+            elif k == "windows":      # the window programs' capacities
+                self.acc[k] = self.acc.get(k, []) + list(v)
         self.client.timings = {}
 
     def run(self, sess, sql: str) -> tuple:
@@ -2962,7 +2993,7 @@ def select_line(tag: str, name: str, first: float, warm: float,
     # a broadcast join's ``build`` holds its build side's own joins, so
     # it is not summed over a statement's nested joins
     split = " ".join(f"{k}_ms={v * 1e3:.3f}" for k, v in acc.items()
-                     if k != "build")
+                     if k != "build" and isinstance(v, float))
     print(f"{tag} {name}: first_ms={first * 1e3:.3f} "
           f"warm_ms={warm * 1e3:.3f} {split} {extra}".rstrip())
 
@@ -3028,12 +3059,12 @@ def tpch_rows_equal(a: list, b: list) -> bool:
 
 
 def select_phase(torch, gr, os1, S, main_data, main_sf: float,
-                 tpch_sf: float = TPCH_SF) -> dict:
+                 tpch_sf: float = TPCH_SF) -> tuple:
     """Phase 12 through the port's ``Session`` on ``SELECT_DEVICE``: the
     device lanes over lineitem at ``--main-sf`` (12a), rollup over it
     (12b), and the 22 TPC-H statements and Q15's view over
     ``gen_tpch(tpch_sf)`` against sqlite (12c).  Returns the phase's
-    launch counts."""
+    launch counts and 12a's session (its lineitem placed on the card)."""
     from tidb_tpu_torch.testing import tpch
     counters = (gr.LAUNCHES, os1.LAUNCHES)
     on_card = SELECT_DEVICE == "cuda"
@@ -3095,6 +3126,7 @@ def select_phase(torch, gr, os1, S, main_data, main_sf: float,
                         f"out_rows={len(got)} exact=True")
         check(sess.domain.client.join_fallbacks == 0,
               "12a-12b: a join took its host plan")
+        main_sess = sess          # phase 13 reuses its placement
         del sess, timer
         gc.collect()
         # -- 12c: TPC-H ------------------------------------------------- #
@@ -3138,6 +3170,339 @@ def select_phase(torch, gr, os1, S, main_data, main_sf: float,
         check(counts[k] > 0, f"select path: {k} launched {counts[k]} times")
     print(f"select launches: {counts} stable_argsort_passes="
           f"{S.PASSES['stable_argsort']} plain_calls={guard.calls}")
+    return counts, main_sess
+
+
+# -- phase 13: windows and statistics ----------------------------------- #
+
+WINDOW_DEVICE = "cuda"
+WINDOW_ORDERS = 1_500_000      # gen_orders_mini: o_custkey ~368,000 values
+WINDOW_ORDERS_DEVICES = 8      # 13b on eight logical devices
+WINDOW_DAY = "1995-06-17"
+WINDOW_SQL = [
+    # (name, statement, its session: "lineitem" (12a's) or "orders")
+    ("top 3 a day", "select * from (select l_shipdate, l_extendedprice, "
+     "row_number() over (partition by l_shipdate order by l_extendedprice "
+     "desc) rn from lineitem) t where rn <= 3", "lineitem"),
+    ("rank a mode", "select l_shipmode, l_extendedprice, rank() over "
+     "(partition by l_shipmode order by l_extendedprice desc), dense_rank() "
+     "over (partition by l_shipmode order by l_extendedprice desc) from "
+     f"lineitem where l_shipdate = date '{WINDOW_DAY}'", "lineitem"),
+    ("aggregates a mode", "select l_shipmode, l_quantity, sum(l_quantity) "
+     "over (partition by l_shipmode), avg(l_extendedprice) over (partition "
+     f"by l_shipmode) from lineitem where l_shipdate = date '{WINDOW_DAY}'",
+     "lineitem"),
+    ("orders rank 1", "select * from (select o_orderkey, o_custkey, "
+     "o_totalprice, rank() over (partition by o_custkey order by "
+     "o_totalprice desc) rk from orders) t where rk = 1", "orders"),
+]
+# the statements whose window items hold an aggregate: one group_reduce
+# launch a device a program run
+WINDOW_AGG = ("aggregates a mode",)
+HIGH_NDV_SQL = [
+    ("orders by custkey", "select count(*), sum(s) from (select o_custkey, "
+     "sum(o_totalprice) s from orders group by o_custkey) t", "orders",
+     "o_custkey", "o_totalprice"),
+    ("lineitem by orderkey", "select count(*), sum(s) from (select "
+     "l_orderkey, sum(l_quantity) s from lineitem group by l_orderkey) t",
+     "s4", "l_orderkey", "l_quantity"),
+]
+STATS_BUCKETS, STATS_TOP = 64, 16      # StatsHandle.analyze_table's
+
+
+def _splitmix(x: np.ndarray, seed: int) -> np.ndarray:
+    """splitmix64's finalizer in numpy uint64 (the oracle's own copy)."""
+    with np.errstate(over="ignore"):
+        h = (x.astype(np.int64).view(np.uint64) + np.uint64(seed)) \
+            * np.uint64(0x9E3779B97F4A7C15)
+        h = (h ^ (h >> np.uint64(30))) * np.uint64(0xBF58476D1CE4E5B9)
+        h = (h ^ (h >> np.uint64(27))) * np.uint64(0x94D049BB133111EB)
+    return h ^ (h >> np.uint64(31))
+
+
+def stats_sample(n: int, stats) -> tuple:
+    """The rows ``StatsHandle.analyze_table`` samples from an ``n``-row
+    table, and its scale: a systematic sample of ``SAMPLE_TARGET`` rows,
+    each offset within its step drawn by ``default_rng(n)``; every row,
+    at scale 1, up to ``SAMPLE_THRESHOLD``."""
+    if n <= stats.SAMPLE_THRESHOLD:
+        return None, 1.0
+    m = max(int(n * (stats.SAMPLE_TARGET / n)), 1)
+    step = max(n // m, 1)
+    rng = np.random.default_rng(n)
+    return (np.arange(m) * step + rng.integers(0, step, m)).clip(0, n - 1), \
+        n / m
+
+
+def stats_oracle(x: np.ndarray, valid: np.ndarray,
+                 scale: float = 1.0) -> dict:
+    """A column's statistics by the ANALYZE kernel's semantics, in numpy:
+    count, null count, NDV, the equal-depth bounds, cumulative counts and
+    repeats (trailing empty buckets dropped), TopN by count then value
+    (kept where at least the uniform count), the CM counters and the KMV
+    minima (filled to 64 with all-ones bits).  A sampled column (``scale`` > 1) is scaled as the handle
+    scales it: the counts by ``scale``, the NDV by the Duj1 estimate
+    from the sample's singletons."""
+    n = len(x)
+    v = np.sort(x[valid].astype(np.int64))
+    nv = len(v)
+    xs = np.concatenate([v, np.sort(x[~valid].astype(np.int64))])
+    vals, cnts = np.unique(v, return_counts=True)
+    ndv = len(vals)
+    size = max(-(-nv // STATS_BUCKETS), 1)
+    ub = np.minimum((np.arange(STATS_BUCKETS) + 1) * size, nv) - 1
+    bounds = xs[np.clip(ub, 0, n - 1)]
+    cum = ub + 1
+    clean = np.where(np.arange(n) < nv, xs, 2 ** 62)
+    rep = np.maximum(cum - np.searchsorted(clean, bounds, side="left"), 0)
+    top = np.lexsort((vals, -cnts))[:STATS_TOP]
+    top_vals, top_cnts = vals[top], cnts[top]
+    cm = np.zeros((4, 2048), np.int64)
+    for d in range(4):
+        cm[d] = np.bincount((_splitmix(v, 0xABCD + d * 7919)
+                             & np.uint64(2047)).astype(np.int64),
+                            minlength=2048)
+    # the 64 least hashes of the distinct values, the sketch's
+    # all-ones fill after them where there are fewer (as many as rows)
+    kmv = np.full(min(64, n), np.iinfo(np.uint64).max, np.uint64)
+    least = np.sort(_splitmix(vals, 0x5bd1e995))[:64]
+    kmv[:len(least)] = least
+    count, nulls = nv, n - nv
+    if scale > 1.0:
+        if nv:
+            f1 = int((cnts == 1).sum())
+            denom = 1.0 - (1.0 - 1.0 / scale) * f1 / nv
+            ndv = int(round(min(max(ndv / max(denom, 1e-3), ndv),
+                                nv * scale)))
+
+        def up(a):
+            return np.round(a * scale).astype(np.int64)
+        cum, rep, top_cnts, cm = up(cum), up(rep), up(top_cnts), up(cm)
+        count, nulls = round(nv * scale), round((n - nv) * scale)
+    keep = np.concatenate([[True], np.diff(cum) > 0])
+    uniform = max(count / max(ndv, 1), 1.0)
+    return {"count": count, "null_count": nulls, "ndv": ndv,
+            "bounds": bounds[keep], "cum_counts": cum[keep],
+            "repeats": rep[keep], "min_val": int(xs[0]) if nv else None,
+            "topn": {int(a): int(b) for a, b in zip(top_vals, top_cnts)
+                     if b >= uniform},
+            "cm": cm, "kmv": kmv}
+
+
+def stats_equal(cs, want: dict) -> bool:
+    h = cs.hist
+    return (cs.count == want["count"] and cs.ndv == want["ndv"]
+            and cs.null_count == want["null_count"]
+            and h.min_val == want["min_val"]
+            and all(np.array_equal(getattr(h, k), want[k])
+                    for k in ("bounds", "cum_counts", "repeats"))
+            and cs.topn.values == want["topn"]
+            and np.array_equal(cs.cms.table, want["cm"])
+            and np.array_equal(cs.fms.kmv, want["kmv"]))
+
+
+def window_oracle(name: str, c: dict) -> list:
+    """The rows of window statement ``name`` in numpy, as
+    ``select_cells`` gives them (decimals as scaled ints, dates as days,
+    a double as ("f", value, magnitude))."""
+    from tidb_tpu_torch.testing import tpch
+    if name == "top 3 a day":
+        day, price = c["l_shipdate"].data, c["l_extendedprice"].data
+        o = np.lexsort((-price, day))
+        ds, ps = day[o], price[o]
+        first = np.r_[0, np.flatnonzero(ds[1:] != ds[:-1]) + 1]
+        rn = np.arange(len(ds)) - np.repeat(first, np.diff(np.r_[first,
+                                                                 len(ds)]))
+        k = rn < 3
+        return sorted(zip(ds[k].tolist(), ps[k].tolist(),
+                          (rn[k] + 1).tolist()))
+    if name == "orders rank 1":
+        ok, ck, tp = (c["o_orderkey"].data, c["o_custkey"].data,
+                      c["o_totalprice"].data)
+        o = np.lexsort((-tp, ck))
+        cs_, ts = ck[o], tp[o]
+        first = np.r_[0, np.flatnonzero(cs_[1:] != cs_[:-1]) + 1]
+        top = np.repeat(ts[first], np.diff(np.r_[first, len(cs_)]))
+        k = ts == top
+        return sorted(zip(ok[o][k].tolist(), cs_[k].tolist(), ts[k].tolist(),
+                          [1] * int(k.sum())))
+    day = _days(WINDOW_DAY)
+    sel = np.flatnonzero(c["l_shipdate"].data == day)
+    mode = c["l_shipmode"].data[sel]
+    price = c["l_extendedprice"].data[sel].astype(np.int64)
+    qty = c["l_quantity"].data[sel].astype(np.int64)
+    rows = []
+    for m in np.unique(mode):
+        k = mode == m
+        name_m = tpch.SHIPMODES[int(m)]
+        if name == "rank a mode":
+            p = price[k]
+            desc = np.sort(p)[::-1]
+            uniq = np.unique(p)[::-1]
+            rank = np.searchsorted(-desc, -p, side="left") + 1
+            dense = np.searchsorted(-uniq, -p, side="left") + 1
+            rows += list(zip([name_m] * len(p), p.tolist(), rank.tolist(),
+                             dense.tolist()))
+        else:
+            sq = exact_sum(qty[k])
+            total, cnt = exact_sum(price[k]), int(k.sum())
+            avg = total / cnt / 100
+            rows += [(name_m, int(q), sq, ("f", avg, abs(avg)))
+                     for q in qty[k].tolist()]
+    return sorted(rows, key=lambda r: (r[0], r[1], r[2]))
+
+
+def _window_sort(rows: list) -> list:
+    return sorted(rows, key=lambda r: tuple(
+        x[1] if isinstance(x, tuple) else x for x in r[:3]))
+
+
+def window_stats_phase(torch, gr, os1, S, main_sess, main_data, s4_data
+                       ) -> dict:
+    """Phase 13 through the port's ``Session`` on ``WINDOW_DEVICE``: window
+    functions over 12a's lineitem on one logical device (13a) and over
+    ``gen_orders_mini(WINDOW_ORDERS)`` on eight (13b); ANALYZE of orders
+    (a full build on the card) and of lineitem (sampled by the handle's
+    rule), the SHOW STATS statements, and two high-NDV GROUP BYs whose
+    strategy the cost model chooses from the statistics (13c).  Every
+    result equals its numpy oracle; returns the phase's launches."""
+    from tidb_tpu_torch.analysis import calibrate as pcal
+    from tidb_tpu_torch.executor import plan as pplan
+    from tidb_tpu_torch.testing import tpch
+    counters = (gr.LAUNCHES, os1.LAUNCHES)
+    on_card = WINDOW_DEVICE == "cuda"
+    c = dict(zip(*main_data))
+    orders = tpch.gen_orders_mini(WINDOW_ORDERS)
+    co = dict(zip(*orders))
+    sessions = {
+        "lineitem": main_sess,
+        "orders": tpch.sql_session({"orders": orders}, device=WINDOW_DEVICE,
+                                   n_devices=WINDOW_ORDERS_DEVICES),
+        "s4": tpch.sql_session({"lineitem": s4_data},
+                               device=WINDOW_DEVICE)}
+    timers = {k: statement_timings(v.domain.client)
+              for k, v in sessions.items()}
+    fb0 = {k: v.domain.client.join_fallbacks for k, v in sessions.items()}
+    reset(counters + (S.PASSES,))           # counts of this path only
+    arb0 = pplan.ARBITRATE_FALLBACKS
+    with plain_guard({"gr": gr, "os1": os1}) as guard:
+        # -- 13a, 13b: windows ---------------------------------------- #
+        for name, sql, where in WINDOW_SQL:
+            sess, timer = sessions[where], timers[where]
+            plan = "\n".join(r[0] for r in sess.execute("explain " + sql).rows)
+            check("CopWindow" in plan and "HostWindow" not in plan,
+                  f"13 {name}: not a device window: {plan}")
+            before = gr.LAUNCHES.get("group_reduce", 0)
+            if on_card:
+                torch.cuda.synchronize()
+                base = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+            rs, first, acc = timer.run(sess, sql)
+            peak = (torch.cuda.max_memory_allocated() - base) if on_card \
+                else 0
+            rounds = acc.get("windows", [])
+            runs = len(rounds) * len(sess.domain.client.devices)
+            launched = gr.LAUNCHES.get("group_reduce", 0) - before
+            want = window_oracle(name, co if where == "orders" else c)
+            got = select_cells(rs)
+            if name == "aggregates a mode":
+                got, want = _window_sort(got), _window_sort(want)
+            else:
+                got = sorted(got)
+            check(select_rows_equal(got, want),
+                  f"13 {name}: {got[:3]} != numpy {want[:3]}")
+            if GR:
+                expect = runs if name in WINDOW_AGG else 0
+                check(launched == expect, f"13 {name}: {launched} "
+                      f"group_reduce launches for {runs} program runs")
+            _rs, warm, acc = timer.run(sess, sql)
+            tag = "13b" if where == "orders" else "13a"
+            select_line(tag, name, first, warm, acc,
+                        f"out_rows={len(rs.rows)} "
+                        f"buckets={rounds} "
+                        f"devices={len(sess.domain.client.devices)} "
+                        f"group_reduce_launches={launched} "
+                        f"peak_bytes={peak} exact=True")
+        # -- 13c: ANALYZE, SHOW, the strategy choice -------------------- #
+        for where, table in (("orders", "orders"), ("lineitem", "lineitem"),
+                             ("s4", "lineitem")):
+            sess = sessions[where]
+            before = gr.LAUNCHES.get("group_reduce", 0)
+            t0 = time.perf_counter()
+            sess.execute(f"analyze table {table}")
+            if on_card:
+                torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            tbl = sess.domain.catalog.get_table("test", table)
+            ts = sess.domain.stats.get(tbl)
+            n = tbl.num_rows
+            check(ts is not None and len(ts.cols) == len(tbl.col_names),
+                  f"13c analyze {where}: no statistics")
+            launched = gr.LAUNCHES.get("group_reduce", 0) - before
+            if GR:
+                check(launched == 2 * len(ts.cols), f"13c analyze {where}: "
+                      f"{launched} group_reduce launches for "
+                      f"{len(ts.cols)} columns")
+            idx, scale = stats_sample(n, sess.domain.stats)
+            for cname, col in zip(tbl.col_names, tbl.snapshot().columns):
+                if idx is not None:
+                    col = col.take(idx)
+                want = stats_oracle(col.data, col.validity, scale)
+                check(stats_equal(ts.col(cname), want),
+                      f"13c analyze {where}: {cname} != numpy oracle")
+            ndv = {k: cs.ndv for k, cs in ts.cols.items()}
+            print(f"13c analyze {where}: rows={n} ms={secs * 1e3:.3f} "
+                  f"sampled={n > sess.domain.stats.SAMPLE_THRESHOLD} "
+                  f"group_reduce_launches={launched} ndv={ndv} "
+                  f"scale={scale} exact=True")
+        for kind in ("stats_meta", "stats_histograms", "stats_topn"):
+            rows = []
+            for sess in sessions.values():
+                rows += sess.execute(f"show {kind}").rows
+            check(rows, f"13c show {kind}: no rows")
+            print(f"13c show {kind}: rows={len(rows)} first={rows[0]}")
+        meta = sessions["orders"].execute("show stats_meta").rows
+        check(("test", "orders", 0, WINDOW_ORDERS) in meta,
+              f"13c show stats_meta: {meta}")
+        for name, sql, where, key, val in HIGH_NDV_SQL:
+            sess, timer = sessions[where], timers[where]
+            data = co if where == "orders" else dict(zip(*s4_data))
+            check(pcal.correction_store().stats()["entries"] == 0,
+                  "13c: the correction store is not empty")
+            plan = [r[0] for r in sess.execute("explain " + sql).rows]
+            strat = next(ln.split("Aggregation[", 1)[1].split("]", 1)[0]
+                         for ln in plan if "Aggregation[" in ln)
+            rs, first, acc = timer.run(sess, sql)
+            k = data[key].data
+            want = (len(np.unique(k)), exact_sum(data[val].data))
+            got = select_cells(rs)
+            check(got == [want], f"13c {name}: {got} != numpy {want}")
+            _rs, warm, acc = timer.run(sess, sql)
+            ndv_est = sess.domain.stats.get(sess.domain.catalog.get_table(
+                "test", "orders" if where == "orders" else "lineitem")
+            ).col(key).ndv
+            select_line("13c", name, first, warm, acc,
+                        f"strategy={strat} groups={want[0]} "
+                        f"ndv_estimate={ndv_est} exact=True")
+    check(pplan.ARBITRATE_FALLBACKS == arb0,
+          "13: the strategy choice fell back to its first candidate")
+    for k, sess in sessions.items():
+        check(sess.domain.client.join_fallbacks == fb0[k],
+              f"13: a join of the {k} session took its host plan")
+    check(guard.calls == 0, f"windows and statistics ran {guard.calls} "
+          "plain-version calls of their kernels on the card")
+    counts = {k: v for launches in counters for k, v in launches.items()}
+    if OS:
+        check(counts["radix_onesweep64"] == S.PASSES["stable_argsort"]
+              and counts["radix_hist_all64"]
+              == S.PASSES["stable_argsort_keys"],
+              f"13: onesweep launches {counts} != the passes planned "
+              f"{dict(S.PASSES)}")
+    for k in GR + OS:
+        check(counts[k] > 0, f"13: {k} launched {counts[k]} times")
+    print(f"windows and statistics launches: {counts} stable_argsort_passes="
+          f"{S.PASSES['stable_argsort']} plain_calls={guard.calls} "
+          f"arbitrate_fallbacks={pplan.ARBITRATE_FALLBACKS - arb0}")
     return counts
 
 
@@ -3239,8 +3604,12 @@ def main() -> int:
     lap("10 joins")
     store_phase(torch, gr, os1, S)
     lap("11 store")
-    select_phase(torch, gr, os1, S, main_data, args.main_sf, args.tpch_sf)
+    _select_counts, main_sess = select_phase(
+        torch, gr, os1, S, main_data, args.main_sf, args.tpch_sf)
     lap("12 select surface")
+    window_stats_phase(torch, gr, os1, S, main_sess, main_data, s4_data)
+    del main_sess
+    lap("13 windows and statistics")
 
     cu = "tidb_tpu_torch/copr/cuda/"
     sources = {"radix_hist": cu + "radix_kernel.cu",

@@ -15,6 +15,12 @@ one launch a program run; the join statements (broadcast, m:n,
 repartition, host joins) through a ``Session`` on the card on one and
 on eight logical devices return the CPU session's rows and take no
 host fallback, and the exchange receives what it receives on the CPU.
+Every lane of the device evaluator (tests/torch_lane_cases.py) equals
+the CPU bit for bit on the card, doubles included; rollup's states (the
+DENSE level-by-level branch and the SORT one over the materialized
+expand), the 22 TPC-H statements and the window statements (8 logical
+devices) equal the CPU's; the ANALYZE kernel equals its plain version
+in every output.
 
 Every test here needs a CUDA GPU and skips without one.  The file
 imports no JAX, so it also runs on a machine that has only PyTorch:
@@ -42,6 +48,14 @@ pytestmark = pytest.mark.cuda
 
 @pytest.fixture
 def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU")
+    return torch.device("cuda", 0)
+
+
+@pytest.fixture(scope="module")
+def card():
+    """The module-scoped fixtures' device: they run before ``dev``."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA GPU")
     return torch.device("cuda", 0)
@@ -921,3 +935,344 @@ def test_exchange_on_the_card_equals_the_cpu(dev, cap):
         assert torch.equal(gc[0][0].cpu(), wc[0][0])
         assert torch.equal(gv.cpu(), wv)
         assert int(go) == int(wo) and int(gm) == int(wm)
+
+
+# ------------------------------------------------------------------ #
+# the SELECT surface on the card against the CPU
+# ------------------------------------------------------------------ #
+
+def _card_rows_equal(got, want, rtol=FSUM_RTOL) -> None:
+    """Rows equal as multisets: integers, decimals, strings and NULLs
+    exactly, doubles within ``rtol`` (a float SUM's fixed-point limbs on
+    the card against the CPU's double sum)."""
+    import math
+    key = lambda r: tuple(  # noqa: E731
+        (1, "") if x is None else (0, f"{x:.9e}") if isinstance(x, float)
+        else (0, repr(x)) for x in r)
+    assert len(got) == len(want)
+    for g, w in zip(sorted(map(tuple, got), key=key),
+                    sorted(map(tuple, want), key=key)):
+        for a, b in zip(g, w):
+            if isinstance(b, float):
+                assert isinstance(a, float) and (
+                    a == b or math.isclose(a, b, rel_tol=rtol)
+                    or (math.isnan(a) and math.isnan(b))), (g, w)
+            else:
+                assert a == b and type(a) is type(b), (g, w)
+
+
+@pytest.fixture(scope="module")
+def lane_cols(card):
+    from torch_lane_cases import DATA, NAMES
+    out = {}
+    for d in ("cpu", "cuda"):
+        out[d] = [(torch.from_numpy(DATA[n][1].copy()).to(d),
+                   True if DATA[n][2] is None
+                   else torch.from_numpy(DATA[n][2].copy()).to(d))
+                  for n in NAMES]
+    return out
+
+
+def _lane_np(v, n):
+    if isinstance(v, torch.Tensor):
+        v = v.cpu()
+        if v.dtype == torch.uint64:
+            v = v.view(torch.int64)
+        v = v.numpy()
+    return np.broadcast_to(np.asarray(v), (n,))
+
+
+def _lane_case_names():
+    from torch_lane_cases import CASES
+    return sorted(CASES)
+
+
+# the lanes that call CUDA's libm (or torch's CPU one): their doubles may
+# differ in the last bits between the card and the CPU, as the JAX
+# package's XLA and torch's CPU do (tests/test_torch_evaluator.py)
+LIBM_OPS = frozenset({"sqrt", "exp", "ln", "log", "log2", "log10", "pow",
+                      "sin", "cos", "tan", "cot", "asin", "acos", "atan",
+                      "atan2"})
+LIBM_MAX_ULP = 4
+
+
+def _func_ops(e) -> set:
+    from tidb_tpu_torch.expr import ir
+    out, stack = set(), [e]
+    while stack:
+        x = stack.pop()
+        if isinstance(x, ir.Func):
+            out.add(x.op)
+            stack.extend(x.args)
+    return out
+
+
+@pytest.mark.parametrize("name", _lane_case_names())
+def test_lane_on_the_card_equals_the_cpu(dev, lane_cols, name):
+    """Every case of the device evaluator's lanes (every ``DEVICE_OPS``
+    op over tests/torch_lane_cases.py's columns) on the card equals the
+    CPU bit for bit, doubles included (a NaN against a NaN, a zero's
+    sign kept): masks, integers, dates, decimals, and the doubles of
+    ``/``, ``ROUND``, ``TRUNCATE`` and every DECIMAL operand of a double
+    lane, which divide by a 0-d tensor on the lane's device.  The lanes
+    of ``LIBM_OPS`` call the card's libm: their doubles agree within
+    ``LIBM_MAX_ULP`` units in the last place."""
+    from tidb_tpu_torch.expr.compile import Evaluator
+    from torch_lane_cases import CASES, N, _P
+    e = CASES[name](_P)
+    libm = bool(_func_ops(e) & LIBM_OPS)
+    gv, gm = Evaluator(dev).eval(e, lane_cols["cuda"])
+    wv, wm = Evaluator("cpu").eval(e, lane_cols["cpu"])
+    m_got = np.broadcast_to(np.asarray(gm if isinstance(gm, bool) else
+                                       gm.cpu().numpy()), (N,))
+    m_want = np.broadcast_to(np.asarray(wm if isinstance(wm, bool) else
+                                        wm.numpy()), (N,))
+    assert np.array_equal(m_got, m_want), f"{name}: validity differs"
+    a, b = _lane_np(gv, N), _lane_np(wv, N)
+    assert a.dtype == b.dtype, (a.dtype, b.dtype)
+    if a.dtype.kind == "f":
+        same = ((a == b) & (np.signbit(a) == np.signbit(b))) \
+            | (np.isnan(a) & np.isnan(b))
+        if libm:
+            fin = np.isfinite(a) & np.isfinite(b)
+            a0, b0 = np.where(fin, a, 0.0), np.where(fin, b, 0.0)
+            tol = LIBM_MAX_ULP * np.spacing(np.maximum(np.abs(a0),
+                                                       np.abs(b0)))
+            same |= fin & (np.abs(a0 - b0) <= tol)
+        bad = np.flatnonzero(~same)
+        assert not len(bad), f"{name}: {len(bad)} lanes differ, first " \
+            f"{a[bad[0]]!r} against {b[bad[0]]!r}"
+    else:
+        bad = np.flatnonzero(a != b)
+        assert not len(bad), f"{name}: {len(bad)} lanes differ, first " \
+            f"{a[bad[0]]!r} against {b[bad[0]]!r}"
+
+
+def _rollup_snap_and_agg(strategy):
+    """A seeded table and ``SELECT k1, k2, COUNT(*), SUM(v), SUM(f),
+    SUM(n), MIN(n), MAX(v), COUNT(v) ... GROUP BY k1, k2 WITH ROLLUP`` as
+    the planner binds it (tests/test_torch_rollup.py's)."""
+    n = 20_000
+    rng = np.random.default_rng(41)
+    specs = [
+        {"kind": "INT64", "nullable": True, "data": rng.integers(0, 40, n),
+         "validity": rng.random(n) > 0.1},
+        {"kind": "STRING", "nullable": False,
+         "data": rng.integers(0, 3, n).astype(np.int32),
+         "dictionary": ["x", "y", "z"]},
+        {"kind": "DECIMAL", "nullable": True, "prec": 12, "scale": 2,
+         "data": rng.integers(-10 ** 7, 10 ** 7, n),
+         "validity": rng.random(n) > 0.05},
+        {"kind": "FLOAT64", "nullable": False,
+         "data": rng.normal(0, 100, n)},
+        {"kind": "INT64", "nullable": False,
+         "data": rng.integers(-20_000, 20_000, n)}]
+    snap = snapshot_from_numpy(["k1", "k2", "v", "f", "n"], specs)
+    from tidb_tpu_torch.copr.aggregate import sum_out_dtype
+    ni64, i64, s = dt.bigint(), dt.bigint(False), dt.varchar(False)
+    dec, f64 = dt.decimal(12, 2), dt.double(False)
+    scan = D.TableScan((0, 1, 2, 3, 4), (ni64, s, dec, f64, i64))
+    exp = D.Expand(scan, (ColumnRef(ni64, 0, "k1"), ColumnRef(s, 1, "k2")),
+                   3)
+    gb = (ColumnRef(ni64, 5), ColumnRef(dt.varchar(True), 6),
+          ColumnRef(i64, 7))
+    A, F = D.AggDesc, D.AggFunc
+    v, f, nn = ColumnRef(dec, 2), ColumnRef(f64, 3), ColumnRef(i64, 4)
+    aggs = (A(F.COUNT, None, i64), A(F.SUM, v, sum_out_dtype(dec)),
+            A(F.SUM, f, dt.double()), A(F.SUM, nn, sum_out_dtype(i64)),
+            A(F.MIN, nn, dt.bigint()), A(F.MAX, v, dec),
+            A(F.COUNT, v, i64))
+    if strategy == "DENSE":
+        agg = D.Aggregation(exp, gb, aggs, D.GroupStrategy.DENSE,
+                            domain_sizes=(41, 4, 3))
+    else:
+        agg = D.Aggregation(exp, gb, aggs, D.GroupStrategy[strategy],
+                            group_capacity=512, num_buckets=512)
+    return snap, agg
+
+
+@pytest.mark.parametrize("strategy", ["DENSE", "SORT"])
+def test_rollup_states_on_the_card_equal_the_cpu(dev, strategy):
+    """Rollup's two branches, the DENSE one level by level and the SORT
+    one over the materialized expand, on 8 logical devices of the card:
+    counts, limbs and MIN/MAX equal the CPU's, float sums within
+    ``FSUM_RTOL`` of the slot's sum of |v|."""
+    snap, agg = _rollup_snap_and_agg(strategy)
+    out = {}
+    for d in (dev, torch.device("cpu")):
+        devs = (d,) * 8
+        cols, counts = snap.device_cols(devs)
+        out[d.type] = ShardedCopProgram(agg, devs)(cols, counts, ())
+    absum = float(np.abs(snap.columns[3].data).sum())
+
+    def leaves(t, p=""):
+        if isinstance(t, dict):
+            for k in sorted(t):
+                yield from leaves(t[k], f"{p}/{k}")
+        else:
+            yield p, t
+    got, want = dict(leaves(out["cuda"])), dict(leaves(out["cpu"]))
+    assert sorted(got) == sorted(want)
+    for k, w in want.items():
+        g = got[k].cpu()
+        assert g.dtype == w.dtype and g.shape == w.shape, k
+        if w.dtype.is_floating_point and "sum" in k:
+            assert ((g - w).abs() <= FSUM_RTOL * absum).all(), k
+        else:
+            assert torch.equal(g, w) or (
+                w.dtype.is_floating_point and torch.equal(
+                    torch.nan_to_num(g, 7.0), torch.nan_to_num(w, 7.0))), k
+
+
+@pytest.fixture(scope="module")
+def tpch_pair(card):
+    from tidb_tpu_torch.testing import tpch
+    data = tpch.gen_tpch(0.001, seed=0)
+    return (tpch.sql_session(data, device="cuda", n_devices=8),
+            tpch.sql_session(data, device="cpu", n_devices=8))
+
+
+def _tpch_names():
+    from tidb_tpu_torch.testing import tpch
+    return sorted(tpch.TPCH_22)
+
+
+@pytest.mark.parametrize("qn", _tpch_names())
+def test_tpch_on_the_card_equals_the_cpu(dev, tpch_pair, qn):
+    """The 22 TPC-H statements over ``gen_tpch(0.001)`` through a session
+    on the card (8 logical devices) return the CPU session's rows."""
+    from tidb_tpu_torch.testing import tpch
+    card, cpu = tpch_pair
+    sql = tpch.TPCH_22[qn]
+    got, want = card.execute(sql), cpu.execute(sql)
+    assert got.names == want.names
+    _card_rows_equal(got.rows, want.rows)
+
+
+# ------------------------------------------------------------------ #
+# windows and statistics on the card
+# ------------------------------------------------------------------ #
+
+def _window_tables(dtm, Column, StringDict):
+    rng = np.random.default_rng(7)
+    n = 30_000
+    g = rng.integers(0, 300, n)
+    return {"t": (["g", "o", "v", "d", "f", "name"], [
+        Column(dtm.bigint(True), g.astype(np.int64), rng.random(n) > 0.01),
+        Column(dtm.bigint(False), rng.integers(0, 60, n).astype(np.int64),
+               np.ones(n, bool)),
+        Column(dtm.bigint(True), rng.integers(-50, 50, n).astype(np.int64),
+               rng.random(n) > 0.02),
+        Column(dtm.decimal(12, 2, True),
+               rng.integers(0, 10 ** 7, n).astype(np.int64),
+               rng.random(n) > 0.02),
+        Column(dtm.double(True), rng.normal(0, 100, n),
+               rng.random(n) > 0.02),
+        Column(dtm.varchar(False), rng.integers(0, 4, n).astype(np.int32),
+               np.ones(n, bool), StringDict(["apple", "fig", "kiwi",
+                                             "pear"]))]),
+        "sk": (["g", "v"], [
+            Column(dtm.bigint(False), np.full(20_000, 7, np.int64),
+                   np.ones(20_000, bool)),
+            Column(dtm.bigint(False), np.arange(20_000, dtype=np.int64),
+                   np.ones(20_000, bool))])}
+
+
+WINDOW_ON_CARD = {
+    "row_number": ("select g, o, v, row_number() over (partition by g "
+                   "order by o, v) from t", ("radix_onesweep64",)),
+    "rank dense_rank desc": (
+        "select g, v, rank() over (partition by g order by v desc), "
+        "dense_rank() over (partition by g order by v desc) from t",
+        ("radix_onesweep64",)),
+    "aggregates": (
+        "select g, sum(v) over (partition by g), count(*) over (partition "
+        "by g), min(v) over (partition by g), max(d) over (partition by "
+        "g), avg(v) over (partition by g), avg(d) over (partition by g), "
+        "sum(f) over (partition by g), min(name) over (partition by g) "
+        "from t", ("radix_onesweep64", "group_reduce")),
+    "skew regrow": ("select v, row_number() over (partition by g order by "
+                    "v) from sk", ("radix_onesweep64",)),
+}
+
+
+@pytest.fixture(scope="module")
+def window_pair(card):
+    from tidb_tpu_torch.chunk.column import Column, StringDict
+    from tidb_tpu_torch.testing import tpch
+    tabs = _window_tables(dt, Column, StringDict)
+    return (tpch.sql_session(tabs, device="cuda", n_devices=8),
+            tpch.sql_session(tabs, device="cpu", n_devices=8))
+
+
+@pytest.mark.parametrize("name", sorted(WINDOW_ON_CARD))
+def test_window_on_the_card_equals_the_cpu(dev, window_pair, name):
+    """A window statement through a session on the card (8 logical
+    devices: the exchange moves rows) returns the CPU session's rows,
+    its regrow rounds equal, its hand kernels launched."""
+    card, cpu = window_pair
+    sql, kernels = WINDOW_ON_CARD[name]
+    assert "CopWindow" in "\n".join(
+        r[0] for r in card.execute("explain " + sql).rows)
+    before = {**gr.LAUNCHES, **os1.LAUNCHES}
+    got = card.execute(sql)
+    launched = {k: v - before[k] for k, v in {**gr.LAUNCHES,
+                                               **os1.LAUNCHES}.items()}
+    want = cpu.execute(sql)
+    assert got.names == want.names
+    _card_rows_equal(got.rows, want.rows)
+    assert card.domain.client.timings["windows"] == \
+        cpu.domain.client.timings["windows"]
+    for k in kernels:
+        assert launched[k] > 0, k
+
+
+STATS_ON_CARD = ["ints with nulls", "floats with nulls", "ties", "one value",
+                 "few rows", "all null", "full range"]
+
+
+def _stats_case(name):
+    from tidb_tpu_torch.stats.build import sortable_f64
+    rng = np.random.default_rng(13)
+    n = 200_000
+    some = rng.random(n) < 0.9
+    if name == "ints with nulls":
+        return rng.integers(0, 50_000, n), some
+    if name == "floats with nulls":
+        return sortable_f64(rng.normal(size=n) * 1e3), some
+    if name == "ties":
+        return rng.permutation(np.repeat(np.arange(40), 10)), \
+            np.ones(400, bool)
+    if name == "one value":
+        return np.full(5000, 42), np.ones(5000, bool)
+    if name == "few rows":
+        return np.array([5, 3, 5, 9, 3, 5]), \
+            np.array([True, True, True, False, True, True])
+    if name == "all null":
+        return rng.integers(0, 9, 3000), np.zeros(3000, bool)
+    return rng.integers(-2 ** 63, 2 ** 63 - 1, n, dtype=np.int64), some
+
+
+@pytest.mark.parametrize("name", STATS_ON_CARD)
+def test_stats_kernel_on_the_card_equals_plain(dev, name):
+    """The ANALYZE kernel on the card (``stable_argsort`` on the
+    onesweep kernels, the run and CM tables on ``group_reduce``) equals
+    its plain version on the CPU in every output, exactly, and launched
+    its hand kernels."""
+    from tidb_tpu_torch.stats.build import stats_kernel
+    x, valid = _stats_case(name)
+    x = torch.from_numpy(np.ascontiguousarray(x, dtype=np.int64))
+    v = torch.from_numpy(valid)
+    before = {**gr.LAUNCHES, **os1.LAUNCHES}
+    got = stats_kernel(x.to(dev), v.to(dev), 64, 16)
+    torch.cuda.synchronize()
+    launched = {k: val - before[k] for k, val in {**gr.LAUNCHES,
+                                                   **os1.LAUNCHES}.items()}
+    want = stats_kernel(x, v, 64, 16)
+    assert set(got) == set(want)
+    for k in want:
+        g = got[k].cpu()
+        assert g.dtype == want[k].dtype, k
+        assert torch.equal(g, want[k]), k
+    assert launched["group_reduce"] == 2
+    assert launched["radix_hist_all64"] >= 1

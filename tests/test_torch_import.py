@@ -52,8 +52,24 @@ SELECT_MODULES = ["tidb_tpu_torch/planner/partition_prune.py",
                   "tidb_tpu_torch/copr/exec.py"]
 
 
+# windows and statistics: the window program, the cost model of the
+# high-NDV strategy choice and the stats package
+WINDOW_STATS_MODULES = ["tidb_tpu_torch/parallel/window.py",
+                        "tidb_tpu_torch/parallel/topology.py",
+                        "tidb_tpu_torch/analysis/__init__.py",
+                        "tidb_tpu_torch/analysis/contracts.py",
+                        "tidb_tpu_torch/analysis/copcost.py",
+                        "tidb_tpu_torch/analysis/calibrate.py",
+                        "tidb_tpu_torch/analysis/compilekey.py",
+                        "tidb_tpu_torch/stats/__init__.py",
+                        "tidb_tpu_torch/stats/build.py",
+                        "tidb_tpu_torch/stats/histogram.py",
+                        "tidb_tpu_torch/stats/sketch.py",
+                        "tidb_tpu_torch/stats/handle.py"]
+
+
 @pytest.mark.parametrize("path", JOIN_MODULES + STORE_MODULES
-                         + SELECT_MODULES)
+                         + SELECT_MODULES + WINDOW_STATS_MODULES)
 def test_join_modules_are_checked(path):
     assert path in SOURCES
 
@@ -86,6 +102,31 @@ def test_ported_module_names_its_counterpart(path):
     m = PROVENANCE.match(first)
     assert m, f"{path}: first line {first!r}"
     assert (ROOT / m.group(1)).exists(), m.group(1)
+
+
+def test_window_stats_modules_load_no_jax():
+    """The modules of the windows-and-statistics slice, imported one by
+    one in a fresh interpreter, each leave jax and tidb_tpu out of
+    sys.modules."""
+    mods = [p[:-3].replace("/", ".").removesuffix(".__init__")
+            for p in WINDOW_STATS_MODULES]
+    code = (
+        "import importlib, sys\n"
+        f"for m in {mods!r}:\n"
+        "    importlib.import_module(m)\n"
+        "    bad = sorted(k for k in sys.modules if k == 'jax'\n"
+        "                 or k.startswith(('jax.', 'jaxlib'))\n"
+        "                 or k == 'tidb_tpu' or k.startswith('tidb_tpu.'))\n"
+        "    print(m, bad)\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(ROOT)] + [p for p in [env.get("PYTHONPATH")] if p])
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    lines = out.stdout.splitlines()
+    assert [ln.split(" ", 1)[0] for ln in lines] == mods
+    assert all(ln.split(" ", 1)[1] == "[]" for ln in lines), lines
 
 
 def test_import_loads_no_jax_module():

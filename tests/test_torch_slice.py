@@ -493,24 +493,18 @@ def _unported_cases():
 
 # SQL statements of later slices: (statement, the ROADMAP.md item named)
 _UNPORTED_SQL = {
-    "SQL window over a join": ("""select l_orderkey, row_number() over
-                                  (partition by l_returnflag order by
-                                   l_extendedprice desc) as rn
-                                  from lineitem, part
-                                  where p_partkey = l_partkey
-                                  and p_size < 25""",
-                               "Queue 1 item 4: slice 8"),
-    "SQL window": ("""select l_orderkey, row_number() over (partition by
-                      l_returnflag order by l_extendedprice desc) as rn
-                      from lineitem limit 10""",
-                   "Queue 1 item 4: slice 8"),
-    "SQL analyze table": ("analyze table lineitem",
-                          "Queue 1 item 5: slice 9"),
-    "SQL auto-analyze on": ("set tidb_enable_auto_analyze = 1",
-                            "Queue 1 item 5: slice 9"),
-    "SQL show tables": ("show tables", "Queue 1 item 1, sub-step 2d"),
-    "SQL show databases": ("show databases",
-                           "Queue 1 item 1, sub-step 2d"),
+    "SQL show bindings": ("show global bindings",
+                          "Queue 1 item 1, sub-step 5"),
+    "SQL show grants": ("show grants", "Queue 1 item 1, sub-step 1"),
+    "SQL show processlist": ("show processlist",
+                             "Queue 1 item 1, sub-step 1"),
+    "SQL show statements summary": ("show statements_summary",
+                                    "Queue 1 item 1, sub-step 1"),
+    "SQL show slow queries": ("show slow_queries",
+                              "Queue 1 item 1, sub-step 1"),
+    "SQL show status": ("show status", "Queue 1 item 1, sub-step 1"),
+    "SQL deallocate": ("deallocate prepare s1",
+                       "Queue 1 item 1, sub-step 5"),
     "SQL prepare": ("prepare s1 from 'select count(*) from part'",
                     "Queue 1 item 1, sub-step 5"),
     "SQL execute": ("execute s1", "Queue 1 item 1, sub-step 5"),

@@ -15,31 +15,33 @@ What is ported so far: the coprocessor client
 (``store.client.CopClient``: ``execute_agg`` for the SCALAR, DENSE,
 SORT, SEGMENT and SCATTER strategies, ``execute_rows`` for TopN, Limit
 and filtered projections, both with broadcast joins fused into the
-program, and ``execute_shuffle_agg``/``execute_shuffle_rows`` for the
-repartition join over the logical devices) over a
-``store.columnar.ColumnarSnapshot``, on the hand-written CUDA kernels
-of ``copr/cuda/``; and above it the SELECT path from SQL text: the
-parser (``sql/``), the planner (``planner/``, with the join reorder),
-the executor (``executor/``: the device joins, the host join
-operators and the index readers), the catalog and a ``session.Session``
-whose plans are the JAX package's with auto-analyze off (every device
-evaluator lane, rollup, views, sequences, partitioned tables, set
-operations and CTEs among them); and beneath the session the row
-store: the native MVCC engine (``native/kvstore.cpp``, built with g++
-at first use by ``store/kv.py``), the row codec, the
-catalog on KV, the write statements, transactions and the online DDL
-(``ddl/``).  What the port does not run yet raises
-``NotImplementedError`` naming its ROADMAP.md item (below).
+program, ``execute_shuffle_agg``/``execute_shuffle_rows`` for the
+repartition join and ``execute_window`` for the window functions, both
+over the logical devices) over a ``store.columnar.ColumnarSnapshot``,
+on the hand-written CUDA kernels of ``copr/cuda/``; and above it the
+SELECT path from SQL text: the parser (``sql/``), the planner
+(``planner/``, with the join reorder and the selectivity and index
+costs from statistics), the executor (``executor/``: the device joins
+and windows, the host join and window operators and the index readers,
+the high-NDV strategy chosen by the cost model of ``analysis/``), the
+catalog and a ``session.Session`` whose plans are the JAX package's
+(every device evaluator lane, rollup, views, sequences, partitioned
+tables, set operations and CTEs among them), with ANALYZE (``stats/``,
+its kernel on the card), the inline auto-analyze and the SHOW
+statements; and beneath the session the row store: the native MVCC
+engine (``native/kvstore.cpp``, built with g++ at first use by
+``store/kv.py``), the row codec, the catalog on KV, the write
+statements, transactions and the online DDL (``ddl/``).  What the port
+does not run yet raises ``NotImplementedError`` naming its ROADMAP.md
+item (below).
 """
 
 # ROADMAP.md items of the paths the port does not run yet, named by the
 # NotImplementedError each raises
 HOST_BASE = "Queue 1 item 1, sub-step 1: the rest of the host base"
-SHOW = "Queue 1 item 1, sub-step 2d: the SHOW statements"
 PLAN_CACHE = "Queue 1 item 1, sub-step 5: the plan cache and bindings"
 PLANNER = "Queue 1 item 1, sub-step 7: the cascades planner"
-EXCHANGE = "Queue 1 item 4: slice 8, multiple GPUs, windows and exchanges"
-STATS = "Queue 1 item 5: slice 9, ANALYZE and statistics"
+EXCHANGE = "Queue 1 item 4: several physical GPUs"
 ANALYSIS = "Queue 1 item 7: slice 11, the analysis gates"
 CONTROL = "Queue 1 item 8: slice 12, the control and observability planes"
 HOST_SURFACE = "Queue 1 item 9: slice 13, the rest of the host surface"

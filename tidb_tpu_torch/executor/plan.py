@@ -25,7 +25,6 @@ from ..planner.logical import (DataSource, LogicalAggregate, LogicalCTEScan,
                                LogicalSetOp, LogicalSort, LogicalTopN,
                                LogicalWindow)
 from ..types import dtypes as dt
-from .. import ANALYSIS, unported
 from ..planner.ranger import LogicalIndexScan
 from .physical import (CopTaskExec, CTEScanExec, DualExec, HostAgg,
                        HostHashJoin, HostLimit, HostProjection, HostSelection,
@@ -1289,12 +1288,56 @@ def _bind_agg(agg: LogicalAggregate, child: D.CopNode, dicts,
                          group_capacity=cap)
 
 
+# plan-time device count for strategy arbitration: the same 8-vdev
+# convention every plan-level copcost consumer uses (plan_cost default)
+_ARBITRATE_DEVICES = 8
+
+# choices whose pricing failed: the table's layout could not be read (the
+# choice then prices a nominal layout) or a candidate could not be priced
+# (it then takes the first candidate).  The JAX package falls back
+# silently; the port counts both, so that a fault in its copy of the cost
+# model cannot hide behind either fallback
+ARBITRATE_FALLBACKS = 0
+
+
 def _arbitrate_strategy(candidates, ds) -> D.Aggregation:
-    """The JAX package prices SCATTER, SEGMENT and SORT with its cost
-    model and picks the cheapest.  The port has no cost model yet, so it
-    raises rather than pick a plan the JAX package might not pick."""
-    raise unported("the high-NDV strategy choice by the cost model",
-                   ANALYSIS)
+    """Calibration-arbitrated high-NDV strategy choice: price every
+    candidate dag with the static copcost walk over the table's real
+    layout (a nominal one when stats/snapshot are unavailable), bend
+    each prediction by the candidate digest's MEASURED time_factor
+    (analysis/calibrate.arbitrated_ms, clamped), pick the cheapest —
+    first wins ties, so the declaration order (SCATTER, SEGMENT, SORT)
+    is the static preference.  Any pricing failure falls back to the
+    first candidate rather than failing the plan; it, and a table layout
+    that cannot be read, are counted in ``ARBITRATE_FALLBACKS``."""
+    global ARBITRATE_FALLBACKS
+    try:
+        from ..analysis.calibrate import arbitrated_ms
+        from ..analysis.compilekey import stable_digest
+        from ..analysis.copcost import (Layout, dag_cost, snapshot_layout,
+                                        snapshot_scan_widths)
+        layout = widths = None
+        if ds is not None:
+            try:
+                snap = ds.table.snapshot()
+                layout = snapshot_layout(snap, _ARBITRATE_DEVICES)
+                widths = snapshot_scan_widths(snap)
+            except (AttributeError, TypeError, ValueError):
+                ARBITRATE_FALLBACKS += 1
+                layout = widths = None
+        if layout is None:
+            layout = Layout(_ARBITRATE_DEVICES, 1 << 18,
+                            _ARBITRATE_DEVICES, 1 << 21)
+        best, best_ms = candidates[0], None
+        for dag in candidates:
+            ms = arbitrated_ms(stable_digest(dag),
+                               dag_cost(dag, layout, widths))
+            if best_ms is None or ms < best_ms:
+                best, best_ms = dag, ms
+        return best
+    except (ImportError, AttributeError, TypeError, ValueError):
+        ARBITRATE_FALLBACKS += 1
+        return candidates[0]
 
 
 def _cap_pow2(total: int) -> int:

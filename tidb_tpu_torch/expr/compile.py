@@ -425,7 +425,10 @@ class Evaluator:
     @staticmethod
     def _as_double(v, t: dt.DataType):
         if t.kind == K.DECIMAL:
-            return v.to(torch.float64) / float(dec.pow10(t.scale)) \
+            # a 0-d divisor on the lane's device: CUDA turns a python
+            # float divisor into a product with its reciprocal
+            return v.to(torch.float64) / _lane(
+                float(dec.pow10(t.scale)), v.device) \
                 if _is_tensor(v) else float(v) / dec.pow10(t.scale)
         if t.kind == K.UINT64:
             return _u2f(_bits(v)) if _is_tensor(v) \
@@ -793,11 +796,14 @@ class Evaluator:
             f = self._t(self._as_double(v, a.dtype))
             p = 10.0 ** nd
             scaled = f * p
+            # divided by a 0-d tensor on the lane's device (see
+            # _as_double)
+            p_dev = _lane(p, f.device)
             if trunc:
-                out = torch.trunc(scaled) / p
+                out = torch.trunc(scaled) / p_dev
             else:
                 out = torch.where(scaled >= 0, torch.floor(scaled + 0.5),
-                                  torch.ceil(scaled - 0.5)) / p
+                                  torch.ceil(scaled - 0.5)) / p_dev
             return out, m
         div = _trunc_div if trunc else _round_div
         if a.dtype.kind == K.DECIMAL:

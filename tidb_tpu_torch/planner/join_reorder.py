@@ -1,12 +1,6 @@
 # ported from tidb_tpu/planner/join_reorder.py @ e08c981
 """Cost-based greedy join reorder.
 
-The port has no statistics yet (ROADMAP.md, Queue 1 item 5): it plans
-as the JAX package plans over tables that were never ANALYZEd, where
-``stats_handle.get(table)`` is None and every estimate is the row count
-times the pseudo selectivities (planner/cardinality.py).  The port
-passes ``stats_handle=None``, which gives the same estimates.
-
 Reference analog: pkg/planner/core/rule/rule_join_reorder.go — the greedy
 variant: flatten a maximal inner/cross join tree into a join group, start
 from the smallest (post-filter) relation, and repeatedly attach the

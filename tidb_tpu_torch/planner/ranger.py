@@ -19,7 +19,6 @@ from typing import Optional
 
 from ..expr.ir import ColumnRef, Const, Expr, Func
 from ..types import dtypes as dt
-from .. import STATS, unported
 from .logical import (DataSource, LogicalPlan, LogicalSelection, Schema,
                       SchemaCol)
 
@@ -216,7 +215,7 @@ IDX_SEEK_COST = 30.0
 
 
 def _index_cost(acc: IndexAccess, ds: DataSource, stats) -> float:
-    raise unported("the cost of an index path from statistics", STATS)
+    from .cardinality import cond_selectivity
 
     tbl = ds.table
     n = tbl.num_rows

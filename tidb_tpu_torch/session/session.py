@@ -1,4 +1,5 @@
 # ported from tidb_tpu/session/session.py @ 3951242
+# (windows, ANALYZE, auto-analyze and SHOW from the same file @ 6298005)
 """Session: statement lifecycle.
 
 Reference analog: pkg/session (session.ExecuteStmt, session.go:2112) —
@@ -18,14 +19,22 @@ savepoint a statement); and the DDL (``CREATE``/``DROP``
 INDEX``/``DROP INDEX`` through the DDL owner) with ``ADMIN CHECK
 TABLE``; views, sequences (``NEXTVAL``/``LASTVAL``/``SETVAL`` through
 the host evaluator), ``SPLIT TABLE`` and partitioned tables (pruned at
-plan time, planner/partition_prune.py); and in a SELECT, ``WITH
-ROLLUP``, ``UNION``/``INTERSECT``/``EXCEPT`` and CTEs.  Its
+plan time, planner/partition_prune.py); in a SELECT, ``WITH ROLLUP``,
+``UNION``/``INTERSECT``/``EXCEPT``, CTEs and window functions;
+``ANALYZE TABLE`` (the statistics kernel on the card, stats/) and the
+``SHOW`` kinds ``CREATE TABLE``, ``TABLES``, ``DATABASES``,
+``COLUMNS``, ``INDEX``, ``STATS_META``, ``STATS_HISTOGRAMS``,
+``STATS_TOPN``, ``COLLATION``, ``CHARSET`` and ``VARIABLES``.  Its
 ``_plan_select`` is the JAX package's without the plan cache, plan
-bindings, cascades, the inline auto-analyze and the analysis gates, and with its greedy join reorder run without statistics; so its
-plans are the JAX package's plans with ``tidb_enable_auto_analyze = 0``.
-A physical plan that holds an operator of a later slice (a window or a
-memtable) raises ``NotImplementedError`` naming its ROADMAP.md item, as
-does every other statement kind.
+bindings, cascades and the analysis gates: the inline auto-analyze,
+the join reorder, the index paths and the high-NDV strategy choice read
+the domain's statistics.  The port's ``Domain`` starts with
+``tidb_enable_auto_analyze = 0`` (the JAX package's default is 1) and
+runs no background stats load, so a session that never runs ANALYZE
+plans as the JAX package's does with auto-analyze off.  A physical plan
+that holds an operator of a later slice (a memtable) raises
+``NotImplementedError`` naming its ROADMAP.md item, as do every other
+statement kind and the SHOW kinds of later slices.
 """
 
 from __future__ import annotations
@@ -37,11 +46,11 @@ from typing import Any, Optional
 
 import numpy as np
 
-from .. import (CONTROL, EXCHANGE, HOST_SURFACE, PLAN_CACHE, PLANNER,
-                SHOW, STATS, unported)
+from .. import (CONTROL, HOST_BASE, HOST_SURFACE, PLAN_CACHE, PLANNER,
+                unported)
 from ..copr.coordinator import KILL_EVENT, QUERY_HANDLE, Coordinator
 from ..executor import physical as P
-from ..executor.plan import to_physical
+from ..executor.plan import STATS_HANDLE, to_physical
 from ..planner.join_reorder import reorder_joins
 from ..planner.build import (PLAN_TAINTS, SEQUENCE_RESOLVER, SESSION_INFO,
                              SUBQUERY_EXECUTOR, PlanError, build_query)
@@ -74,16 +83,17 @@ class ResultSet:
 
 class Domain:
     """Per-process state (pkg/domain analog): catalog + the native KV row
-    store + the port's ``CopClient`` + sysvars + the metadata locks, the
-    AUTO_INCREMENT service, the online-DDL owner and the query
-    coordinator.
+    store + the port's ``CopClient`` + statistics + sysvars + the
+    metadata locks, the AUTO_INCREMENT service, the online-DDL owner and
+    the query coordinator.
 
     ``device`` and ``n_devices`` go to ``CopClient``: the default is one
     ``cuda:0`` and raises without a GPU; tests pass ``device="cpu"``.
     ``data_dir`` makes the store durable (a WAL-backed engine and the
     catalog on KV, so schema and rows survive a new ``Domain`` over the
-    same directory); ``sync`` fdatasyncs every commit record.  The JAX
-    package's Domain also takes a tenant keyspace and holds statistics,
+    same directory); ``sync`` fdatasyncs every commit record.  ``stats``
+    holds the tables' statistics, built on the client's first device.
+    The JAX package's Domain also takes a tenant keyspace and holds
     privileges, bindings, the watch plane, DXF and the background
     workers; the port's has none of them yet (ROADMAP.md, Queue 1)."""
 
@@ -127,8 +137,12 @@ class Domain:
         self._id_mu = threading.Lock()
         self._next_conn_id = 0
         self.sysvars: dict[str, Any] = defaults()
-        # statistics arrive with slice 9: the port plans as the JAX
-        # package does with auto-analyze off, and says so
+        from ..stats.handle import StatsHandle
+        # per-table statistics (ANALYZE), built on the client's card
+        self.stats = StatsHandle(self.client.devices[0])
+        # the JAX package's default is 1; the port starts with the
+        # inline auto-analyze off, so a session that never runs ANALYZE
+        # or sets it on plans as over tables never analyzed
         self.sysvars["tidb_enable_auto_analyze"] = 0
         from .autoid import AutoIDService
         self.autoid = AutoIDService(self.kv)  # pkg/autoid_service analog
@@ -163,8 +177,6 @@ class Domain:
 
 # statement kinds of later slices, by the ROADMAP.md item that ports them
 _UNPORTED_STMTS = {
-    "ShowStmt": SHOW,
-    "AnalyzeTable": STATS,
     "PrepareStmt": PLAN_CACHE, "ExecutePrepared": PLAN_CACHE,
     "DeallocateStmt": PLAN_CACHE, "CreateBinding": PLAN_CACHE,
     "DropBinding": PLAN_CACHE,
@@ -173,10 +185,16 @@ _UNPORTED_STMTS = {
     "SetResourceGroup": CONTROL,
 }
 
+# SHOW kinds of later slices, by the ROADMAP.md item that ports them
+_UNPORTED_SHOW = {
+    "bindings": PLAN_CACHE,
+    "statements_summary": HOST_BASE, "slow_queries": HOST_BASE,
+    "grants": HOST_BASE, "processlist": HOST_BASE, "status": HOST_BASE,
+}
+
 # physical operators of later slices, by the ROADMAP.md item that ports
 # them; every other operator of executor/physical.py runs
 _UNPORTED_OPS = {
-    "CopWindowExec": EXCHANGE, "HostWindow": EXCHANGE,
     "MemTableExec": HOST_SURFACE,
 }
 
@@ -397,6 +415,15 @@ class Session:
         if isinstance(stmt, A.TruncateTable):
             n = self.domain.catalog.get_table(self.db, stmt.name).truncate()
             return ResultSet(affected=n)
+        if isinstance(stmt, A.ShowStmt):
+            return self._exec_show(stmt)
+        if isinstance(stmt, A.AnalyzeTable):
+            tbl = self.domain.catalog.get_table(self.db, stmt.name)
+            self.domain.stats.analyze_table(
+                tbl, columns=stmt.columns or None,
+                sample_rate=stmt.sample_rate,
+                predicate_only=stmt.predicate_columns)
+            return ResultSet()
         if isinstance(stmt, A.SetStmt):
             return self._exec_set(stmt)
         if isinstance(stmt, A.TxnStmt):
@@ -464,8 +491,6 @@ class Session:
                 v = validate_set(name.lower(), v, scope=stmt.scope)
             except SysVarError as e:
                 raise PlanError(str(e))
-            if name.lower() == "tidb_enable_auto_analyze" and v:
-                raise unported("auto-analyze (statistics)", STATS)
             if stmt.scope == "global":
                 self.domain.sysvars[name.lower()] = v
             else:
@@ -486,8 +511,7 @@ class Session:
     def _plan_select(self, stmt):
         """Build, optimize and bind the physical plan of a SELECT: the
         JAX package's ``_plan_select`` without the plan cache, bindings,
-        auto-analyze and analysis gates, its join reorder without
-        statistics."""
+        the background stats load and the analysis gates."""
         t0 = time.perf_counter()
         if getattr(stmt, "hints", None):
             raise unported("optimizer hints and plan bindings", PLAN_CACHE)
@@ -505,14 +529,14 @@ class Session:
         finally:
             SUBQUERY_EXECUTOR.reset(token)
             PLAN_TAINTS.reset(token2)
+        self._maybe_auto_analyze(built.plan)
         plan = optimize_plan(built.plan)
+        self._note_predicate_columns(plan)
         if _flag_on(merged, "tidb_opt_skew_distinct_agg", default=False):
             from ..planner.rules import rewrite_skew_distinct
             plan = rewrite_skew_distinct(plan)
-        # the greedy join reorder without statistics: the JAX package's
-        # over tables never ANALYZEd (its handle's get gives None)
-        plan = reorder_joins(plan, None)
-        phys = self._to_physical(apply_index_paths(plan))
+        plan = reorder_joins(plan, self.domain.stats)
+        phys = self._to_physical(apply_index_paths(plan, self.domain.stats))
         self.timings["plan"] = time.perf_counter() - t0
         return built, phys
 
@@ -520,9 +544,11 @@ class Session:
         """The physical plan, its cop tasks naming the client's device;
         raises for an operator of a later slice (``check_ported``)."""
         tok = P.COP_DEVICE.set(self.domain.client.devices[0].type)
+        tok2 = STATS_HANDLE.set(self.domain.stats)
         try:
             phys = to_physical(plan)
         finally:
+            STATS_HANDLE.reset(tok2)
             P.COP_DEVICE.reset(tok)
         check_ported(phys)
         return phys
@@ -537,8 +563,8 @@ class Session:
         built = build_query(sub_ast, self.domain.catalog, self.db)
         if len(built.plan.schema) != 1:
             raise PlanError("scalar subquery must return one column")
-        plan = reorder_joins(optimize_plan(built.plan), None)
-        phys = self._to_physical(apply_index_paths(plan))
+        plan = reorder_joins(optimize_plan(built.plan), self.domain.stats)
+        phys = self._to_physical(apply_index_paths(plan, self.domain.stats))
         chunk = phys.execute(self._exec_ctx())
         if chunk.num_rows > 1:
             raise PlanError("scalar subquery returned more than one row")
@@ -554,6 +580,51 @@ class Session:
         v = col.data[0]
         v = v.item() if hasattr(v, "item") else v
         return Const(col.dtype.with_nullable(False), v)
+
+    def _maybe_auto_analyze(self, plan):
+        """Refresh stale stats before planning (handle/autoanalyze.go
+        analog, run inline instead of in a background worker)."""
+        merged = {**self.domain.sysvars, **self.vars}
+        if not _flag_on(merged, "tidb_enable_auto_analyze"):
+            return
+        from ..planner.logical import DataSource
+        stack, seen = [plan], set()
+        while stack:
+            p = stack.pop()
+            stack.extend(p.children)
+            if isinstance(p, DataSource) and id(p.table) not in seen:
+                seen.add(id(p.table))
+                if self.domain.stats.needs_auto_analyze(p.table):
+                    self.domain.stats.analyze_table(p.table)
+
+    def _note_predicate_columns(self, plan) -> None:
+        """Track filtered columns for ANALYZE ... PREDICATE COLUMNS
+        (column_stats_usage.go analog).  The JAX package also schedules
+        a background ANALYZE here for a table with no stats (its async
+        load, ``StatsHandle.request_load``); the port runs no background
+        workers yet (ROADMAP.md, Queue 1 entry 13), so its plans wait
+        for ANALYZE or the inline auto-analyze."""
+        from ..planner.logical import DataSource, LogicalSelection
+        from ..planner.optimize import referenced_columns
+        stats = self.domain.stats
+
+        def walk(p):
+            if isinstance(p, LogicalSelection) \
+                    and isinstance(p.children[0], DataSource):
+                ds = p.children[0]
+                refs = set()
+                for c in p.conditions:
+                    refs |= referenced_columns(c)
+                names = [ds.schema.cols[i].name for i in refs
+                         if i < len(ds.schema.cols)]
+                stats.note_predicate_columns(ds.table, names)
+            for c in getattr(p, "children", []):
+                walk(c)
+
+        try:
+            walk(plan)
+        except Exception:
+            pass     # tracking is advisory, never a planning failure
 
     def _exec_ctx(self) -> P.ExecContext:
         """Statement-scoped execution context with a fresh memory tracker
@@ -945,7 +1016,7 @@ class Session:
             # MySQL LAST_INSERT_ID(): first auto-generated id of the last
             # batch; the table counter sits past the batch after insert
             self.last_insert_id = max(int(tbl._auto_inc) - n + 1, 1)
-        # (the JAX package notes the modify count for auto-analyze here: ROADMAP.md, Queue 1 item 5)
+        self.domain.stats.note_modify(tbl, n)
         return ResultSet(affected=n)
 
     def _dml_atomic(self, handler, stmt) -> ResultSet:
@@ -1144,7 +1215,7 @@ class Session:
             tbl._invalidate()
         if self.txn is not None:
             self._txn_tables.add(tbl)
-        # (the JAX package notes the modify count for auto-analyze here: ROADMAP.md, Queue 1 item 5)
+        self.domain.stats.note_modify(tbl, total)
         return ResultSet(affected=total)
 
     def _where_mask(self, tbl: TableInfo, where: Optional[A.Node]) -> np.ndarray:
@@ -1323,7 +1394,7 @@ class Session:
             new_rows = [tuple(plainify(x) for x in r) for r in rows]
             tbl._fk_check_rows([new_rows[i] for i in midx])
             tbl.replace_columns(_rows_to_columns(tbl, new_rows))
-        # (the JAX package notes the modify count for auto-analyze here: ROADMAP.md, Queue 1 item 5)
+        self.domain.stats.note_modify(tbl, n_aff, delta=0)
         return ResultSet(affected=n_aff)
 
     def _exec_delete(self, stmt: A.Delete) -> ResultSet:
@@ -1342,7 +1413,7 @@ class Session:
                                      txn=self.txn)
             else:
                 n = tbl.truncate()
-            # (the JAX package notes the modify count for auto-analyze here: ROADMAP.md, Queue 1 item 5)
+            self.domain.stats.note_modify(tbl, n, delta=-n)
             return ResultSet(affected=n)
         if stmt.where is None:
             mask = np.ones(tbl.num_rows, bool)
@@ -1350,7 +1421,7 @@ class Session:
                                            stmt.limit)
             self._fk_on_delete(tbl, mask)
             n = tbl.delete_where(~mask, txn=self.txn)
-            # (the JAX package notes the modify count for auto-analyze here: ROADMAP.md, Queue 1 item 5)
+            self.domain.stats.note_modify(tbl, n, delta=-n)
             return ResultSet(affected=n)
         mask = self._where_mask(tbl, stmt.where)
         mask = self._dml_restrict_mask(tbl, mask, stmt.order_by,
@@ -1365,7 +1436,7 @@ class Session:
         else:
             self._fk_on_delete(tbl, mask)
             n = tbl.delete_where(~mask, txn=self.txn)
-        # (the JAX package notes the modify count for auto-analyze here: ROADMAP.md, Queue 1 item 5)
+        self.domain.stats.note_modify(tbl, n, delta=-n)
         return ResultSet(affected=n)
 
     def _lock_for_update(self, stmt) -> None:
@@ -1514,7 +1585,7 @@ class Session:
             else:
                 self._fk_on_delete(child, hit, depth + 1)
                 child.delete_where(~hit)
-            # (the JAX package notes the modify count for auto-analyze here: ROADMAP.md, Queue 1 item 5)
+            self.domain.stats.note_modify(child, n, delta=-n)
 
     def _fk_check_delete(self, tbl, del_mask, depth: int = 0):
         """Read-only pass over the cascade closure: raises on the first
@@ -1575,6 +1646,110 @@ class Session:
                     "Cannot delete or update a parent row: a foreign "
                     f"key constraint fails (`{child.name}`.`{fk.column}` "
                     f"REFERENCES `{tbl.name}`.`{fk.ref_column}`)")
+
+    def _exec_show(self, stmt: A.ShowStmt) -> ResultSet:
+        cat = self.domain.catalog
+        if stmt.kind == "create table":
+            tbl = cat.get_table(self.db, stmt.target)
+            return ResultSet(["Table", "Create Table"],
+                             [(tbl.name, _render_create_table(tbl))])
+        if stmt.kind == "tables":
+            from ..infoschema import is_system_db, system_tables
+            if is_system_db(self.db):
+                names = system_tables(self.db)
+            else:
+                names = sorted(set(cat.databases[self.db])
+                               | set(cat.views.get(self.db, {})))
+            return ResultSet([f"Tables_in_{self.db}"],
+                             [(n,) for n in names])
+        if stmt.kind == "databases":
+            from ..infoschema import system_databases
+            return ResultSet(["Database"],
+                             [(n,) for n in sorted(list(cat.databases)
+                                                   + system_databases())])
+        if stmt.kind == "columns":
+            t = cat.get_table(self.db, stmt.target)
+            return ResultSet(["Field", "Type", "Null"],
+                             [(n, str(ty), "YES" if ty.nullable else "NO")
+                              for n, ty in zip(t.col_names, t.col_types)])
+        if stmt.kind == "index":
+            t = cat.get_table(self.db, stmt.target)
+            return ResultSet(
+                ["Table", "Key_name", "Non_unique", "Column_name"],
+                [(t.name, ix.name, int(not ix.unique), ",".join(ix.columns))
+                 for ix in t.indexes])
+        if stmt.kind in ("stats_meta", "stats_histograms", "stats_topn"):
+            return self._exec_show_stats(stmt.kind)
+        if stmt.kind == "collation":
+            from ..utils.collate import collation_rows
+            rows = collation_rows()     # shared with infoschema
+            if stmt.like:
+                from ..expr.lower_strings import like_to_regex
+                rx = like_to_regex(stmt.like.lower())
+                rows = [r for r in rows if rx.match(r[0].lower())]
+            return ResultSet(["Collation", "Charset", "Id", "Default",
+                              "Compiled", "Sortlen", "Pad_attribute"],
+                             rows)
+        if stmt.kind == "charset":
+            from ..utils.collate import charset_rows
+            rows = [(cs, desc, dflt, ml)
+                    for cs, dflt, desc, ml in charset_rows()]
+            if stmt.like:
+                from ..expr.lower_strings import like_to_regex
+                rx = like_to_regex(stmt.like.lower())
+                rows = [r for r in rows if rx.match(r[0].lower())]
+            return ResultSet(["Charset", "Description",
+                              "Default collation", "Maxlen"], rows)
+        if stmt.kind == "variables":
+            from .sysvars import REGISTRY
+            vs = {name: ent.default for name, ent in REGISTRY.items()}
+            vs.update(self.domain.sysvars)
+            vs.update(self.vars)
+            rows = sorted((k, "" if v is None else str(v))
+                          for k, v in vs.items())
+            if stmt.like:
+                from ..expr.lower_strings import like_to_regex
+                rx = like_to_regex(stmt.like.lower())
+                rows = [r for r in rows if rx.match(r[0].lower())]
+            return ResultSet(["Variable_name", "Value"], rows)
+        if stmt.kind in _UNPORTED_SHOW:
+            raise unported(f"SHOW {stmt.kind.upper()}",
+                           _UNPORTED_SHOW[stmt.kind])
+        raise PlanError(f"unsupported SHOW {stmt.kind}")
+
+    def _exec_show_stats(self, kind: str) -> ResultSet:
+        """SHOW STATS_META / STATS_HISTOGRAMS / STATS_TOPN (reference:
+        executor/show_stats.go)."""
+        cat = self.domain.catalog
+        rows = []
+        for db, tables in sorted(cat.databases.items()):
+            for name in sorted(tables):
+                tbl = tables[name]
+                ts = self.domain.stats.get(tbl)
+                if ts is None:
+                    continue
+                if kind == "stats_meta":
+                    rows.append((db, name, ts.modify_count,
+                                 ts.realtime_count))
+                elif kind == "stats_histograms":
+                    for cn, cs in sorted(ts.cols.items()):
+                        rows.append((db, name, cn, cs.ndv, cs.null_count,
+                                     len(cs.hist.bounds)))
+                else:
+                    for cn, cs in sorted(ts.cols.items()):
+                        for v, c in sorted(cs.topn.values.items(),
+                                           key=lambda kv: -kv[1]):
+                            rows.append((db, name, cn, v, c))
+        headers = {
+            "stats_meta": ["Db_name", "Table_name", "Modify_count",
+                           "Row_count"],
+            "stats_histograms": ["Db_name", "Table_name", "Column_name",
+                                 "Distinct_count", "Null_count",
+                                 "Bucket_count"],
+            "stats_topn": ["Db_name", "Table_name", "Column_name", "Value",
+                           "Count"],
+        }[kind]
+        return ResultSet(headers, rows)
 
     def _exec_admin(self, stmt: A.AdminStmt) -> ResultSet:
         if stmt.kind == "show ddl jobs":
@@ -1698,6 +1873,47 @@ def _decode_val(v, t: dt.DataType):
     if k in (dt.TypeKind.FLOAT64, dt.TypeKind.FLOAT32):
         return float(v)
     return int(v)
+
+
+
+
+def _render_create_table(tbl) -> str:
+    """SHOW CREATE TABLE rendering (executor/show.go ConstructResultOfShow
+    CreateTable analog)."""
+    from ..types import dtypes as dt
+    from ..utils.collate import is_binary
+    K = dt.TypeKind
+    lines = []
+    for name, t in zip(tbl.col_names, tbl.col_types):
+        if t.kind == K.DECIMAL:
+            ty = f"decimal({t.prec},{t.scale})"
+        elif t.kind == K.ENUM:
+            ty = "enum(" + ",".join(f"'{m}'" for m in t.members) + ")"
+        elif t.kind == K.SET:
+            ty = "set(" + ",".join(f"'{m}'" for m in t.members) + ")"
+        elif t.kind == K.BIT:
+            ty = f"bit({t.prec})"
+        else:
+            ty = t.kind.value
+        line = f"  `{name}` {ty}"
+        if t.kind == K.STRING and not is_binary(t.collation):
+            line += f" COLLATE {t.collation}"
+        if not t.nullable:
+            line += " NOT NULL"
+        if tbl.auto_inc_col == name:
+            line += " AUTO_INCREMENT"
+        lines.append(line)
+    if tbl.primary_key:
+        lines.append("  PRIMARY KEY (" +
+                     ",".join(f"`{c}`" for c in tbl.primary_key) + ")")
+    for ix in getattr(tbl, "indexes", []):
+        if ix.state != "public" or ix.name.upper() == "PRIMARY":
+            continue      # the PK's backing index renders as PRIMARY KEY
+        kind = "UNIQUE KEY" if ix.unique else "KEY"
+        lines.append(f"  {kind} `{ix.name}` (" +
+                     ",".join(f"`{c}`" for c in ix.columns) + ")")
+    return (f"CREATE TABLE `{tbl.name}` (\n" + ",\n".join(lines) +
+            "\n) ENGINE=tpu-columnar DEFAULT CHARSET=utf8mb4")
 
 
 __all__ = ["Session", "Domain", "ResultSet", "check_ported"]

@@ -41,8 +41,12 @@ or result capacities while a device reports more rows than one holds
 On the CPU the client runs the same device programs through the plain
 kernel versions; it has no host shortcut (the JAX package's CPU routes
 to ``host_dense_agg`` and ``host_sort_agg``), no streaming, result
-cache, warm-capacity cache, retries or fault ladders.  The device
-windows raise ``NotImplementedError`` naming their ROADMAP.md item.
+cache, warm-capacity cache, retries or fault ladders.
+
+``execute_window`` runs the window functions (parallel/window.py): each
+device's scan chain, the hash exchange by PARTITION BY, each device's
+sort and segment ops, re-run at a larger exchange capacity while a
+device sends more rows to one bucket than it holds.
 """
 
 from __future__ import annotations
@@ -55,7 +59,6 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from .. import EXCHANGE, unported
 from ..chunk.column import Column
 from ..copr import dag as D
 from ..copr import radix
@@ -65,6 +68,7 @@ from ..copr.join import check_join_rows
 from ..device import get_devices
 from ..parallel.shuffle import ShardedShuffleJoinProgram, ShuffleCaps
 from ..parallel.spmd import ShardedCopProgram
+from ..parallel.window import ShardedWindowProgram
 from .columnar import ColumnarSnapshot, _pow2_at_least
 
 DEFAULT_GROUP_CAPACITY = 4096
@@ -97,9 +101,10 @@ class CopClient:
     route records ``pages``, the row capacity of each run; a program
     with an expanding join records ``joins``, the join capacity of each
     run; the repartition join records ``shuffles``, the ``(left, right,
-    out, rows)`` capacities of each run.  A broadcast join's executor
-    adds ``build``, the seconds of its build side (its own plan, the
-    sort of its keys and the copy to the card).
+    out, rows)`` capacities of each run; the window program records
+    ``windows``, the exchange bucket capacity of each run.  A broadcast
+    join's executor adds ``build``, the seconds of its build side (its
+    own plan, the sort of its keys and the copy to the card).
 
     ``join_fallbacks`` counts the broadcast joins whose executor took
     its host plan instead of the device program (an empty build side,
@@ -456,9 +461,41 @@ class CopClient:
         return self._assemble_rows(out_cols, out_counts.cpu().numpy(),
                                    prog.caps.rows, out_dtypes, dictionaries)
 
-    def execute_window(self, spec, snap, out_dtypes, dictionaries=None,
-                       aux_cols=()):
-        raise unported("device window functions", EXCHANGE)
+    # ------------------------------------------------------------- #
+    # window functions: parallel/window.py
+    # ------------------------------------------------------------- #
+
+    def execute_window(self, spec: D.WindowShuffleSpec,
+                       snap: ColumnarSnapshot, out_dtypes,
+                       dictionaries=None, aux_cols=()) -> list[Column]:
+        """The rows of the hash-repartitioned window program: the send
+        bucket capacity starts at the rows a bucket expects under a
+        uniform hash with 2x headroom, and is regrown from the reported
+        largest bucket (``wmax``) and re-run while one overflows."""
+        cols, counts = self._place(snap)
+        t = self.timings
+        t["device"] = t["transfer"] = 0.0
+        t["windows"] = []
+        n_dev = len(self.devices)
+        cap = _pow2_at_least(
+            max(2 * snap.num_rows // max(n_dev * n_dev, 1) + 1, 1024))
+        for _ in range(10):
+            t["windows"].append(cap)
+            prog = ShardedWindowProgram(spec, self.devices, cap)
+            t0 = time.perf_counter()
+            (out_cols, out_counts), extras = prog(cols, counts, aux_cols)
+            _sync(self.devices)
+            t1 = time.perf_counter()
+            need = int(extras["wmax"].max())
+            t["device"] += t1 - t0
+            t["transfer"] += time.perf_counter() - t1
+            if need <= cap:
+                break
+            cap = _pow2_at_least(need)
+        else:
+            raise RuntimeError("window bucket regrow did not converge")
+        return self._assemble_rows(out_cols, out_counts.cpu().numpy(),
+                                   n_dev * cap, out_dtypes, dictionaries)
 
 
 def _leaves(tree, path=()):

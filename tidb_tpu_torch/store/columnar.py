@@ -53,6 +53,17 @@ class ColumnarSnapshot:
         return {i: c.dictionary for i, c in enumerate(self.columns)
                 if c.dictionary is not None}
 
+    def shard_layout(self) -> tuple[int, int, np.ndarray]:
+        """(n_shards, capacity, counts[n_shards]) of the even split: the
+        layout the cost model prices (analysis/copcost.snapshot_layout);
+        capacity is a power of two, at least ``min_capacity``."""
+        s = self.n_shards
+        n = self.num_rows
+        per = -(-n // s) if n else 0
+        cap = max(_pow2_at_least(per), self.min_capacity)
+        counts = np.minimum(np.maximum(n - np.arange(s) * per, 0), per)
+        return s, cap, counts.astype(np.int64)
+
     def _even_ranges(self) -> list:
         s = self.n_shards
         n = self.num_rows
