@@ -192,7 +192,36 @@ script exits non-zero without printing a result:
    an ANALYZE.  Each statement prints its first and warm ms and the
    client's split, the window statements their exchange capacities and
    peak ``max_memory_allocated``;
-14. the ``kernels`` JSON line, then the last line
+14. the server, over 13a's ``Domain`` (the SF=10 lineitem placed on the
+   card, with orders from ``gen_orders_mini(1,500,000)`` registered
+   beside it), the port's ``MySQLServer`` on 127.0.0.1, port 0, reached
+   only through the wire (``server/client.Client``; ``testing/
+   mysql_client`` for one caching_sha2 login over TLS): (1) TPC-H Q1 and
+   Q6 over ``COM_QUERY``, rows equal to phase 9's check and to the text
+   of the in-process ``Session``'s rows, first and warm wire ms beside
+   the in-process warm ms (their difference the wire overhead) and the
+   plan ms on a plan-cache miss and on a hit; (2) Q6 with its dates,
+   discount and quantity as ``?``, five ``COM_STMT_EXECUTE``s over three
+   parameter sets, each equal to a numpy oracle, exactly two plan-cache
+   hits; (3) a filtered projection of ~109,000 lineitem rows read in text
+   and through a read-only cursor (``COM_STMT_FETCH``, the TLS login),
+   equal to numpy, with rows/s; (4) ``CREATE USER``, ``GRANT SELECT`` on
+   orders, that user's SELECT on lineitem denied (errno 1105, the
+   privilege error's message) and its ``SHOW GRANTS``; (5) ``KILL QUERY``
+   from a second connection once ``SHOW PROCESSLIST`` lists the victim
+   and it has begun, the victim a host hash join of orders and lineitem
+   (``SERVER_VICTIM``, over a second long uninterrupted) whose probe
+   passes the host operators' cancellation points: errno 1105 "Query
+   execution was interrupted" within 2 s, and its connection answers the
+   next query; (6) four connections running Q6 twenty times each at
+   once, every result exact, with statements/s beside one connection's;
+   (7) ``python -m tidb_tpu_torch serve --port 0 --status-port 0`` on
+   ``cuda`` as a child process: ``import`` of 10,000 rows, an aggregate
+   on the card equal to numpy, ``dump``, ``/status`` and ``/metrics``,
+   SIGINT and exit code 0 within 10 s.  Steps 1-5 count their hand
+   kernels' launches, step 6 checks that they grew; no plain version
+   runs;
+15. the ``kernels`` JSON line, then the last line
    ``{"ok": true, "device": {...}}``.  A ``phase ...: s=`` line after
    each phase gives its seconds.
 
@@ -3506,6 +3535,449 @@ def window_stats_phase(torch, gr, os1, S, main_sess, main_data, s4_data
     return counts
 
 
+# -- phase 14: the server on the card ------------------------------------ #
+
+SERVER_DEVICE = "cuda"      # the `serve` subprocess's --device (step 7)
+SERVER_Q6 = """select sum(l_extendedprice * l_discount) as revenue
+from lineitem
+where l_shipdate >= ? and l_shipdate < ?
+  and l_discount between ? - 0.01 and ? + 0.01
+  and l_quantity < ?"""
+# (shipdate from, shipdate before, discount, discount, quantity): A, B, C,
+# then A and B again, which the plan cache answers (its key is the bound
+# text, tidb_tpu/planner/plan_cache.py:56-57)
+SERVER_Q6_PARAMS = [("1994-01-01", "1995-01-01", 0.06, 0.06, 24),
+                    ("1995-01-01", "1996-01-01", 0.05, 0.05, 25),
+                    ("1993-01-01", "1994-01-01", 0.07, 0.07, 24)]
+SERVER_Q6_ORDER = (0, 1, 2, 0, 1)
+# a filtered projection of lineitem: 1/50 quantities x 1/11 discounts of
+# the SF=10 rows, ~109,000 rows (each costs ~160 us in text and ~90 us
+# through the cursor on the chip machine's loopback: a packet a row)
+SERVER_ROWS = ("select l_quantity, l_extendedprice, l_shipdate from lineitem"
+               " where l_quantity = 1 and l_discount = 0.05")
+SERVER_ROWS_RANGE = (100_000, 500_000)
+SERVER_FETCH = 20_000       # rows a COM_STMT_FETCH
+# the KILL victim: a host hash join (the hint keeps it off the card's
+# broadcast join) of orders' 1,500,000 rows and lineitem's 1/50 (~1.2 M
+# rows at SF=10), whose probe side streams through the host operator's
+# cancellation point, a chunk of 65,536 rows at a time
+SERVER_VICTIM = ("select /*+ HASH_JOIN(o) */ count(*), sum(o.o_totalprice)"
+                 " from lineitem l join orders o"
+                 " on l.l_extendedprice = o.o_totalprice"
+                 " where l.l_quantity < 2")
+SERVER_VICTIM_MIN_S = 1.0   # the victim's wall when nothing kills it
+SERVER_KILL_S = 2.0         # the victim's error within this of the KILL
+SERVER_CONNS, SERVER_REPS = 4, 20
+SERVER_IMPORT_ROWS = 10_000
+SERVER_STOP_S = 10.0        # SIGINT to the serve subprocess's exit
+
+
+def q6_params_oracle(c: dict, params) -> int:
+    """SERVER_Q6's revenue at ``params``, scaled by 10^4, exactly."""
+    lo, hi, d, _d, q = params
+    ship, disc = c["l_shipdate"].data, c["l_discount"].data
+    qty, price = c["l_quantity"].data, c["l_extendedprice"].data
+    dc = round(d * 100)
+    m = ((ship >= _days(lo)) & (ship < _days(hi)) & (disc >= dc - 1)
+         & (disc <= dc + 1) & (qty < q * 100))
+    return exact_sum(price[m] * disc[m])
+
+
+def _scaled(s: str, scale: int) -> int:
+    import decimal
+    return int(decimal.Decimal(s).scaleb(scale))
+
+
+def _wire_ms(fn, reps: int) -> tuple:
+    """(last result, first ms, median warm ms) of ``fn`` called
+    ``1 + reps`` times."""
+    t0 = time.perf_counter()
+    out = fn()
+    first = (time.perf_counter() - t0) * 1e3
+    warm = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        out = fn()
+        warm.append((time.perf_counter() - t0) * 1e3)
+    return out, first, statistics.median(warm)
+
+
+def server_phase(torch, gr, os1, S, main_sess, main_data, main_res) -> None:
+    """Phase 14: the port's MySQL server over phase 13's ``main_sess``
+    Domain (the SF=10 lineitem placed on the card; orders of
+    ``gen_orders_mini(WINDOW_ORDERS)`` registered beside it), reached only
+    through the wire: ``server/client.Client`` and, for the caching_sha2
+    login over TLS that reads the cursor, ``testing/mysql_client``.
+    Steps 1-5 count their hand-kernel launches, step 6 that they grew;
+    no plain version runs; step 7 drives ``python -m tidb_tpu_torch
+    serve`` as a process."""
+    import threading
+
+    from tidb_tpu_torch.server.client import Client, MySQLError
+    from tidb_tpu_torch.server.mysql_server import MySQLServer
+    from tidb_tpu_torch.session.catalog import TableInfo
+    from tidb_tpu_torch.testing import tpch
+    from tidb_tpu_torch.testing.mysql_client import MiniMySQLClient
+    counters = (gr.LAUNCHES, os1.LAUNCHES)
+    dom = main_sess.domain
+    for name in statement_timings.CALLS:    # phases 12-13's wrappers
+        dom.client.__dict__.pop(name, None)
+    orders = tpch.gen_orders_mini(WINDOW_ORDERS)
+    t = TableInfo("orders", list(orders[0]), [c.dtype for c in orders[1]])
+    t.register_columns(list(orders[1]))
+    dom.catalog.create_table("test", t)
+    c = dict(zip(*main_data))
+    srv = MySQLServer(dom, host="127.0.0.1", port=0)
+    port = srv.start()
+    conns: list = []
+
+    def connect(**kw):
+        conns.append(Client("127.0.0.1", port, **kw))
+        return conns[-1]
+
+    def launched(before: dict) -> dict:
+        return {k: v - before[k] for launches in counters
+                for k, v in launches.items()}
+
+    def snapshot() -> dict:
+        return {k: v for launches in counters for k, v in launches.items()}
+
+    reset(counters + (S.PASSES,))
+    try:
+        with plain_guard({"gr": gr, "os1": os1}) as guard:
+            root = connect()
+            # -- 1: Q1 and Q6 over COM_QUERY ---------------------------- #
+            for name in SQL_MAIN:
+                sql = tpch.SQL_QUERIES[name]
+                rs, _f, inproc = _wire_ms(lambda: main_sess.execute(sql), 5)
+                sql_check(name, rs, c, main_data[0], main_res.get(name))
+                text = [tuple(None if v is None else
+                              (repr(v) if isinstance(v, float) else str(v))
+                              for v in r) for r in rs.rows]
+                before = snapshot()
+                rows, first, warm = _wire_ms(lambda: root.query(sql), 5)
+                ran = launched(before)
+                check(rows == text, f"14 {name}: wire rows != phase 9's")
+                for k in SQL_KERNELS[name]:
+                    check(ran[k] >= 6, f"14 {name}: {k} launched {ran[k]}")
+                main_sess.execute("set tidb_enable_plan_cache = 0")
+                main_sess.execute(sql)
+                miss_ms = main_sess.timings["plan"] * 1e3
+                main_sess.execute("set tidb_enable_plan_cache = 1")
+                main_sess.execute(sql)
+                hit_ms = main_sess.timings["plan"] * 1e3
+                print(f"server {name}: rows={len(rows)} first_ms={first:.3f} "
+                      f"warm_ms={warm:.3f} in_process_warm_ms={inproc:.3f} "
+                      f"wire_overhead_ms={warm - inproc:.3f} "
+                      f"plan_miss_ms={miss_ms:.3f} plan_hit_ms={hit_ms:.3f} "
+                      f"launches={ {k: ran[k] for k in GR + OS} } "
+                      "equal_phase9=True")
+            # -- 2: Q6 prepared, five executions over three sets ---------- #
+            stmt = root.prepare(SERVER_Q6)
+            check(stmt.n_params == 5, f"14 Q6 prepared: {stmt.n_params} ?")
+            cache = dom.plan_cache
+            h0, before = cache.hits, snapshot()
+            times = []
+            for i in SERVER_Q6_ORDER:
+                t0 = time.perf_counter()
+                got = stmt.execute(*SERVER_Q6_PARAMS[i])
+                times.append((time.perf_counter() - t0) * 1e3)
+                want = q6_params_oracle(c, SERVER_Q6_PARAMS[i])
+                check(len(got) == 1 and _scaled(got[0][0], 4) == want,
+                      f"14 Q6 prepared {SERVER_Q6_PARAMS[i]}: {got} != "
+                      f"numpy {want}")
+            ran = launched(before)
+            check(cache.hits - h0 == 2, f"14 Q6 prepared: "
+                  f"{cache.hits - h0} plan-cache hits, expected 2")
+            check(ran["group_reduce"] == len(SERVER_Q6_ORDER) or not GR,
+                  f"14 Q6 prepared: group_reduce launched {ran}")
+            stmt.close()
+            print(f"server Q6 prepared: executions={len(times)} "
+                  f"ms={[round(x, 3) for x in times]} plan_cache_hits="
+                  f"{cache.hits - h0} launches={ {k: ran[k] for k in GR} } "
+                  "exact=True")
+            # -- 3: a large result, in text and through a cursor ---------- #
+            keep = ((c["l_quantity"].data == 100)
+                    & (c["l_discount"].data == 5))
+            want = sorted(zip(c["l_quantity"].data[keep].tolist(),
+                              c["l_extendedprice"].data[keep].tolist(),
+                              c["l_shipdate"].data[keep].tolist()))
+            epoch = np.datetime64("1970-01-01")
+
+            def as_oracle(rows, date_of):
+                return sorted((_scaled(q, 2), _scaled(p, 2), date_of(d))
+                              for q, p, d in rows)
+            t0 = time.perf_counter()
+            rows = root.query(SERVER_ROWS)
+            text_s = time.perf_counter() - t0
+            check(as_oracle(rows, lambda d: _days(d)) == want,
+                  f"14 rows: {len(rows)} text rows != numpy {len(want)}")
+            lo, hi = SERVER_ROWS_RANGE
+            check(lo <= len(want) <= hi,
+                  f"14 rows: {len(want)} rows out of {lo}-{hi}")
+            del rows
+            tls = MiniMySQLClient("127.0.0.1", port, use_tls=True,
+                                  auth_plugin="caching_sha2_password")
+            check(tls.tls, "14: the caching_sha2 login is not over TLS")
+            sid, _n = tls.prepare(SERVER_ROWS)
+            t0 = time.perf_counter()
+            tls.execute_cursor(sid)
+            fetched, fetches = [], 0
+            while True:
+                page, done = tls.fetch(sid, SERVER_FETCH)
+                fetched.extend(page)
+                fetches += 1
+                if done:
+                    break
+            cursor_s = time.perf_counter() - t0
+            tls.close()
+            # the independent client reads a binary DATE by its length
+            # only: the rows' quantities and prices are compared, the
+            # dates' count
+            check(sorted((_scaled(q, 2), _scaled(p, 2))
+                         for q, p, _d in fetched)
+                  == [w[:2] for w in want] and len(fetched) == len(want),
+                  f"14 rows: cursor {len(fetched)} rows != numpy")
+            print(f"server rows: rows={len(want)} text_s={text_s:.3f} "
+                  f"text_rows_per_s={len(want) / text_s:.0f} "
+                  f"cursor_s={cursor_s:.3f} cursor_rows_per_s="
+                  f"{len(want) / cursor_s:.0f} fetches={fetches} "
+                  "login=caching_sha2+tls exact=True")
+            del fetched
+            # -- 4: users and grants --------------------------------------- #
+            root.execute("create user u14 identified by 'pw14'")
+            root.execute("grant select on test.orders to u14")
+            user = connect(user="u14", password="pw14")
+            before = snapshot()
+            got = user.query("select count(*), sum(o_totalprice)"
+                             " from orders")
+            ran = launched(before)
+            tot = exact_sum(orders[1][2].data)
+            check(got == [(str(WINDOW_ORDERS), f"{tot // 100}.{tot % 100:02d}")],
+                  f"14 grants: orders {got}")
+            check(ran["group_reduce"] > 0 or not GR,
+                  f"14 grants: group_reduce launched {ran}")
+            try:
+                user.query("select count(*) from lineitem")
+                check(False, "14 grants: SELECT on lineitem was allowed")
+            except MySQLError as e:
+                check(e.errno == 1105 and str(e) == (
+                    "(1105) SELECT command denied to user 'u14' for table "
+                    "'test.lineitem'"), f"14 grants: {e}")
+            grants = user.query("show grants")
+            check(grants == [("GRANT USAGE ON *.* TO 'u14'@'%'",),
+                             ("GRANT SELECT ON test.orders TO 'u14'@'%'",)],
+                  f"14 grants: {grants}")
+            print(f"server grants: denied_errno=1105 show_grants={len(grants)}"
+                  f" allowed_rows=1 launches={ {k: ran[k] for k in GR} }")
+            # -- 5: KILL QUERY from a second connection -------------------- #
+            victim = connect()
+            vid = int(victim.query("select connection_id()")[0][0])
+            before = snapshot()
+            t0 = time.perf_counter()
+            full = victim.query(SERVER_VICTIM)
+            full_s = time.perf_counter() - t0
+            ran = launched(before)
+            check(full_s >= SERVER_VICTIM_MIN_S,
+                  f"14 kill: the victim took {full_s:.3f} s")
+            res: list = []
+
+            def run_victim():
+                t1 = time.perf_counter()
+                try:
+                    res.append(victim.query(SERVER_VICTIM))
+                except MySQLError as e:
+                    res.append(e)
+                res.append(time.perf_counter() - t1)
+            th = threading.Thread(target=run_victim)
+            th.start()
+            deadline = time.perf_counter() + 30
+            while True:
+                listed = {int(r[0]) for r in root.query("show processlist")}
+                if vid in listed and dom.coordinator.get(vid) is not None:
+                    break
+                check(time.perf_counter() < deadline and th.is_alive(),
+                      "14 kill: the victim never showed as running")
+                time.sleep(0.01)
+            t_kill = time.perf_counter()
+            root.execute(f"kill query {vid}")
+            th.join(30)
+            check(not th.is_alive(), "14 kill: the victim did not return")
+            err, took = res
+            after_kill = time.perf_counter() - t_kill
+            check(isinstance(err, MySQLError) and err.errno == 1105
+                  and str(err) == "(1105) Query execution was interrupted",
+                  f"14 kill: the victim got {err!r}")
+            check(after_kill <= SERVER_KILL_S,
+                  f"14 kill: error {after_kill:.3f} s after the KILL")
+            check(victim.query("select 1") == [("1",)],
+                  "14 kill: the victim's connection does not answer")
+            print(f"server kill: victim=host hash join full_s={full_s:.3f} "
+                  f"full_rows={full} killed_after_s={took:.3f} "
+                  f"error_after_kill_s={after_kill:.3f} errno=1105 "
+                  f"launches={ {k: ran[k] for k in GR + OS} }")
+        check(guard.calls == 0, f"14: {guard.calls} plain-version calls of "
+              "the kernels on the card")
+        # -- 6: four connections, Q6 twenty times each ----------------- #
+        q6 = tpch.SQL_QUERIES["Q6"]
+        rev = main_oracle("Q6", main_data[0], main_data[1])[0][0]
+        want6 = [(f"{rev // 10 ** 4}.{rev % 10 ** 4:04d}",)]
+        one = connect()
+        before = snapshot()
+        t0 = time.perf_counter()
+        for _ in range(SERVER_CONNS * SERVER_REPS):
+            check(one.query(q6) == want6, "14 Q6 serial: != numpy")
+        serial_s = time.perf_counter() - t0
+        many = [connect() for _ in range(SERVER_CONNS)]
+        outs: dict = {}
+
+        def run(i):
+            try:
+                outs[i] = [many[i].query(q6) for _ in range(SERVER_REPS)]
+            except Exception as e:       # reported by the check below
+                outs[i] = e
+        ths = [threading.Thread(target=run, args=(i,))
+               for i in range(SERVER_CONNS)]
+        t0 = time.perf_counter()
+        for th in ths:
+            th.start()
+        for th in ths:
+            th.join(120)
+        par_s = time.perf_counter() - t0
+        check(not any(th.is_alive() for th in ths), "14 Q6 x4: hung")
+        check(all(outs[i] == [want6] * SERVER_REPS
+                  for i in range(SERVER_CONNS)), f"14 Q6 x4: {outs}")
+        ran = launched(before)
+        check(all(ran[k] > 0 for k in GR), f"14 Q6 x4: launches {ran}")
+        n = SERVER_CONNS * SERVER_REPS
+        print(f"server Q6 x{SERVER_CONNS}: statements={n} "
+              f"conns{SERVER_CONNS}_s={par_s:.3f} conns{SERVER_CONNS}_"
+              f"stmts_per_s={n / par_s:.1f} conns1_s={serial_s:.3f} "
+              f"conns1_stmts_per_s={n / serial_s:.1f} exact=True "
+              f"launches_grew={ {k: ran[k] for k in GR} }")
+    finally:
+        for cl in conns:
+            try:
+                cl.close()
+            except OSError:
+                pass
+        srv.close()
+    # -- 7: `python -m tidb_tpu_torch serve` as a process --------------- #
+    serve_subprocess(c)
+
+
+def serve_subprocess(c: dict) -> None:
+    """Step 7 of phase 14: ``serve`` on ``SERVER_DEVICE`` in a child
+    process: its listening line, ``import`` of a CSV into a new table,
+    an aggregate over it, ``dump``, ``/status`` and ``/metrics``, then
+    SIGINT and exit code 0 within ``SERVER_STOP_S``."""
+    import csv
+    import os
+    import re
+    import signal
+    import tempfile
+    import urllib.request
+
+    from tidb_tpu_torch.server.client import Client
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [os.path.dirname(os.path.abspath(__file__))]
+        + [p for p in [env.get("PYTHONPATH")] if p])
+    cmd = [sys.executable, "-m", "tidb_tpu_torch"]
+    qty = c["l_quantity"].data[:SERVER_IMPORT_ROWS]
+    price = c["l_extendedprice"].data[:SERVER_IMPORT_ROWS]
+    with tempfile.TemporaryDirectory(prefix="phase14_") as tmp:
+        src = os.path.join(tmp, "items.csv")
+        with open(src, "w", newline="") as f:
+            w = csv.writer(f)
+            w.writerow(["id", "qty", "price"])
+            for i, (q, p) in enumerate(zip(qty.tolist(), price.tolist())):
+                w.writerow([i, f"{q // 100}.{q % 100:02d}",
+                            f"{p // 100}.{p % 100:02d}"])
+        t0 = time.perf_counter()
+        proc = subprocess.Popen(
+            cmd + ["serve", "--device", SERVER_DEVICE, "--port", "0",
+                   "--status-port", "0"],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+            env=env)
+        try:
+            line = proc.stdout.readline()
+            m = re.search(r"listening on [\d.]+:(\d+) \(status :(\d+)\)",
+                          line)
+            check(m is not None, f"14 serve: {line!r}")
+            start_s = time.perf_counter() - t0
+            port, sport = int(m.group(1)), int(m.group(2))
+            cl = Client("127.0.0.1", port)
+            cl.execute("create table items (id bigint primary key,"
+                       " qty decimal(8,2), price decimal(12,2))")
+            t0 = time.perf_counter()
+            out = subprocess.run(
+                cmd + ["import", "--port", str(port), "--table", "items",
+                       "--file", src, "--batch", "1000"],
+                capture_output=True, text=True, env=env, timeout=300)
+            import_s = time.perf_counter() - t0
+            check(out.returncode == 0 and
+                  f"imported {SERVER_IMPORT_ROWS} rows" in out.stdout,
+                  f"14 import: {out.stdout} {out.stderr}")
+            t0 = time.perf_counter()
+            got = cl.query("select count(*), sum(qty), sum(price)"
+                           " from items where qty < 30")
+            agg_ms = (time.perf_counter() - t0) * 1e3
+            m30 = qty < 3000
+            want = [(str(int(m30.sum())),
+                     f"{exact_sum(qty[m30]) // 100}."
+                     f"{exact_sum(qty[m30]) % 100:02d}",
+                     f"{exact_sum(price[m30]) // 100}."
+                     f"{exact_sum(price[m30]) % 100:02d}")]
+            check(got == want, f"14 serve aggregate: {got} != numpy {want}")
+            plan = "\n".join(r[0] for r in cl.query(
+                "explain select count(*), sum(qty) from items"
+                " where qty < 30"))
+            check(f"-> {SERVER_DEVICE}" in plan,
+                  f"14 serve: the aggregate is not on {SERVER_DEVICE}: "
+                  f"{plan}")
+            cl.close()
+            t0 = time.perf_counter()
+            out = subprocess.run(
+                cmd + ["dump", "--port", str(port), "--out",
+                       os.path.join(tmp, "dump"), "--format", "csv"],
+                capture_output=True, text=True, env=env, timeout=300)
+            dump_s = time.perf_counter() - t0
+            check(out.returncode == 0 and
+                  f"dumped {SERVER_IMPORT_ROWS} rows" in out.stdout,
+                  f"14 dump: {out.stdout} {out.stderr}")
+            with open(os.path.join(tmp, "dump",
+                                   "test.items.000000000.csv")) as f:
+                back = list(csv.reader(f))[1:]
+            check(len(back) == SERVER_IMPORT_ROWS
+                  and sorted(int(r[0]) for r in back)
+                  == list(range(SERVER_IMPORT_ROWS)),
+                  "14 dump: rows != the imported ones")
+            with urllib.request.urlopen(
+                    f"http://127.0.0.1:{sport}/status", timeout=30) as r:
+                status = json.load(r)
+            with urllib.request.urlopen(
+                    f"http://127.0.0.1:{sport}/metrics", timeout=30) as r:
+                metrics = r.read().decode()
+            check("version" in status
+                  and "tidb_tpu_query_total" in metrics,
+                  f"14 status: {status}")
+            proc.send_signal(signal.SIGINT)
+            t0 = time.perf_counter()
+            proc.communicate(timeout=SERVER_STOP_S)
+            stop_s = time.perf_counter() - t0
+            check(proc.returncode == 0,
+                  f"14 serve: exit code {proc.returncode} after SIGINT")
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+    print(f"server serve: device={SERVER_DEVICE} start_s={start_s:.3f} "
+          f"import_s={import_s:.3f} import_rows_per_s="
+          f"{SERVER_IMPORT_ROWS / import_s:.0f} aggregate_ms={agg_ms:.3f} "
+          f"dump_s={dump_s:.3f} stop_s={stop_s:.3f} exit=0 exact=True")
+
+
 def build_phase(*modules) -> None:
     """The kernel libraries of ``modules`` from the checkout's sources,
     one nvcc each, started together."""
@@ -3608,8 +4080,10 @@ def main() -> int:
         torch, gr, os1, S, main_data, args.main_sf, args.tpch_sf)
     lap("12 select surface")
     window_stats_phase(torch, gr, os1, S, main_sess, main_data, s4_data)
-    del main_sess
     lap("13 windows and statistics")
+    server_phase(torch, gr, os1, S, main_sess, main_data, main_res)
+    del main_sess
+    lap("14 server")
 
     cu = "tidb_tpu_torch/copr/cuda/"
     sources = {"radix_hist": cu + "radix_kernel.cu",

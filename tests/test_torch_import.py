@@ -68,8 +68,31 @@ WINDOW_STATS_MODULES = ["tidb_tpu_torch/parallel/window.py",
                         "tidb_tpu_torch/stats/handle.py"]
 
 
+# the server slice's modules: the wire protocol, the status API, the
+# command line, users and grants, the plan cache and bindings
+SERVER_MODULES = ["tidb_tpu_torch/__main__.py",
+                  "tidb_tpu_torch/config.py",
+                  "tidb_tpu_torch/utils/auth.py",
+                  "tidb_tpu_torch/utils/watch.py",
+                  "tidb_tpu_torch/utils/metrics.py",
+                  "tidb_tpu_torch/utils/stmtsummary.py",
+                  "tidb_tpu_torch/privilege/__init__.py",
+                  "tidb_tpu_torch/privilege/manager.py",
+                  "tidb_tpu_torch/sql/bind.py",
+                  "tidb_tpu_torch/planner/plan_cache.py",
+                  "tidb_tpu_torch/planner/bindinfo.py",
+                  "tidb_tpu_torch/plugin/__init__.py",
+                  "tidb_tpu_torch/server/__init__.py",
+                  "tidb_tpu_torch/server/packet.py",
+                  "tidb_tpu_torch/server/mysql_server.py",
+                  "tidb_tpu_torch/server/status.py",
+                  "tidb_tpu_torch/server/client.py",
+                  "tidb_tpu_torch/testing/mysql_client.py"]
+
+
 @pytest.mark.parametrize("path", JOIN_MODULES + STORE_MODULES
-                         + SELECT_MODULES + WINDOW_STATS_MODULES)
+                         + SELECT_MODULES + WINDOW_STATS_MODULES
+                         + SERVER_MODULES)
 def test_join_modules_are_checked(path):
     assert path in SOURCES
 
@@ -110,6 +133,30 @@ def test_window_stats_modules_load_no_jax():
     sys.modules."""
     mods = [p[:-3].replace("/", ".").removesuffix(".__init__")
             for p in WINDOW_STATS_MODULES]
+    code = (
+        "import importlib, sys\n"
+        f"for m in {mods!r}:\n"
+        "    importlib.import_module(m)\n"
+        "    bad = sorted(k for k in sys.modules if k == 'jax'\n"
+        "                 or k.startswith(('jax.', 'jaxlib'))\n"
+        "                 or k == 'tidb_tpu' or k.startswith('tidb_tpu.'))\n"
+        "    print(m, bad)\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(ROOT)] + [p for p in [env.get("PYTHONPATH")] if p])
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    lines = out.stdout.splitlines()
+    assert [ln.split(" ", 1)[0] for ln in lines] == mods
+    assert all(ln.split(" ", 1)[1] == "[]" for ln in lines), lines
+
+
+def test_server_modules_load_no_jax():
+    """The server slice's modules, imported one by one in a fresh
+    interpreter, each leave jax and tidb_tpu out of sys.modules."""
+    mods = [p[:-3].replace("/", ".").removesuffix(".__init__")
+            for p in SERVER_MODULES]
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"

@@ -493,28 +493,11 @@ def _unported_cases():
 
 # SQL statements of later slices: (statement, the ROADMAP.md item named)
 _UNPORTED_SQL = {
-    "SQL show bindings": ("show global bindings",
-                          "Queue 1 item 1, sub-step 5"),
-    "SQL show grants": ("show grants", "Queue 1 item 1, sub-step 1"),
-    "SQL show processlist": ("show processlist",
-                             "Queue 1 item 1, sub-step 1"),
     "SQL show statements summary": ("show statements_summary",
                                     "Queue 1 item 1, sub-step 1"),
     "SQL show slow queries": ("show slow_queries",
                               "Queue 1 item 1, sub-step 1"),
     "SQL show status": ("show status", "Queue 1 item 1, sub-step 1"),
-    "SQL deallocate": ("deallocate prepare s1",
-                       "Queue 1 item 1, sub-step 5"),
-    "SQL prepare": ("prepare s1 from 'select count(*) from part'",
-                    "Queue 1 item 1, sub-step 5"),
-    "SQL execute": ("execute s1", "Queue 1 item 1, sub-step 5"),
-    "SQL optimizer hint": ("""select /*+ hash_join(lineitem, part) */
-                              count(*) from lineitem, part
-                              where p_partkey = l_partkey""",
-                           "Queue 1 item 1, sub-step 5"),
-    "SQL create binding": ("""create global binding for select count(*)
-                              from part using select count(*) from part""",
-                           "Queue 1 item 1, sub-step 5"),
     "SQL cascades planner": ("""set tidb_enable_cascades_planner = 1;
                                 select count(*) from part""",
                              "Queue 1 item 1, sub-step 7"),

@@ -31,17 +31,23 @@ its kernel on the card), the inline auto-analyze and the SHOW
 statements; and beneath the session the row store: the native MVCC
 engine (``native/kvstore.cpp``, built with g++ at first use by
 ``store/kv.py``), the row codec, the catalog on KV, the write
-statements, transactions and the online DDL (``ddl/``).  What the port
-does not run yet raises ``NotImplementedError`` naming its ROADMAP.md
-item (below).
+statements, transactions and the online DDL (``ddl/``).  Above the
+session the port is a server: the MySQL wire protocol and the HTTP
+status API (``server/``, ``python -m tidb_tpu_torch serve --device
+cuda|cpu``, ``dump`` and ``import``), with users and grants
+(``privilege/``), KILL, prepared statements and the plan cache
+(``planner/plan_cache.py``, ``sql/bind.py``), optimizer hints and plan
+bindings (``planner/bindinfo.py``), the audit plugins (``plugin/``) and
+the TOML configuration (``config.py``).  What the port does not run yet
+raises ``NotImplementedError`` naming its ROADMAP.md item (below).
 """
 
 # ROADMAP.md items of the paths the port does not run yet, named by the
 # NotImplementedError each raises
 HOST_BASE = "Queue 1 item 1, sub-step 1: the rest of the host base"
-PLAN_CACHE = "Queue 1 item 1, sub-step 5: the plan cache and bindings"
 PLANNER = "Queue 1 item 1, sub-step 7: the cascades planner"
 EXCHANGE = "Queue 1 item 4: several physical GPUs"
+SCHED = "Queue 1 item 6: slice 10, admission and programs"
 ANALYSIS = "Queue 1 item 7: slice 11, the analysis gates"
 CONTROL = "Queue 1 item 8: slice 12, the control and observability planes"
 HOST_SURFACE = "Queue 1 item 9: slice 13, the rest of the host surface"

@@ -34,6 +34,16 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 BUILD_LOG: list = []     # nvcc/ptxas output of the builds in this process
 
+# guards every kernel module's ``LAUNCHES`` counters: statements of
+# several connection threads launch at once, and a bare += loses counts
+_LAUNCH_MU = threading.Lock()
+
+
+def count_launches(launches: dict, name: str, n: int = 1) -> None:
+    """Add ``n`` to ``launches[name]`` under the counters' lock."""
+    with _LAUNCH_MU:
+        launches[name] += n
+
 
 def nvcc() -> str:
     from torch.utils.cpp_extension import CUDA_HOME

@@ -58,7 +58,7 @@ from pathlib import Path
 
 import torch
 
-from .build import Library, raise_on, stream_of
+from .build import Library, count_launches, raise_on, stream_of
 
 LAUNCHES = {"group_reduce": 0}
 
@@ -287,7 +287,7 @@ def _lanes_cuda(gids, G: int, lanes: list) -> list:
         table.data_ptr(), ptr(flags), mx.data_ptr(), ptr(out),
         dev.index, stream_of(table), ctypes.byref(launched)),
         "group_reduce")
-    LAUNCHES["group_reduce"] += launched.value
+    count_launches(LAUNCHES, "group_reduce", launched.value)
     res, col, fo = {}, 0, 0
     cols = table.view(G, ncol)        # slot-major: a lane's table strided
     for ln in lanes:

@@ -53,7 +53,7 @@ from pathlib import Path
 import torch
 
 from . import radix_kernel as rk
-from .build import Library, raise_on, stream_of
+from .build import Library, count_launches, raise_on, stream_of
 
 KERNEL_TILE = 8192          # rows a tile of the pass (checked at load)
 MAX_PASSES = 8              # digits of an int64 key
@@ -183,7 +183,8 @@ def radix_hist_all64(key: torch.Tensor, passes: int) -> torch.Tensor:
                        device=key.device)
     if key.numel() == 0 or passes == 0:
         return hist
-    LAUNCHES["radix_hist_all64"] += launch_hist_all(key, passes, hist)
+    count_launches(LAUNCHES, "radix_hist_all64",
+                   launch_hist_all(key, passes, hist))
     return hist
 
 
@@ -209,8 +210,8 @@ def radix_onesweep64(key: torch.Tensor, val: torch.Tensor,
                          device=key.device)
     counter = torch.zeros(1, dtype=torch.int32, device=key.device)
     err = rk.new_err(key.device)
-    LAUNCHES["radix_onesweep64"] += launch_pass(
-        key, val, hist_p, status, counter, shift, key_out, val_out, err)
+    count_launches(LAUNCHES, "radix_onesweep64", launch_pass(
+        key, val, hist_p, status, counter, shift, key_out, val_out, err))
     rk.read_err(err, "radix_onesweep64")
     return key_out, val_out
 
@@ -260,8 +261,8 @@ def onesweep_sort(key: torch.Tensor, val: torch.Tensor | None, passes: int,
         key.data_ptr(), _ptr(val), _ptr(key_a), _ptr(val_a), _ptr(key_b),
         _ptr(val_b), _ptr(out64), n, passes, ws.data_ptr(), flag.data_ptr(),
         dev.index, stream_of(key), launched)
-    LAUNCHES["radix_hist_all64"] += launched[0]
-    LAUNCHES["radix_onesweep64"] += launched[1]
+    count_launches(LAUNCHES, "radix_hist_all64", launched[0])
+    count_launches(LAUNCHES, "radix_onesweep64", launched[1])
     raise_on(rc, "radix_onesweep64_sort")
     if err is None:
         rk.read_err(flag, "onesweep_sort")

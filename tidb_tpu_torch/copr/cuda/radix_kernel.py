@@ -58,7 +58,7 @@ from pathlib import Path
 import torch
 
 from .. import dag as D
-from .build import Library, raise_on, stream_of
+from .build import Library, count_launches, raise_on, stream_of
 
 TILE = D.RADIX_TILE
 KERNEL_TILE = 8192
@@ -130,7 +130,7 @@ def launch_scatter(key: torch.Tensor, val: torch.Tensor, off: torch.Tensor,
 
 
 def _count(name: str, key: torch.Tensor) -> None:
-    LAUNCHES[name + ("64" if _wide(key) else "")] += 1
+    count_launches(LAUNCHES, name + ("64" if _wide(key) else ""))
 
 
 # --------------------------------------------------------------------- #

@@ -2178,7 +2178,7 @@ def _synced_since(ctx, t0: float) -> float:
 def _join_fallback(ctx, fallback: PhysOp) -> ResultChunk:
     """A broadcast join's host plan, counted on the client
     (``CopClient.join_fallbacks``)."""
-    ctx.client.join_fallbacks += 1
+    ctx.client.count_join_fallback()
     return fallback.execute(ctx)
 
 

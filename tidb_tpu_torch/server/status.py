@@ -1,0 +1,222 @@
+# ported from tidb_tpu/server/status.py @ 6233200
+"""HTTP status/admin API.
+
+Reference analog: pkg/server http_handler.go + handler/ — /status,
+/schema, /stats, /settings endpoints on the status port, plus a
+Prometheus-text /metrics endpoint (pkg/metrics scrape surface).
+
+The port answers the routes whose subsystems it has: ``/status``,
+``/schema[/<db>[/<table>]]``, ``/stats``, ``/metrics``, ``/settings``,
+``/regions/meta``, ``/mvcc/key/<db>/<table>/<handle>``, ``/ddl/history``
+and ``/schema_version``.  The JAX package's ``/sched``, ``/resource``,
+``/pd``, ``/hbm``, ``/locksan``, ``/profile`` and ``/trace`` read the
+scheduler and the control and observability planes, which the port has
+not yet: each answers HTTP 501 naming its ROADMAP.md item.
+"""
+
+from __future__ import annotations
+
+import json
+import threading
+from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+from typing import Optional
+
+from .. import CONTROL, SCHED, unported
+from ..session.session import Domain
+
+# routes over subsystems of later slices, by the ROADMAP.md item that
+# ports them
+_UNPORTED_ROUTES = {
+    "/sched": SCHED, "/resource": CONTROL, "/pd": CONTROL,
+    "/hbm": CONTROL, "/locksan": CONTROL, "/profile": CONTROL,
+    "/trace": CONTROL,
+}
+
+
+class StatusServer:
+    def __init__(self, domain: Domain, host: str = "127.0.0.1", port: int = 0):
+        self.domain = domain
+        outer = self
+
+        class Handler(BaseHTTPRequestHandler):
+            def log_message(self, *a):  # quiet
+                pass
+
+            def do_GET(self):
+                try:
+                    body, ctype = outer._route_retry(self.path)
+                except KeyError:
+                    self.send_error(404)
+                    return
+                except NotImplementedError as e:
+                    self.send_error(501, str(e))
+                    return
+                except Exception as e:
+                    self.send_error(500, str(e))
+                    return
+                data = body.encode()
+                self.send_response(200)
+                self.send_header("Content-Type", ctype)
+                self.send_header("Content-Length", str(len(data)))
+                self.end_headers()
+                self.wfile.write(data)
+
+        self._httpd = ThreadingHTTPServer((host, port), Handler)
+        self.port = self._httpd.server_address[1]
+        self._thread: Optional[threading.Thread] = None
+
+    def start(self) -> int:
+        self._thread = threading.Thread(target=self._httpd.serve_forever,
+                                        name="status-http", daemon=True)
+        self._thread.start()
+        return self.port
+
+    def close(self):
+        self._httpd.shutdown()
+        self._httpd.server_close()
+
+    # -------------------------------------------------------------- #
+
+    def _route_retry(self, path: str) -> tuple[str, str]:
+        """Retry on 'dict changed size during iteration': routes read
+        shared Domain state concurrently mutated by connection threads."""
+        for _ in range(4):
+            try:
+                return self._route(path)
+            except RuntimeError:
+                continue
+        return self._route(path)
+
+    def _route(self, path: str) -> tuple[str, str]:
+        path, _, qs = path.partition("?")
+        query = dict(p.split("=", 1) for p in qs.split("&") if "=" in p)
+        path = path.rstrip("/") or "/status"
+        if path == "/status":
+            from .mysql_server import SERVER_VERSION
+            return json.dumps({
+                "version": SERVER_VERSION,
+                "connections": len(self.domain.sessions()),
+            }), "application/json"
+        if path == "/schema":
+            out = {db: sorted(tables)
+                   for db, tables in self.domain.catalog.databases.items()}
+            return json.dumps(out), "application/json"
+        if path.startswith("/schema/"):
+            parts = path.split("/")[2:]
+            db = parts[0]
+            tables = self.domain.catalog.databases.get(db)
+            if tables is None:
+                raise KeyError(db)
+            if len(parts) == 1:
+                return json.dumps(sorted(tables)), "application/json"
+            tbl = tables.get(parts[1])
+            if tbl is None:
+                raise KeyError(parts[1])
+            return json.dumps({
+                "name": tbl.name, "table_id": tbl.table_id,
+                "columns": [{"name": n, "type": str(t)}
+                            for n, t in zip(tbl.col_names, tbl.col_types)],
+                "indexes": [{"name": ix.name, "columns": ix.columns,
+                             "unique": ix.unique, "state": ix.state}
+                            for ix in tbl.indexes],
+            }), "application/json"
+        if path == "/stats":
+            rows = []
+            for db, tables in self.domain.catalog.databases.items():
+                for name, tbl in tables.items():
+                    ts = self.domain.stats.get(tbl)
+                    if ts is not None:
+                        rows.append({"db": db, "table": name,
+                                     "rows": ts.realtime_count,
+                                     "modify_count": ts.modify_count})
+            return json.dumps(rows), "application/json"
+        if path == "/metrics":
+            from ..utils.metrics import global_registry
+            return global_registry().prometheus_text(), "text/plain"
+        if path in _UNPORTED_ROUTES or path.startswith("/trace/"):
+            raise unported(f"the status route {path}",
+                           _UNPORTED_ROUTES.get(path, CONTROL))
+        if path == "/settings":
+            # handler/settings analog: live global sysvars
+            return json.dumps(dict(sorted(
+                self.domain.sysvars.items()))), "application/json"
+        if path == "/regions/meta":
+            # region/shard topology introspection
+            # (handler/tikv_handler.go RegionsMeta analog)
+            out = []
+            for db, tables in self.domain.catalog.databases.items():
+                for name, tbl in tables.items():
+                    snap = tbl.snapshot()
+                    s, cap, counts = snap.shard_layout()
+                    ent = {"db": db, "table": name,
+                           "table_id": tbl.table_id,
+                           "rows": snap.num_rows, "shards": s,
+                           "shard_capacity": cap}
+                    if snap.placement is not None:
+                        ent["placement"] = [
+                            {"shard": i, "store": sh.store,
+                             "range": [sh.lo, sh.hi]}
+                            for i, sh in enumerate(snap.placement.shards)]
+                    out.append(ent)
+            return json.dumps(out), "application/json"
+        if path.startswith("/mvcc/key/"):
+            # MVCC version history of one row key
+            # (handler/tikv_handler.go MvccTxnHandler analog)
+            parts = path.split("/")[3:]
+            if len(parts) != 3:
+                raise KeyError(path)
+            db, table, handle = parts[0], parts[1], int(parts[2])
+            tbl = self.domain.catalog.get_table(db, table)
+            return json.dumps(self._mvcc_versions(tbl, handle)), \
+                "application/json"
+        if path == "/ddl/history":
+            # handler/ddl history analog: persisted job records
+            jobs = []
+            try:
+                for j in self.domain.ddl.storage.history():
+                    jobs.append({"job_id": j.job_id, "type": j.job_type,
+                                 "state": j.state, "table": j.table,
+                                 "error": j.error})
+            except Exception:
+                pass
+            return json.dumps(jobs), "application/json"
+        if path == "/schema_version":
+            ver = getattr(self.domain, "schema_version", None)
+            if callable(ver):
+                ver = ver()
+            return json.dumps({"schema_version": ver}), "application/json"
+        raise KeyError(path)
+
+    def _mvcc_versions(self, tbl, handle: int, max_versions: int = 8):
+        """Version history of a record key, read straight off the native
+        store's MVCC chains (kv_versions; reference pkg/server/handler
+        mvcc handlers) — exact, newest-first, O(versions) instead of a
+        per-ts probe walk."""
+        from ..store.codec import decode_row, record_key
+        kv = tbl.kv
+        if kv is None:
+            return {"error": "table has no KV store (bulk mode)"}
+        key = record_key(tbl.table_id, handle)
+        try:
+            history, truncated = kv.versions(key, max_versions)
+        except AttributeError:
+            return {"error": "store does not expose version history"}
+        out = []
+        for ts, val in history:
+            ent = {"commit_ts": ts}
+            if val is None:
+                ent["deleted"] = True
+            else:
+                try:
+                    ent["row"] = [str(v) for v in
+                                  decode_row(val, tbl.col_types)]
+                except Exception:
+                    ent["value_len"] = len(val)
+            out.append(ent)
+        res = {"key": key.hex(), "versions": out}
+        if truncated:
+            res["truncated"] = True
+        return res
+
+
+__all__ = ["StatusServer"]

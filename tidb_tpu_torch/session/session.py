@@ -1,5 +1,7 @@
 # ported from tidb_tpu/session/session.py @ 3951242
 # (windows, ANALYZE, auto-analyze and SHOW from the same file @ 6298005)
+# (privileges, KILL, the plan cache, bindings and PREPARE from the same
+# file @ 6233200)
 """Session: statement lifecycle.
 
 Reference analog: pkg/session (session.ExecuteStmt, session.go:2112) —
@@ -24,9 +26,13 @@ plan time, planner/partition_prune.py); in a SELECT, ``WITH ROLLUP``,
 ``ANALYZE TABLE`` (the statistics kernel on the card, stats/) and the
 ``SHOW`` kinds ``CREATE TABLE``, ``TABLES``, ``DATABASES``,
 ``COLUMNS``, ``INDEX``, ``STATS_META``, ``STATS_HISTOGRAMS``,
-``STATS_TOPN``, ``COLLATION``, ``CHARSET`` and ``VARIABLES``.  Its
-``_plan_select`` is the JAX package's without the plan cache, plan
-bindings, cascades and the analysis gates: the inline auto-analyze,
+``STATS_TOPN``, ``COLLATION``, ``CHARSET``, ``VARIABLES``, ``GRANTS``,
+``PROCESSLIST`` and ``BINDINGS``; users and grants (``CREATE``/``ALTER``/
+``DROP USER``, ``GRANT``, ``REVOKE``, ``FLUSH``, each statement checked
+against the privilege manager), ``KILL``, ``PREPARE``/``EXECUTE``/
+``DEALLOCATE``, optimizer hints and ``CREATE``/``DROP BINDING``.  Its
+``_plan_select`` is the JAX package's, the plan cache included, without
+cascades and the analysis gates: the inline auto-analyze,
 the join reorder, the index paths and the high-NDV strategy choice read
 the domain's statistics.  The port's ``Domain`` starts with
 ``tidb_enable_auto_analyze = 0`` (the JAX package's default is 1) and
@@ -46,8 +52,7 @@ from typing import Any, Optional
 
 import numpy as np
 
-from .. import (CONTROL, HOST_BASE, HOST_SURFACE, PLAN_CACHE, PLANNER,
-                unported)
+from .. import CONTROL, HOST_BASE, HOST_SURFACE, PLANNER, unported
 from ..copr.coordinator import KILL_EVENT, QUERY_HANDLE, Coordinator
 from ..executor import physical as P
 from ..executor.plan import STATS_HANDLE, to_physical
@@ -93,8 +98,13 @@ class Domain:
     catalog on KV, so schema and rows survive a new ``Domain`` over the
     same directory); ``sync`` fdatasyncs every commit record.  ``stats``
     holds the tables' statistics, built on the client's first device.
-    The JAX package's Domain also takes a tenant keyspace and holds
-    privileges, bindings, the watch plane, DXF and the background
+    ``privileges`` holds users and grants, ``plan_cache`` the instance
+    plan cache, ``bindings`` the GLOBAL plan bindings; the watch plane
+    (``watch``) carries ``SET GLOBAL`` and the grant tables, persisted
+    in a durable store so both survive a reopen.  ``register_session``
+    keeps a weak registry of the sessions for ``SHOW PROCESSLIST`` and
+    ``KILL``.  The JAX package's Domain also takes a tenant keyspace and
+    holds the statement summary, resource groups, DXF and the background
     workers; the port's has none of them yet (ROADMAP.md, Queue 1)."""
 
     def __init__(self, device="cuda", n_devices: int = 1,
@@ -144,11 +154,81 @@ class Domain:
         # inline auto-analyze off, so a session that never runs ANALYZE
         # or sets it on plans as over tables never analyzed
         self.sysvars["tidb_enable_auto_analyze"] = 0
+        from ..privilege import PrivilegeManager
+        self.privileges = PrivilegeManager()   # pkg/privilege Handle analog
+        # etcd-style watch plane (domain.go GlobalVarsWatcher analog):
+        # durable domains persist channel logs in the shared KV so other
+        # processes on the same store observe SET GLOBAL / GRANT without
+        # polling system tables; in-memory domains deliver in-process
+        from ..utils.watch import WatchHub
+        self.watch = WatchHub(self.kv if data_dir is not None else None)
+        self.watch.subscribe("sysvar", self._on_sysvar_event)
+        self.watch.subscribe("privilege", self._on_privilege_event)
+        from ..planner.plan_cache import PlanCache
+        self.plan_cache = PlanCache()          # instance plan cache
+        from ..planner.bindinfo import BindManager
+        self.bindings = BindManager()          # GLOBAL plan bindings
+        self._sessions = None                  # WeakValueDictionary, lazy
+        self._load_global_sysvars()      # durable SET GLOBALs survive restart
+        self._on_privilege_event({})     # durable users/grants reload
         from .autoid import AutoIDService
         self.autoid = AutoIDService(self.kv)  # pkg/autoid_service analog
         for _tables in self.catalog.databases.values():
             for _t in _tables.values():       # durable-load rebind
                 _t._autoid = self.autoid
+
+    # ---------------- watch plane (etcd-channel analogs) ---------------- #
+
+    _GVAR_PREFIX = b"m\x00gvar\x00"
+    _PRIV_KEY = b"m\x00privsnap"
+
+    def set_global_sysvar(self, name: str, value) -> None:
+        """SET GLOBAL: apply locally, persist (durable mode), and
+        broadcast on the sysvar watch channel."""
+        self.sysvars[name] = value
+        if self.meta is not None:
+            import json as _json
+            txn = self.kv.begin()
+            txn.put(self._GVAR_PREFIX + name.encode(),
+                    _json.dumps(value, default=str).encode())
+            txn.commit()
+        self.watch.notify("sysvar", {"name": name, "value": value})
+
+    def _load_global_sysvars(self) -> None:
+        if self.meta is None:
+            return
+        import json as _json
+        pre = self._GVAR_PREFIX
+        for k, v in self.kv.scan(pre, pre + b"\xff", self.kv.alloc_ts()):
+            try:
+                self.sysvars[k[len(pre):].decode()] = _json.loads(v)
+            except ValueError:
+                pass
+
+    def _on_sysvar_event(self, p: dict) -> None:
+        name = p.get("name")
+        if name:
+            self.sysvars[name] = p.get("value")
+
+    def broadcast_privileges(self) -> None:
+        """After GRANT/REVOKE/CREATE USER...: persist the privilege
+        snapshot and nudge the watch channel (privilege cache
+        invalidation, privileges.Handle update channel analog)."""
+        if self.meta is not None:
+            txn = self.kv.begin()
+            txn.put(self._PRIV_KEY, self.privileges.snapshot().encode())
+            txn.commit()
+        self.watch.notify("privilege", {})
+
+    def _on_privilege_event(self, p: dict) -> None:
+        if self.meta is None:
+            return
+        blob = self.kv.get(self._PRIV_KEY, self.kv.alloc_ts())
+        if blob:
+            try:
+                self.privileges.load_snapshot(blob.decode())
+            except ValueError:
+                pass
 
     @property
     def ddl(self):
@@ -169,17 +249,39 @@ class Domain:
             self._next_table_id += 1
             return self._next_table_id
 
+    def query_metrics(self):
+        """Cached (counter, histogram) pair for the statement hot path."""
+        m = getattr(self, "_query_metrics", None)
+        if m is None:
+            from ..utils.metrics import global_registry
+            reg = global_registry()
+            m = self._query_metrics = (
+                reg.counter("tidb_tpu_query_total", "statements executed",
+                            labels=("type",)),
+                reg.histogram("tidb_tpu_query_duration_seconds",
+                              "statement latency"))
+        return m
+
     def register_session(self, sess) -> int:
+        """Connection registry for SHOW PROCESSLIST (server's
+        SessionManager analog)."""
+        import weakref
         with self._id_mu:
+            if self._sessions is None:
+                self._sessions = weakref.WeakValueDictionary()
             self._next_conn_id += 1
+            self._sessions[self._next_conn_id] = sess
             return self._next_conn_id
+
+    def sessions(self):
+        with self._id_mu:
+            if self._sessions is None:
+                return []
+            return sorted(self._sessions.items())
 
 
 # statement kinds of later slices, by the ROADMAP.md item that ports them
 _UNPORTED_STMTS = {
-    "PrepareStmt": PLAN_CACHE, "ExecutePrepared": PLAN_CACHE,
-    "DeallocateStmt": PLAN_CACHE, "CreateBinding": PLAN_CACHE,
-    "DropBinding": PLAN_CACHE,
     "TraceStmt": CONTROL, "PlanReplayerDump": CONTROL,
     "CreateResourceGroup": CONTROL, "DropResourceGroup": CONTROL,
     "SetResourceGroup": CONTROL,
@@ -187,9 +289,8 @@ _UNPORTED_STMTS = {
 
 # SHOW kinds of later slices, by the ROADMAP.md item that ports them
 _UNPORTED_SHOW = {
-    "bindings": PLAN_CACHE,
     "statements_summary": HOST_BASE, "slow_queries": HOST_BASE,
-    "grants": HOST_BASE, "processlist": HOST_BASE, "status": HOST_BASE,
+    "status": HOST_BASE,
 }
 
 # physical operators of later slices, by the ROADMAP.md item that ports
@@ -215,10 +316,15 @@ def check_ported(phys: P.PhysOp) -> None:
 class Session:
     """``timings`` holds the wall-clock seconds of the last SELECT or
     EXPLAIN by phase: ``parse``, ``plan`` (build, optimize and the
-    physical plan), then for a SELECT ``execute`` (the executor tree,
-    the client's work included; its own split is
-    ``domain.client.timings``) and ``decode`` (the result's columns into
-    python rows)."""
+    physical plan, or the plan cache's lookup on a hit), then for a
+    SELECT ``execute`` (the executor tree, the client's work included;
+    its own split is ``domain.client.timings``) and ``decode`` (the
+    result's columns into python rows).
+
+    A text SELECT's plan is cached in ``domain.plan_cache``, keyed on its
+    text (``tidb_enable_plan_cache``, on by default); ``bindings`` holds
+    the SESSION plan bindings, ``prepared`` the ``PREPARE``d
+    statements."""
 
     def __init__(self, domain: Optional[Domain] = None, db: str = "test",
                  user: str = "root"):
@@ -228,6 +334,10 @@ class Session:
         self.user = user
         self.vars: dict[str, Any] = {}
         self.user_vars: dict[str, Any] = {}      # SET @x = ...
+        from ..planner.bindinfo import BindManager
+        self.bindings = BindManager()            # SESSION plan bindings
+        self.prepared: dict[str, tuple[str, int]] = {}  # name -> (sql, n_params)
+        self._cur_sql: Optional[str] = None      # text of the running stmt
         self.timings: dict = {}
         self.txn = None              # active explicit transaction
         self._txn_tables: set = set()
@@ -250,14 +360,37 @@ class Session:
     # ------------------------------------------------------------- #
 
     def execute(self, sql: str) -> ResultSet:
+        from ..plugin import registry as _plugins
+        qcnt, qdur = self.domain.query_metrics()
         t0 = time.perf_counter()
         stmts = parse_sql(sql)
         parse_s = (time.perf_counter() - t0) / max(len(stmts), 1)
         out = ResultSet()
         for stmt in stmts:
+            t0 = time.perf_counter_ns()
             span = getattr(stmt, "text_span", None)
             text = sql[span[0]:span[1]].strip() if span else sql
             self.timings = {"parse": parse_s}
+            self._cur_sql = text
+            # plan bindings: a matching digest donates its hints
+            # (bindinfo BindHandle match; session shadows global).
+            # EXPLAIN shows the bound plan too.
+            target, btext = stmt, text
+            if isinstance(stmt, (A.Explain, A.TraceStmt)):
+                target = stmt.stmt
+                import re as _re
+                btext = _re.sub(r"(?is)^\s*(explain(\s+analyze)?|trace)\s+",
+                                "", text)
+            if isinstance(target, A.SelectStmt) and not target.hints:
+                b = (self.bindings.match(btext)
+                     or self.domain.bindings.match(btext))
+                if b is not None:
+                    target.hints = list(b.hints)
+                    # bound statements bypass the plan cache: a cached
+                    # unhinted plan must not shadow the binding (and
+                    # vice versa after DROP BINDING)
+                    self._cur_sql = None
+            _plugins.fire("on_stmt_begin", self, text)
             self._kill_event.clear()
             handle = self.domain.coordinator.begin(self.conn_id, text)
             ktok = KILL_EVENT.set(self._kill_event)
@@ -286,6 +419,11 @@ class Session:
             ttok = TEMP_TABLES.set(self.temp_tables)
             try:
                 out = self._exec_stmt(stmt)
+            except Exception as e:
+                qcnt.inc(type="error")
+                _plugins.fire("on_stmt_end", self, text, str(e),
+                              (time.perf_counter_ns() - t0) / 1e9, 0)
+                raise
             finally:
                 TEMP_TABLES.reset(ttok)
                 SEQUENCE_RESOLVER.reset(qtok)
@@ -293,6 +431,15 @@ class Session:
                 QUERY_HANDLE.reset(htok)
                 KILL_EVENT.reset(ktok)
                 self.domain.coordinator.end(self.conn_id)
+                self._cur_sql = None
+            dt_ns = time.perf_counter_ns() - t0
+            qcnt.inc(type=type(stmt).__name__)
+            qdur.observe(dt_ns / 1e9)
+            # (the JAX package records the statement summary, the slow
+            # log, the flight recorder's trace and the resource group's
+            # charge here: ROADMAP.md, Queue 1 entries 7 and 12)
+            _plugins.fire("on_stmt_end", self, text, None, dt_ns / 1e9,
+                          len(out.rows) + out.affected)
             # ROW_COUNT()/FOUND_ROWS() state (executor/adapter.go
             # affectedRows analogs)
             if out.names:
@@ -311,21 +458,68 @@ class Session:
     # statements that implicitly commit an open transaction first
     _IMPLICIT_COMMIT = ("CreateTable", "DropTable", "CreateIndex",
                         "DropIndex", "AlterTable", "TruncateTable",
-                        "CreateDatabase", "DropDatabase")
+                        "CreateDatabase", "DropDatabase", "CreateUser",
+                        "AlterUser", "DropUser", "GrantStmt", "RevokeStmt")
+
+    _DDL_STMTS = ("CreateTable", "DropTable", "CreateIndex", "DropIndex",
+                  "AlterTable", "TruncateTable", "CreateDatabase",
+                  "DropDatabase", "CreateSequence", "DropSequence",
+                  "CreateView", "DropView")
 
     def _exec_stmt(self, stmt: A.Node) -> ResultSet:
-        # (the JAX package checks privileges here, and fires the schema
-        # plugins after a DDL: ROADMAP.md, Queue 1 item 1, sub-step 1
-        # and item 9)
+        self._check_privileges(stmt)
         if (self.txn is not None
                 and type(stmt).__name__ in self._IMPLICIT_COMMIT):
             # MySQL semantics: DDL implicitly commits the open transaction
             self._finish_txn(commit=True)
+        if type(stmt).__name__ in self._DDL_STMTS:
+            # schema plugin kind (plugin/spi.go SchemaManifest
+            # OnSchemaChange): fire only AFTER the DDL succeeded, with
+            # the statement's resolved database
+            from ..plugin import registry as _plugins
+            out = self._dispatch_stmt(stmt)
+            if isinstance(stmt, (A.CreateDatabase, A.DropDatabase)):
+                ev_dbs = [stmt.name]        # the db IS the target
+            elif isinstance(stmt, A.DropTable) and stmt.names:
+                # one event per distinct database a multi-table DROP
+                # touches, so per-schema plugins observe every change
+                ev_dbs = list(dict.fromkeys(
+                    db or self.db for db, _nm in stmt.names))
+            else:
+                ev_dbs = [getattr(stmt, "db", None) or self.db]
+            for ev_db in ev_dbs:
+                _plugins.fire("on_ddl", type(stmt).__name__, ev_db,
+                              self._cur_sql or "")
+            return out
         return self._dispatch_stmt(stmt)
 
     def _dispatch_stmt(self, stmt: A.Node) -> ResultSet:
+        if isinstance(stmt, (A.CreateUser, A.AlterUser, A.DropUser,
+                             A.GrantStmt, A.RevokeStmt, A.FlushStmt)):
+            return self._exec_user_admin(stmt)
         if isinstance(stmt, (A.SelectStmt, A.SetOpStmt)):
             return self._exec_select(stmt)
+        if isinstance(stmt, A.CreateBinding):
+            return self._exec_create_binding(stmt)
+        if isinstance(stmt, A.DropBinding):
+            mgr = (self.domain.bindings if stmt.scope == "global"
+                   else self.bindings)
+            return ResultSet(affected=int(mgr.drop(stmt.original_sql)))
+        if isinstance(stmt, A.KillStmt):
+            return self._exec_kill(stmt)
+        if isinstance(stmt, A.PrepareStmt):
+            from ..sql.bind import count_placeholders, strip_placeholders
+            parse_sql(strip_placeholders(stmt.sql))  # validate syntax now
+            self.prepared[stmt.name] = (stmt.sql,
+                                        count_placeholders(stmt.sql))
+            return ResultSet()
+        if isinstance(stmt, A.ExecutePrepared):
+            return self._exec_prepared(stmt)
+        if isinstance(stmt, A.DeallocateStmt):
+            if stmt.name not in self.prepared:
+                raise PlanError(f"unknown prepared statement {stmt.name!r}")
+            del self.prepared[stmt.name]
+            return ResultSet()
         if isinstance(stmt, A.Explain):
             return self._exec_explain(stmt)
         if isinstance(stmt, A.CreateTable):
@@ -492,7 +686,8 @@ class Session:
             except SysVarError as e:
                 raise PlanError(str(e))
             if stmt.scope == "global":
-                self.domain.sysvars[name.lower()] = v
+                # persist + broadcast on the watch plane
+                self.domain.set_global_sysvar(name.lower(), v)
             else:
                 self.vars[name.lower()] = v
         for name, val in stmt.user_vars:
@@ -500,26 +695,231 @@ class Session:
         return ResultSet()
 
     def _eval_scalar(self, expr: A.Node):
-        """Evaluate a scalar expression (SET @x = ...)."""
+        """Evaluate a scalar expression (SET @x = ...); subqueries inside
+        the expression still pass privilege checks."""
         if isinstance(expr, A.Lit):
             return self._literal_value(expr)
         sel = A.SelectStmt(items=[A.SelectItem(expr)])
+        self._check_privileges(sel)
         return self._exec_select(sel).scalar()
+
+    # ---------------- privileges ---------------- #
+
+    # statement class -> required privilege on its target tables
+    _STMT_PRIVS = {
+        "Insert": "INSERT", "Update": "UPDATE", "Delete": "DELETE",
+        "TruncateTable": "DROP", "CreateTable": "CREATE",
+        "DropTable": "DROP", "CreateIndex": "INDEX", "DropIndex": "INDEX",
+        "AlterTable": "ALTER", "CreateDatabase": "CREATE",
+        "DropDatabase": "DROP", "AnalyzeTable": "INSERT",
+    }
+
+    def _check_privileges(self, stmt: A.Node) -> None:
+        """Statement-level privilege verification (reference:
+        planner/core/planbuilder.go visitInfo + privilege.Handle
+        RequestVerification)."""
+        priv = self.domain.privileges
+        if isinstance(stmt, (A.SelectStmt, A.SetOpStmt)):
+            for db, tbl in self._referenced_tables(stmt):
+                priv.require(self.user, "SELECT", db or self.db, tbl)
+            return
+        if isinstance(stmt, (A.Explain, A.TraceStmt)):
+            return self._check_privileges(stmt.stmt)
+        if isinstance(stmt, (A.CreateUser, A.AlterUser, A.DropUser)):
+            return priv.require(self.user, "CREATE USER")
+        if isinstance(stmt, (A.GrantStmt, A.RevokeStmt)):
+            # MySQL requires the granter to hold the privileges granted;
+            # unqualified table level ('' db) means the current database
+            db = "" if stmt.db == "*" else (stmt.db or self.db)
+            table = "" if stmt.table == "*" else stmt.table
+            for p in stmt.privs:
+                priv.require(self.user, p if p != "ALL" else "SUPER",
+                             db, table)
+            return
+        if isinstance(stmt, A.AdminStmt):
+            # reference gates ADMIN behind SUPER (planbuilder.go)
+            return priv.require(self.user, "SUPER")
+        if isinstance(stmt, A.UseDatabase):
+            from ..privilege.manager import PrivilegeError
+            if not priv.has_db_access(self.user, stmt.name):
+                raise PrivilegeError(
+                    f"Access denied for user '{self.user}' to database "
+                    f"'{stmt.name}'")
+            return
+        if isinstance(stmt, A.ShowStmt) and stmt.kind == "grants":
+            if stmt.target:
+                user = stmt.target.partition("@")[0]
+                if user != self.user:
+                    return priv.require(self.user, "SUPER")
+            return
+        kind = type(stmt).__name__
+        need = self._STMT_PRIVS.get(kind)
+        if need is None:
+            return
+        if isinstance(stmt, A.Insert) and stmt.select is not None:
+            self._check_privileges(stmt.select)
+        if isinstance(stmt, (A.Update, A.Delete)):
+            # reading columns (WHERE clause, or non-literal SET exprs)
+            # additionally requires SELECT (planbuilder visitInfo)
+            reads = getattr(stmt, "where", None) is not None or any(
+                not isinstance(e, A.Lit)
+                for _c, e in getattr(stmt, "assignments", ()))
+            if reads:
+                priv.require(self.user, "SELECT",
+                             getattr(stmt, "db", None) or self.db,
+                             getattr(stmt, "table", ""))
+        target = getattr(stmt, "table", None) or getattr(stmt, "name", "")
+        if isinstance(stmt, A.DropTable):
+            for db, nm in stmt.names:
+                priv.require(self.user, need, db or self.db, nm)
+            return
+        if isinstance(stmt, (A.CreateDatabase, A.DropDatabase)):
+            return priv.require(self.user, need, stmt.name)
+        # db-qualified DDL/DML (CREATE INDEX db.t, ALTER TABLE db.t, ...)
+        # must check the QUALIFIED database, not the session one
+        db = getattr(stmt, "db", None) or self.db
+        priv.require(self.user, need, db, target)
+
+    def _referenced_tables(self, node: A.Node) -> list[tuple]:
+        """All (db, table) names a query reads — walks FROM clauses,
+        joins, subqueries, CTE bodies (skipping CTE self-references)."""
+        out: list[tuple] = []
+        cte_names: set = set()
+
+        def walk(n):
+            if n is None or not isinstance(n, A.Node):
+                return
+            if isinstance(n, A.TableName):
+                if n.name not in cte_names:
+                    out.append((n.db, n.name))
+                return
+            if isinstance(n, A.CTE):
+                cte_names.add(n.name)
+            # register CTE names BEFORE visiting FROM clauses that
+            # reference them (dataclass field order puts from_ first)
+            for cte in getattr(n, "ctes", ()):
+                walk(cte)
+            for f in getattr(n, "__dataclass_fields__", {}):
+                if f == "ctes":
+                    continue
+                v = getattr(n, f, None)
+                if isinstance(v, A.Node):
+                    walk(v)
+                elif isinstance(v, (list, tuple)):
+                    for x in v:
+                        if isinstance(x, A.Node):
+                            walk(x)
+                        elif isinstance(x, tuple):
+                            for y in x:
+                                if isinstance(y, A.Node):
+                                    walk(y)
+        walk(node)
+        return out
+
+    def _exec_user_admin(self, stmt: A.Node) -> ResultSet:
+        priv = self.domain.privileges
+        if isinstance(stmt, A.CreateUser):
+            for spec, pwd in stmt.users:
+                priv.create_user(spec.user, spec.host, pwd,
+                                 stmt.if_not_exists)
+        elif isinstance(stmt, A.AlterUser):
+            for spec, pwd in stmt.users:
+                priv.alter_user(spec.user, spec.host, pwd)
+        elif isinstance(stmt, A.DropUser):
+            for spec in stmt.users:
+                priv.drop_user(spec.user, spec.host, stmt.if_exists)
+        elif isinstance(stmt, A.GrantStmt):
+            db = self.db if stmt.db == "" else stmt.db
+            for spec in stmt.users:
+                priv.grant(stmt.privs, db, stmt.table, spec.user, spec.host)
+        elif isinstance(stmt, A.RevokeStmt):
+            db = self.db if stmt.db == "" else stmt.db
+            for spec in stmt.users:
+                priv.revoke(stmt.privs, db, stmt.table, spec.user, spec.host)
+        # FLUSH PRIVILEGES: no-op — the manager is authoritative
+        if not isinstance(stmt, A.FlushStmt):
+            # persist + broadcast the updated grant tables (watch plane)
+            self.domain.broadcast_privileges()
+        return ResultSet()
+
+    def _exec_kill(self, stmt) -> ResultSet:
+        """KILL [QUERY|CONNECTION] <id>: set the victim's kill event;
+        its next cancellation checkpoint (a host operator's chunk
+        boundary) raises QueryInterrupted — conn.go killConn +
+        mppcoordmanager cancel."""
+        sessions = dict(self.domain.sessions())
+        target = sessions.get(stmt.conn_id)
+        if target is None:
+            raise PlanError(f"Unknown thread id: {stmt.conn_id}")
+        from ..privilege import PrivilegeError
+        if target.user != self.user \
+                and not self.domain.privileges.check(self.user, "SUPER"):
+            raise PrivilegeError(
+                "You are not owner of thread "
+                f"{stmt.conn_id} (SUPER required)")
+        target._kill_event.set()
+        return ResultSet()
+
+    def _exec_create_binding(self, stmt: A.CreateBinding) -> ResultSet:
+        """CREATE [GLOBAL|SESSION] BINDING: both statements must parse,
+        normalize to the same digest, and the bind side must carry hints."""
+        from ..utils.stmtsummary import normalize_sql
+        orig = parse_sql(stmt.original_sql)
+        bind = parse_sql(stmt.bind_sql)
+        if len(orig) != 1 or len(bind) != 1 \
+                or not isinstance(bind[0], A.SelectStmt):
+            raise PlanError("BINDING takes single SELECT statements")
+        if normalize_sql(stmt.original_sql) != normalize_sql(stmt.bind_sql):
+            raise PlanError(
+                "binding statement digest differs from the original")
+        if not bind[0].hints:
+            raise PlanError("binding statement carries no optimizer hints")
+        mgr = (self.domain.bindings if stmt.scope == "global"
+               else self.bindings)
+        mgr.create(stmt.original_sql, stmt.bind_sql, bind[0].hints)
+        return ResultSet()
+
+    def _exec_prepared(self, stmt: A.ExecutePrepared) -> ResultSet:
+        from ..sql.bind import bind_placeholders
+        ent = self.prepared.get(stmt.name)
+        if ent is None:
+            raise PlanError(f"unknown prepared statement {stmt.name!r}")
+        sql, n_params = ent
+        if len(stmt.using) != n_params:
+            raise PlanError(
+                f"prepared statement {stmt.name!r} needs {n_params} "
+                f"parameters, got {len(stmt.using)}")
+        params = []
+        for uv in stmt.using:
+            if uv.lower() not in self.user_vars:
+                raise PlanError(f"user variable @{uv} is not set")
+            params.append(self.user_vars[uv.lower()])
+        return self.execute(bind_placeholders(sql, params))
 
     # ------------------------------------------------------------- #
 
-    def _plan_select(self, stmt):
+    def _plan_select(self, stmt, cache_sql: Optional[str] = None):
         """Build, optimize and bind the physical plan of a SELECT: the
-        JAX package's ``_plan_select`` without the plan cache, bindings,
-        the background stats load and the analysis gates."""
+        JAX package's ``_plan_select`` without the background stats load
+        and the analysis gates.  With ``cache_sql`` (a text statement's
+        own SELECT) and ``tidb_enable_plan_cache`` on, the plan comes
+        from, or goes to, the domain's plan cache."""
+        from ..planner.plan_cache import PlanCacheEntry, table_fingerprint
         t0 = time.perf_counter()
-        if getattr(stmt, "hints", None):
-            raise unported("optimizer hints and plan bindings", PLAN_CACHE)
+        cache = self.domain.plan_cache
         merged = {**self.domain.sysvars, **self.vars}
         if _flag_on(merged, "tidb_enable_cascades_planner", default=False):
             raise unported("the cascades planner", PLANNER)
+        use_cache = (cache_sql is not None
+                     and _flag_on(merged, "tidb_enable_plan_cache"))
+        if use_cache:
+            e = cache.get(cache_sql, self.db, merged, self.domain.catalog)
+            if e is not None:
+                self.timings["plan"] = time.perf_counter() - t0
+                return e.built, e.phys
         # uncorrelated scalar subqueries evaluate eagerly at plan time
-        # (EvalSubqueryFirstRow analog)
+        # (EvalSubqueryFirstRow analog); plans that did so are not cached
+        # since the folded constant goes stale with the data
         ran_subquery: list = []
         token = SUBQUERY_EXECUTOR.set(
             lambda ast: self._eval_scalar_subquery(ast, ran_subquery))
@@ -537,6 +937,18 @@ class Session:
             plan = rewrite_skew_distinct(plan)
         plan = reorder_joins(plan, self.domain.stats)
         phys = self._to_physical(apply_index_paths(plan, self.domain.stats))
+        use_cache = use_cache and not ran_subquery
+        if use_cache and _plan_cacheable(phys):
+            keys = {}
+            for db, name in self._referenced_tables(stmt):
+                tdb = db or self.db
+                try:
+                    tbl = self.domain.catalog.get_table(tdb, name)
+                except Exception:
+                    continue
+                keys[(tdb, name)] = table_fingerprint(tbl)
+            cache.put(cache_sql, self.db, merged,
+                      PlanCacheEntry(built, phys, keys))
         self.timings["plan"] = time.perf_counter() - t0
         return built, phys
 
@@ -640,9 +1052,11 @@ class Session:
                              mem_tracker=Tracker("query", quota))
 
     def _exec_select(self, stmt) -> ResultSet:
+        cache_sql = self._cur_sql
+        self._cur_sql = None  # inner selects (INSERT..SELECT) don't cache
         if getattr(stmt, "for_update", False):
             self._lock_for_update(stmt)
-        built, phys = self._plan_select(stmt)
+        built, phys = self._plan_select(stmt, cache_sql)
         t0 = time.perf_counter()
         chunk = phys.execute(self._exec_ctx())
         t1 = time.perf_counter()
@@ -1653,6 +2067,33 @@ class Session:
             tbl = cat.get_table(self.db, stmt.target)
             return ResultSet(["Table", "Create Table"],
                              [(tbl.name, _render_create_table(tbl))])
+        if stmt.kind == "bindings":
+            rows = []
+            if stmt.target in (None, "session"):
+                rows += [r + ("session",) for r in self.bindings.rows()]
+            if stmt.target in (None, "global"):
+                rows += [r + ("global",)
+                         for r in self.domain.bindings.rows()]
+            return ResultSet(
+                ["Original_sql", "Bind_sql", "Status", "Scope"], rows)
+        if stmt.kind == "processlist":
+            # without PROCESS, only the caller's own sessions are visible
+            # (mysql semantics; reference executor/show.go)
+            see_all = self.domain.privileges.check(self.user, "PROCESS")
+            return ResultSet(
+                ["Id", "db", "Command", "State"],
+                [(sid, sess.db, "Sleep" if sess is not self else "Query",
+                  "autocommit" if sess.txn is None else "in transaction")
+                 for sid, sess in self.domain.sessions()
+                 if see_all or sess.user == self.user])
+        if stmt.kind == "grants":
+            if stmt.target:
+                user, _, host = stmt.target.partition("@")
+            else:
+                user, host = self.user, "%"
+            return ResultSet([f"Grants for {user}@{host}"],
+                             [(g,) for g in
+                              self.domain.privileges.show_grants(user, host)])
         if stmt.kind == "tables":
             from ..infoschema import is_system_db, system_tables
             if is_system_db(self.db):
@@ -1840,6 +2281,20 @@ class Session:
             raise
         except Exception as e:
             raise PlanError(f"unsupported INSERT value expression: {e}")
+
+
+def _plan_cacheable(phys) -> bool:
+    """A cached plan must hold no materialized row state: CTE scans carry
+    a shared storage (executor CTEScanExec.storage) that memoizes results
+    and races across sessions — exclude them (the reference likewise
+    skips caching for non-deterministic/stateful plans)."""
+    stack = [phys]
+    while stack:
+        p = stack.pop()
+        if hasattr(p, "storage"):
+            return False
+        stack.extend(getattr(p, "children", ()))
+    return True
 
 
 def _flag_on(merged: dict, name: str, default: bool = True) -> bool:

@@ -52,6 +52,7 @@ device sends more rows to one bucket than it holds.
 from __future__ import annotations
 
 import dataclasses
+import threading
 import time
 from collections import OrderedDict
 from dataclasses import dataclass
@@ -92,8 +93,9 @@ class CopClient:
     """``device`` is ``"cuda"`` (the default) or ``"cpu"``;
     ``n_devices`` logical devices share it (see tidb_tpu_torch/device.py).
 
-    ``timings`` holds the wall-clock seconds of the last ``execute_agg``
-    or ``execute_rows`` by phase, each ended by a device synchronize:
+    ``timings`` holds the wall-clock seconds of the calling thread's last
+    ``execute_agg`` or ``execute_rows`` by phase (one dict a statement
+    thread: a server runs one thread a connection over one client), each ended by a device synchronize:
     ``place``, ``device``, ``transfer``, then ``merge`` (aggregations)
     or ``assemble`` (rows); SEGMENT and SCATTER add ``hash``.  The
     high-NDV strategies also record ``buckets``, the per-device state
@@ -110,16 +112,37 @@ class CopClient:
     its host plan instead of the device program (an empty build side,
     or a chain level with an empty or duplicate-keyed build): the JAX
     package's own plan branches, counted so a run can show that a join
-    meant for the card ran there."""
+    meant for the card ran there.  It and ``last_page_iters`` change
+    under ``_stat_mu``, the paging feedback under ``_pf_mu``, as in the
+    JAX package's client: connection threads share the client."""
 
     def __init__(self, device="cuda", n_devices: int = 1):
         self.devices = get_devices(device, n_devices)
-        self.timings: dict = {}
+        self._local = threading.local()
         # paging feedback: dag digest -> EWMA of the observed per-shard
-        # live fraction, LRU-capped (digests embed predicate constants)
+        # live fraction, LRU-capped (digests embed predicate constants);
+        # _pf_mu guards its get/assign/move_to_end/popitem sequence (a
+        # concurrent eviction between get and move_to_end raises KeyError)
         self._page_feedback: OrderedDict[int, float] = OrderedDict()
+        self._pf_mu = threading.Lock()
+        self._stat_mu = threading.Lock()
         self.last_page_iters = 0
         self.join_fallbacks = 0
+
+    @property
+    def timings(self) -> dict:
+        t = getattr(self._local, "timings", None)
+        if t is None:
+            t = self._local.timings = {}
+        return t
+
+    @timings.setter
+    def timings(self, value: dict) -> None:
+        self._local.timings = value
+
+    def count_join_fallback(self) -> None:
+        with self._stat_mu:
+            self.join_fallbacks += 1
 
     def _place(self, snap: ColumnarSnapshot):
         self.timings = {}
@@ -266,7 +289,8 @@ class CopClient:
         quarter of a shard (``INITIAL_SELECTIVITY``), at least 1024."""
         if isinstance(root, (D.TopN, D.Limit)):
             return max(root.limit, 16)
-        fb = self._page_feedback.get(fb_key)
+        with self._pf_mu:
+            fb = self._page_feedback.get(fb_key)
         if fb is not None:
             return _pow2_at_least(
                 max(int(per_shard * min(fb * 1.5, 1.0)) + 1, 256))
@@ -309,14 +333,16 @@ class CopClient:
             cap = _pow2_at_least(int(host_counts.max()))
         else:
             raise RuntimeError("paging loop did not converge")
-        self.last_page_iters = len(t["pages"])
+        with self._stat_mu:
+            self.last_page_iters = len(t["pages"])
         if not top and per_shard > 0:
             frac = float(host_counts.max()) / per_shard
-            old = self._page_feedback.get(fb_key, frac)
-            self._page_feedback[fb_key] = 0.5 * old + 0.5 * frac
-            self._page_feedback.move_to_end(fb_key)
-            while len(self._page_feedback) > PAGE_FEEDBACK_CAP:
-                self._page_feedback.popitem(last=False)
+            with self._pf_mu:
+                old = self._page_feedback.get(fb_key, frac)
+                self._page_feedback[fb_key] = 0.5 * old + 0.5 * frac
+                self._page_feedback.move_to_end(fb_key)
+                while len(self._page_feedback) > PAGE_FEEDBACK_CAP:
+                    self._page_feedback.popitem(last=False)
         return self._assemble_rows(out_cols, host_counts, cap, out_dtypes,
                                    dictionaries)
 
