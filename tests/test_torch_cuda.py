@@ -1276,3 +1276,132 @@ def test_stats_kernel_on_the_card_equals_plain(dev, name):
         assert torch.equal(g, want[k]), k
     assert launched["group_reduce"] == 2
     assert launched["radix_hist_all64"] >= 1
+
+
+# ------------------------------------------------------------------ #
+# the streamed path and the OOM ladder on the card
+# ------------------------------------------------------------------ #
+
+def test_uncached_batch_equals_the_resident_placement(dev):
+    """A batch placed by ``device_put_uncached`` (pinned host stacks,
+    non-blocking copies, timing events) holds what ``device_cols``
+    places."""
+    import chip_smoke as cs
+    from tidb_tpu_torch.store import snapshot_from_columns
+    from tidb_tpu_torch.testing.tpch import gen_lineitem
+    names, cols = gen_lineitem(0.01, seed=2, columns=cs.Q_COLS)
+    snap = snapshot_from_columns(names, cols, min_capacity=256)
+    batch = snap.row_batches(snap.device_bytes() // 4)[1]
+    rec = {}
+    got, counts = batch.device_put_uncached((dev,), rec)
+    want, want_counts = batch.device_cols((dev,))
+    assert torch.equal(counts, want_counts)
+    for (d, v), (wd, wv) in zip(got, want):
+        assert d.dtype == wd.dtype and torch.equal(d, wd)
+        assert (v is None) == (wv is None) and (v is None or
+                                                torch.equal(v, wv))
+    rec["h2d"][1].synchronize()
+    assert rec["stack_s"] > 0 and rec["h2d"][0].elapsed_time(
+        rec["h2d"][1]) >= 0
+
+
+@pytest.mark.parametrize("which", ["Q1", "Q6", "SORT"])
+def test_streamed_equals_resident_on_gpu(dev, which):
+    """Q1, Q6 and the SORT group-by streamed in at least four batches on
+    the card equal the resident run, one group_reduce launch a batch
+    program run, every batch's CUDA-event times recorded."""
+    import chip_smoke as cs
+    from tidb_tpu_torch.store import snapshot_from_columns
+    from tidb_tpu_torch.testing.tpch import gen_lineitem
+    if which == "SORT":
+        names, cols = gen_lineitem(0.01, seed=2, columns=cs.S4_COLS)
+        _kind, agg, meta = cs.build_s4("SORT")
+        rows = cs.agg_map
+    else:
+        names, cols = gen_lineitem(0.01, seed=2, columns=cs.Q_COLS)
+        agg, meta = cs.build_main_query(which, names, cols)
+        rows = cs.result_rows
+    snap = snapshot_from_columns(names, cols, min_capacity=256)
+    resident = rows(CopClient("cuda").execute_agg(agg, snap, meta))
+    client = CopClient("cuda")
+    client.device_mem_cap = snap.device_bytes() // 4
+    planned = len(snap.row_batches(client.device_mem_cap))
+    before = gr.LAUNCHES["group_reduce"]
+    assert rows(client.execute_agg(agg, snap, meta)) == resident
+    t = client.timings
+    runs = len(t["buckets"]) if which == "SORT" else planned
+    assert planned >= 4 and len(t["batches"]) == planned
+    assert gr.LAUNCHES["group_reduce"] - before == runs
+    assert all(r["h2d_ms"] >= 0 and r["device_ms"] >= 0
+               and r["wait_ms"] >= 0 for r in t["batches"])
+
+
+def test_streamed_sort_under_a_busy_stream(dev, monkeypatch):
+    """A streamed SORT whose stream holds another statement's kernel
+    (a server's connection threads share the stream) queued between its
+    last batch's host sync and that batch's end event: the batches'
+    event times are read once the event is done, so the statement
+    neither fails nor differs from the resident run."""
+    import chip_smoke as cs
+    from tidb_tpu_torch.store import snapshot_from_columns
+    from tidb_tpu_torch.testing.tpch import gen_lineitem
+    names, cols = gen_lineitem(0.01, seed=2, columns=cs.S4_COLS)
+    _kind, agg, meta = cs.build_s4("SORT")
+    snap = snapshot_from_columns(names, cols, min_capacity=256)
+    resident = cs.agg_map(CopClient("cuda").execute_agg(agg, snap, meta))
+    client = CopClient("cuda")
+    client.device_mem_cap = snap.device_bytes() // 4
+    end_batch = client._end_batch
+
+    def busy_then_end(rec):
+        torch.cuda._sleep(200_000_000)    # ~0.1 s of another statement
+        end_batch(rec)
+    monkeypatch.setattr(client, "_end_batch", busy_then_end)
+    assert cs.agg_map(client.execute_agg(agg, snap, meta)) == resident
+    t = client.timings["batches"]
+    assert len(t) >= 4 and t[-1]["device_ms"] >= 50.0
+
+
+def test_oom_ladder_on_gpu(dev, monkeypatch):
+    """A torch.cuda.OutOfMemoryError from the resident launch: the
+    half-size streamed batches answer, equal to the resident run."""
+    import chip_smoke as cs
+    from tidb_tpu_torch.store import snapshot_from_columns
+    from tidb_tpu_torch.testing.tpch import gen_lineitem
+    names, cols = gen_lineitem(0.01, seed=2, columns=cs.Q_COLS)
+    agg, meta = cs.build_main_query("Q1", names, cols)
+    want = cs.result_rows(CopClient("cuda").execute_agg(
+        agg, snapshot_from_columns(names, cols), meta))
+    snap = snapshot_from_columns(names, cols, min_capacity=256)
+    client = CopClient("cuda")
+    real, calls = client._launch, []
+
+    def launch(*a, **k):
+        calls.append(1)
+        if len(calls) == 1:
+            raise torch.cuda.OutOfMemoryError("CUDA out of memory.")
+        return real(*a, **k)
+    monkeypatch.setattr(client, "_launch", launch)
+    assert cs.result_rows(client.execute_agg(agg, snap, meta)) == want
+    assert client.oom_recovered == 1 and client.degraded == 0
+    assert client.timings["oom_rung"] == "stream"
+    assert not snap._device_cache
+
+
+def test_oom_the_stream_does_not_answer_propagates_on_gpu(dev, monkeypatch):
+    """An OOM that the half-size batches meet again propagates from a
+    client on the card (its host fallback is off): no CPU rung."""
+    import chip_smoke as cs
+    from tidb_tpu_torch.store import snapshot_from_columns
+    from tidb_tpu_torch.testing.tpch import gen_lineitem
+    names, cols = gen_lineitem(0.01, seed=2, columns=cs.Q_COLS)
+    agg, meta = cs.build_main_query("Q1", names, cols)
+    client = CopClient("cuda")
+
+    def launch(*a, **k):
+        raise torch.cuda.OutOfMemoryError("CUDA out of memory.")
+    monkeypatch.setattr(client, "_launch", launch)
+    with pytest.raises(torch.cuda.OutOfMemoryError):
+        client.execute_agg(agg, snapshot_from_columns(
+            names, cols, min_capacity=256), meta)
+    assert client.oom_recovered == client.degraded == 0

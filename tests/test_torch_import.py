@@ -90,9 +90,24 @@ SERVER_MODULES = ["tidb_tpu_torch/__main__.py",
                   "tidb_tpu_torch/testing/mysql_client.py"]
 
 
+# the host aggregation and the client's resilience: the fault plane,
+# the native host primitives, the host engines, the streamed and
+# resilient client and the remote store processes
+RESILIENCE_MODULES = ["tidb_tpu_torch/faults/__init__.py",
+                      "tidb_tpu_torch/faults/plan.py",
+                      "tidb_tpu_torch/faults/breaker.py",
+                      "tidb_tpu_torch/copr/nativeops.py",
+                      "tidb_tpu_torch/copr/hostagg.py",
+                      "tidb_tpu_torch/store/columnar.py",
+                      "tidb_tpu_torch/store/client.py",
+                      "tidb_tpu_torch/store/rpc.py",
+                      "tidb_tpu_torch/store/server.py",
+                      "tidb_tpu_torch/store/remote.py"]
+
+
 @pytest.mark.parametrize("path", JOIN_MODULES + STORE_MODULES
                          + SELECT_MODULES + WINDOW_STATS_MODULES
-                         + SERVER_MODULES)
+                         + SERVER_MODULES + RESILIENCE_MODULES)
 def test_join_modules_are_checked(path):
     assert path in SOURCES
 
@@ -152,11 +167,11 @@ def test_window_stats_modules_load_no_jax():
     assert all(ln.split(" ", 1)[1] == "[]" for ln in lines), lines
 
 
-def test_server_modules_load_no_jax():
-    """The server slice's modules, imported one by one in a fresh
-    interpreter, each leave jax and tidb_tpu out of sys.modules."""
+def _modules_load_no_jax(paths):
+    """Import the modules of ``paths`` one by one in a fresh
+    interpreter; each must leave jax and tidb_tpu out of sys.modules."""
     mods = [p[:-3].replace("/", ".").removesuffix(".__init__")
-            for p in SERVER_MODULES]
+            for p in paths]
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
@@ -174,6 +189,19 @@ def test_server_modules_load_no_jax():
     lines = out.stdout.splitlines()
     assert [ln.split(" ", 1)[0] for ln in lines] == mods
     assert all(ln.split(" ", 1)[1] == "[]" for ln in lines), lines
+
+
+def test_server_modules_load_no_jax():
+    """The server slice's modules, imported one by one in a fresh
+    interpreter, each leave jax and tidb_tpu out of sys.modules."""
+    _modules_load_no_jax(SERVER_MODULES)
+
+
+def test_resilience_modules_load_no_jax():
+    """The modules of the host aggregation and the client's resilience,
+    imported one by one in a fresh interpreter, each leave jax and
+    tidb_tpu out of sys.modules."""
+    _modules_load_no_jax(RESILIENCE_MODULES)
 
 
 def test_import_loads_no_jax_module():

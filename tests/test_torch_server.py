@@ -610,6 +610,9 @@ def test_eight_threads_equal_the_serial_run(monkeypatch):
     sess = tpch.sql_session({"lineitem": tpch.gen_lineitem(0.002, 3)},
                             device="cpu", n_devices=2)
     dom = sess.domain
+    # every statement runs its cop task (no result-cache hit), so each
+    # thread's own timings come from a device program run
+    sess.execute("set global tidb_tpu_result_cache_entries = 0")
     work = {i: _mixed_statements(i) for i in range(N_THREADS)}
     serial = {i: [sess.must_query(q) for q in qs] for i, qs in work.items()}
     got, errs = {}, []

@@ -38,7 +38,17 @@ cuda|cpu``, ``dump`` and ``import``), with users and grants
 (``privilege/``), KILL, prepared statements and the plan cache
 (``planner/plan_cache.py``, ``sql/bind.py``), optimizer hints and plan
 bindings (``planner/bindinfo.py``), the audit plugins (``plugin/``) and
-the TOML configuration (``config.py``).  What the port does not run yet
+the TOML configuration (``config.py``).  The client is resilient as the
+JAX package's is: a table past ``device_mem_cap`` streams through the
+card's memory in batches (pinned host stacks, a copy stream), a launch
+that runs out of device memory walks the OOM ladder (half-size streamed
+batches, then the host engines of ``copr/hostagg.py`` over the native
+primitives of ``native/hostops.cpp``), a quarantined program the
+quarantine ladder, region errors retry with the placement healed, the
+fault plane (``faults/``) injects faults at its seams, repeated
+statements hit the result cache, and ``store/remote.py`` fans a DAG out
+to store processes (``store/server.py``, numpy on the host) over the
+framed RPC of ``store/rpc.py``.  What the port does not run yet
 raises ``NotImplementedError`` naming its ROADMAP.md item (below).
 """
 

@@ -39,6 +39,12 @@ BUILD_LOG: list = []     # nvcc/ptxas output of the builds in this process
 _LAUNCH_MU = threading.Lock()
 
 
+class KernelBuildError(RuntimeError):
+    """nvcc failed to build a kernel library (never a device OOM, though
+    the compiler's own text may say "out of memory":
+    ``faults.is_oom_error``)."""
+
+
 def count_launches(launches: dict, name: str, n: int = 1) -> None:
     """Add ``n`` to ``launches[name]`` under the counters' lock."""
     with _LAUNCH_MU:
@@ -86,7 +92,7 @@ def build_all(srcs: Sequence[Path]) -> list:
         else:
             os.replace(tmp, so)   # atomic: a concurrent build never sees half
     if failed:
-        raise RuntimeError("\n".join(failed))
+        raise KernelBuildError("\n".join(failed))
     return sos
 
 
@@ -116,10 +122,27 @@ def stream_of(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+# the CUDA runtime's error strings of the codes a launcher may return
+# (cudaGetErrorString): 2 is the one device OOM among them
+CUDA_ERRORS = {1: "invalid argument", 2: "out of memory",
+               98: "invalid device function",
+               209: "no kernel image is available for execution on the "
+                    "device",
+               700: "an illegal memory access was encountered",
+               701: "too many resources requested for launch",
+               719: "unspecified launch failure"}
+
+
 def raise_on(rc: int, name: str) -> None:
+    """Raise for a launcher's nonzero CUDA error code, with the
+    runtime's text for it: ``faults.is_oom_error`` reads "out of
+    memory" (code 2) as a device OOM, and no other code."""
     if rc != 0:
-        raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
+        text = CUDA_ERRORS.get(rc, "see cudaGetErrorString")
+        raise RuntimeError(f"{name} launch failed: CUDA error {rc} "
+                           f"({text})")
 
 
-__all__ = ["SRC_DIR", "BUILD_DIR", "NVCC_FLAGS", "BUILD_LOG", "Library",
+__all__ = ["SRC_DIR", "BUILD_DIR", "NVCC_FLAGS", "BUILD_LOG", "CUDA_ERRORS",
+           "KernelBuildError", "Library",
            "build_all", "library_path", "nvcc", "stream_of", "raise_on"]

@@ -147,6 +147,10 @@ class Domain:
         self._id_mu = threading.Lock()
         self._next_conn_id = 0
         self.sysvars: dict[str, Any] = defaults()
+        # the globals a SET GLOBAL gave a value (this process's, a
+        # reloaded one's or another process's): the knobs the port's
+        # client takes only when asked (tidb_tpu_sched_host_fallback)
+        self.sysvars_set: set[str] = set()
         from ..stats.handle import StatsHandle
         # per-table statistics (ANALYZE), built on the client's card
         self.stats = StatsHandle(self.client.devices[0])
@@ -186,6 +190,7 @@ class Domain:
         """SET GLOBAL: apply locally, persist (durable mode), and
         broadcast on the sysvar watch channel."""
         self.sysvars[name] = value
+        self.sysvars_set.add(name)
         if self.meta is not None:
             import json as _json
             txn = self.kv.begin()
@@ -201,7 +206,9 @@ class Domain:
         pre = self._GVAR_PREFIX
         for k, v in self.kv.scan(pre, pre + b"\xff", self.kv.alloc_ts()):
             try:
-                self.sysvars[k[len(pre):].decode()] = _json.loads(v)
+                name = k[len(pre):].decode()
+                self.sysvars[name] = _json.loads(v)
+                self.sysvars_set.add(name)
             except ValueError:
                 pass
 
@@ -209,6 +216,7 @@ class Domain:
         name = p.get("name")
         if name:
             self.sysvars[name] = p.get("value")
+            self.sysvars_set.add(name)
 
     def broadcast_privileges(self) -> None:
         """After GRANT/REVOKE/CREATE USER...: persist the privilege
@@ -1041,14 +1049,42 @@ class Session:
     def _exec_ctx(self) -> P.ExecContext:
         """Statement-scoped execution context with a fresh memory tracker
         rooted at tidb_mem_quota_query (util/memory Tracker analog).  The
-        JAX package's engine knobs (scheduler, result cache, faults, ...)
-        tune parts of its client the port's does not have yet."""
+        engine knobs of the client ride sysvars: the streaming cap, the
+        result cache's capacity, the host fallback of the ladders (once a
+        SET GLOBAL gave it a value) and the fault-injection spec.  The
+        JAX package's scheduler, resource-control, calibration and pd
+        knobs stay inert: they tune parts of its client the port's does
+        not have yet (ROADMAP.md, Queue 1 entries 10 and 12)."""
         from ..utils.memory import Tracker
         merged = {**self.domain.sysvars, **self.vars}
         quota = int(merged.get("tidb_mem_quota_query", 1 << 30))
         if quota <= 0:
             quota = -1       # TiDB semantics: 0/negative = unlimited
-        return P.ExecContext(self.domain.client, merged,
+        client = self.domain.client
+        # engine knobs ride sysvars (the reference's every-perf-knob-is-a-
+        # sysvar discipline, vardef/tidb_vars.go)
+        v0 = merged.get("tidb_tpu_device_mem_cap")
+        cap = -1 if v0 is None or v0 == "" else int(v0)
+        if cap >= 0:
+            client.device_mem_cap = cap
+        v1 = merged.get("tidb_tpu_result_cache_entries")
+        rc = -1 if v1 is None or v1 == "" else int(v1)
+        if rc >= 0:
+            client._result_cache_cap = rc
+        # launch supervision (faultline): host-oracle fallback for
+        # quarantined digests and unanswered OOMs, and the fault-injection
+        # plane spec.  The port's client keeps a statement on the card
+        # unless a SET GLOBAL turned the fallback on: the sysvar's
+        # default (1, as in the JAX package) does not reach it
+        v9 = merged.get("tidb_tpu_sched_host_fallback")
+        if v9 is not None and v9 != "" and \
+                "tidb_tpu_sched_host_fallback" in self.domain.sysvars_set:
+            client.host_fallback = bool(int(v9))
+        v10 = merged.get("tidb_tpu_faults")
+        if v10 is not None:
+            from ..faults import install_spec
+            install_spec(str(v10))
+        return P.ExecContext(client, merged,
                              mem_tracker=Tracker("query", quota))
 
     def _exec_select(self, stmt) -> ResultSet:

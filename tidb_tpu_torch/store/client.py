@@ -1,4 +1,4 @@
-# ported from tidb_tpu/store/client.py @ a9e9482
+# ported from tidb_tpu/store/client.py @ ba365f2
 """Coprocessor client: dispatches a pushed-down DAG to the devices and
 merges what they return.
 
@@ -38,10 +38,54 @@ the aggregation or the row compaction, re-run at larger exchange, join
 or result capacities while a device reports more rows than one holds
 (``_run_shuffle``).
 
-On the CPU the client runs the same device programs through the plain
-kernel versions; it has no host shortcut (the JAX package's CPU routes
-to ``host_dense_agg`` and ``host_sort_agg``), no streaming, result
-cache, warm-capacity cache, retries or fault ladders.
+Around those routes, as in the JAX package's client:
+
+- **retries** (``_retry``): a ``RegionError`` (injected by
+  ``inject_failures``, or a remote store's) or an injected transient
+  fault at the ``dispatch`` or ``transfer`` seam (faults/) backs off
+  under ``retry_budget_ms`` and retries; a RegionError naming a shard or
+  a store first heals the snapshot's placement (split the shard, exclude
+  the store), so the retry places and runs a different fan-out
+  (``last_retries``, ``last_heals``);
+- **the result cache** (``execute_agg`` without ``aux_cols``): an LRU of
+  ``RESULT_CACHE_ENTRIES`` results up to 4 MiB each, keyed by the DAG's
+  digest, the snapshot's and its placement's epochs and its layout, each
+  entry holding a weakref to its snapshot (``result_cache_hits``,
+  ``result_cache_misses``);
+- **streaming**: a snapshot whose placed footprint exceeds
+  ``device_mem_cap`` (env ``TIDB_TPU_DEVICE_MEM_CAP``; 0 = resident)
+  runs as row-range batches that share one program shape, each placed
+  outside the resident cache by ``device_put_uncached`` and reduced by
+  the same kernels as the resident run.  A batch is stacked in pinned
+  host memory and copied without blocking on the current stream, so
+  the host stacks batch k+1 while the card copies and reduces batch k;
+  the SORT, SEGMENT and SCATTER batches run with their regrow, and the
+  rows route's batches concatenate their rows;
+- **the OOM ladder**: an aggregation whose launch exhausts device memory
+  (``faults.is_oom_error``: a ``torch.cuda.OutOfMemoryError`` or an
+  injected ``MemoryFault``) runs again as half-size streamed batches on
+  the card, counted in ``oom_recovered``.  Device-forced: before that
+  rung the client drops the failed launch's traceback and the
+  snapshot's resident placement and returns the freed blocks to the
+  card (``torch.cuda.empty_cache``), which the JAX package leaves to
+  XLA.  Its last rung, the host (``copr/hostagg``), runs only when
+  ``host_fallback`` is on; otherwise the OOM propagates;
+- **the quarantine ladder**: a ``LaunchQuarantinedError`` (the launch
+  circuit breaker; raised by the scheduler, not ported yet) is served by
+  the host when ``host_fallback`` is on, counted in ``degraded``.
+
+``host_fallback`` (``tidb_tpu_sched_host_fallback``) is off by default in
+the port, where the JAX package's is on: a statement meant for the card
+moves to the CPU only when the caller asks for it.
+
+Any other error, a launch failure that is not an OOM among them,
+propagates.  The retry and ladder counters change under ``_stat_mu``,
+the result cache and its counters under ``_rc_mu``.  On the CPU the
+client runs the same device programs through the plain kernel versions:
+it keeps none of the JAX package's CPU engine choice (its CPU client
+sends DENSE, SCALAR and the high-NDV strategies to ``host_dense_agg`` and
+``host_sort_agg``), nor its warm-capacity cache (``_warm_cap``, which
+reads the compile cache: ROADMAP.md, Queue 1 entry 10).
 
 ``execute_window`` runs the window functions (parallel/window.py): each
 device's scan chain, the hash exchange by PARTITION BY, each device's
@@ -52,10 +96,13 @@ device sends more rows to one bucket than it holds.
 from __future__ import annotations
 
 import dataclasses
+import os
 import threading
 import time
+import weakref
 from collections import OrderedDict
 from dataclasses import dataclass
+from typing import Optional
 
 import numpy as np
 import torch
@@ -65,8 +112,11 @@ from ..copr import dag as D
 from ..copr import radix
 from ..copr.aggregate import (GroupKeyMeta, finalize, finalize_sorted,
                               merge_sorted_states, merge_states)
+from ..copr.coordinator import check_killed
 from ..copr.join import check_join_rows
 from ..device import get_devices
+from ..faults import plan as _faults
+from ..faults.breaker import LaunchQuarantinedError
 from ..parallel.shuffle import ShardedShuffleJoinProgram, ShuffleCaps
 from ..parallel.spmd import ShardedCopProgram
 from ..parallel.window import ShardedWindowProgram
@@ -75,6 +125,7 @@ from .columnar import ColumnarSnapshot, _pow2_at_least
 DEFAULT_GROUP_CAPACITY = 4096
 INITIAL_SELECTIVITY = 4  # row capacity = max(rows/shards/4, 1024)
 PAGE_FEEDBACK_CAP = 512
+RESULT_CACHE_ENTRIES = 64   # a new client's result-cache capacity
 
 
 @dataclass
@@ -108,13 +159,21 @@ class CopClient:
     join's executor adds ``build``, the seconds of its build side (its
     own plan, the sort of its keys and the copy to the card).
 
+    A streamed call records ``batches``: a dict a batch with its
+    ``rows``, the host stacking ms (``stack_ms``) and, on a CUDA device,
+    from CUDA events on the stream, its copy's ms (``h2d_ms``), its
+    kernels' ms (``device_ms``) and the ms the stream waited for it
+    after the batch before it (``wait_ms``: the host stacking the card
+    did not hide).
+
     ``join_fallbacks`` counts the broadcast joins whose executor took
     its host plan instead of the device program (an empty build side,
     or a chain level with an empty or duplicate-keyed build): the JAX
     package's own plan branches, counted so a run can show that a join
-    meant for the card ran there.  It and ``last_page_iters`` change
-    under ``_stat_mu``, the paging feedback under ``_pf_mu``, as in the
-    JAX package's client: connection threads share the client."""
+    meant for the card ran there.  It, ``last_page_iters`` and the
+    retry and ladder counters change under ``_stat_mu``, the paging
+    feedback under ``_pf_mu``, as in the JAX package's client:
+    connection threads share the client."""
 
     def __init__(self, device="cuda", n_devices: int = 1):
         self.devices = get_devices(device, n_devices)
@@ -128,6 +187,43 @@ class CopClient:
         self._stat_mu = threading.Lock()
         self.last_page_iters = 0
         self.join_fallbacks = 0
+        # failure detection/recovery (copIterator backoff-and-retry):
+        # transient dispatch errors retry under a typed backoff budget;
+        # the failpoint queue is lock-guarded since the client is shared
+        # by every connection thread
+        self.retry_budget_ms = 5000.0
+        self.last_retries = 0
+        self.last_heals = 0    # topology mutations by the retry loop
+        self._fp_mu = threading.Lock()
+        self._failpoints: list = []    # injected RegionErrors (tests/chaos)
+        # streaming threshold: tables whose stacked device footprint
+        # exceeds this stream through device memory in batches (SURVEY.md
+        # §5.7; 0 = never stream)
+        self.device_mem_cap = int(
+            os.environ.get("TIDB_TPU_DEVICE_MEM_CAP", "0") or 0)
+        # coprocessor RESULT cache (copr/coprocessor_cache.go analog):
+        # key = (dag digest, snapshot epoch, placement epoch, layout); a
+        # table write creates a new snapshot + epoch, so stale entries
+        # never hit and the LRU ages them out.  Entries hold a weakref
+        # to their snapshot: a hit must come from the SAME snapshot
+        # object (guards id()/epoch reuse).
+        self._result_cache: OrderedDict = OrderedDict()
+        self._result_cache_cap = RESULT_CACHE_ENTRIES
+        self._rc_max_bytes = 4 << 20   # only small responses, like the ref
+        self._rc_mu = threading.Lock()
+        self.result_cache_hits = 0
+        self.result_cache_misses = 0
+        # graceful degradation (tidb_tpu_sched_host_fallback): a digest
+        # quarantined by the launch circuit breaker, or an OOM that the
+        # half-size stream did not answer, falls back to the host oracle
+        # path when the plan has a host-executable shape.  Off unless
+        # asked for: the port keeps a statement on the card
+        self.host_fallback = False
+        self.degraded = 0      # statements served by that fallback
+        # OOM recovery (faults.is_oom_error): a launch that exhausted
+        # device memory retries through the recovery ladder — streamed
+        # half-size batches, then (host_fallback) the host oracle
+        self.oom_recovered = 0
 
     @property
     def timings(self) -> dict:
@@ -152,16 +248,349 @@ class CopClient:
         self.timings["place"] = time.perf_counter() - t0
         return cols, counts
 
+    # -- dispatch retry seam (pkg/store/copr backoff loop analog) ------ #
+
+    def inject_failures(self, kind, n: int = 1, shard=None,
+                        store=None) -> None:
+        """Failpoint: the next n dispatches raise a RegionError of `kind`
+        before touching the device (chaos/testing seam, the reference's
+        failpoint.Inject on rpc errors).  `shard`/`store` name the failing
+        topology element so the retry can heal it (re-split / exclude)."""
+        from .backoff import RegionError
+        with self._fp_mu:
+            for _ in range(n):
+                e = RegionError(kind)
+                e.shard = shard
+                e.store = store
+                self._failpoints.append(e)
+
+    def _next_failpoint(self):
+        with self._fp_mu:
+            return self._failpoints.pop(0) if self._failpoints else None
+
+    def _retry(self, fn, snap: Optional[ColumnarSnapshot] = None):
+        """Backoff loop that HEALS the topology before retrying: a
+        RegionError naming a shard/store mutates the snapshot's placement
+        (split the shard / exclude the store, placement.heal), bumping its
+        epoch so the retry dispatches a DIFFERENT fan-out — the
+        copr handleTask re-split discipline (coprocessor.go:337,:1308),
+        not an identical re-run."""
+        from .backoff import DEVICE_FAILED, Backoffer, RegionError
+        bo = Backoffer(max_sleep_ms=self.retry_budget_ms)
+        retries = 0
+        while True:
+            check_killed()    # KILL QUERY cancels in-flight dispatch loops
+            try:
+                fp = self._next_failpoint()
+                if fp is not None:
+                    raise fp
+                _faults.check("dispatch")   # faultline store-dispatch seam
+                with self._stat_mu:
+                    self.last_retries = retries
+                return fn()
+            except RegionError as e:
+                bo.backoff(e.kind, e)
+                if snap is not None and snap.placement is not None:
+                    healed = snap.placement.heal(e)
+                    if healed:
+                        with self._stat_mu:
+                            self.last_heals += 1
+                retries += 1
+            except _faults.TransientFault as e:
+                # injected retryable dispatch/transfer fault: same typed
+                # budget, DEVICE_FAILED curve; poison faults propagate
+                bo.backoff(DEVICE_FAILED, e)
+                retries += 1
+
     def execute_agg(self, agg: D.Aggregation, snap: ColumnarSnapshot,
                     key_meta: list[GroupKeyMeta], aux_cols=()) -> CopResult:
         """The aggregation's result columns.  ``aux_cols`` are the build
         sides of the broadcast joins fused into ``agg``'s program."""
-        cols, counts = self._place(snap)
+        key = None
+        if not aux_cols:      # aux (join builds) = host inputs, not cacheable
+            key = self._rc_key(agg, snap)
+            hit = self._rc_get(key, snap)
+            if hit is not None:
+                return hit
+        oom = None
+        try:
+            res = self._retry(lambda: self._execute_agg_once(
+                agg, snap, key_meta, aux_cols), snap=snap)
+        except LaunchQuarantinedError as err:
+            # OPEN breaker: the device program keeps failing — degrade
+            # to the host oracle where the plan shape allows it
+            res = self._degraded_agg(agg, snap, key_meta, aux_cols, err)
+        except Exception as err:
+            # OOM recovery: a launch that exhausted device memory
+            # (injected MemoryFault or a real CUDA OOM) walks the
+            # recovery ladder; everything else re-raises
+            if not _faults.is_oom_error(err):
+                raise
+            # device-forced: the traceback's frames hold the failed
+            # launch's tensors (the placement, its temporaries); drop
+            # them before the ladder asks the card for memory again
+            oom = err.with_traceback(None)
+        if oom is not None:
+            res = self._oom_degraded_agg(agg, snap, key_meta, aux_cols, oom)
+        if key is not None:
+            self._rc_put(key, snap, res)
+        return res
+
+    def _oom_degraded_agg(self, agg: D.Aggregation, snap: ColumnarSnapshot,
+                          key_meta, aux_cols, err) -> CopResult:
+        """OOM recovery ladder: try streamed half-size batches first (the
+        launch that OOM'd resident runs as >= 2 batches), then, with
+        ``host_fallback`` on, the host oracle — results stay
+        bit-identical to the uncontended run on every rung.  Otherwise,
+        or for a plan with neither shape, the OOM propagates.  The rung
+        taken is ``timings["oom_rung"]`` ("stream" or "host")."""
+        if not aux_cols:
+            # device-forced: the resident placement of the run that
+            # failed still holds device memory; release it (and the
+            # allocator's free blocks) so the half-size batches can fit
+            snap._device_cache.clear()
+            if self.devices[0].type == "cuda":
+                torch.cuda.empty_cache()
+            half = max(snap.device_bytes() // 2, 1)
+            batches = snap.row_batches(half)
+            if batches and len(batches) >= 2:
+                try:
+                    if agg.strategy in D.HOST_MERGE_STRATEGIES:
+                        res = self._stream_sort_agg(agg, batches, key_meta)
+                    else:
+                        res = self._stream_dense_agg(agg, batches, key_meta)
+                    self.timings["oom_rung"] = "stream"
+                    with self._stat_mu:
+                        self.oom_recovered += 1
+                    return res
+                except Exception as e:  # noqa: BLE001 - recovery ladder:
+                    # a half-size stream may STILL exhaust memory (or
+                    # trip the same injected fault) — fall through to
+                    # the host oracle; anything non-OOM re-raises
+                    if not _faults.is_oom_error(e):
+                        raise
+        if not self.host_fallback:
+            raise err
+        res = self._degraded_agg(agg, snap, key_meta, aux_cols, err)
+        self.timings["oom_rung"] = "host"
+        with self._stat_mu:
+            self.oom_recovered += 1
+        return res
+
+    def _degraded_agg(self, agg: D.Aggregation, snap: ColumnarSnapshot,
+                      key_meta, aux_cols, err) -> CopResult:
+        """Graceful degradation for a quarantined program digest
+        (faultline): serve the aggregation from the host oracle path
+        (copr/hostagg) — slow-but-correct instead of unavailable, the
+        Flare compiled-path-falls-back-to-interpreter pattern.  Plans
+        without a host-executable shape re-raise the quarantine error
+        so the client sees the structured failure."""
+        res = None
+        if self.host_fallback and not aux_cols:
+            if agg.strategy in D.HOST_MERGE_STRATEGIES:
+                res = self._host_sort_agg(agg, snap, key_meta)
+            else:
+                from ..copr.hostagg import host_dense_agg
+                states = host_dense_agg(agg, snap)
+                if states is not None:
+                    merged = merge_states([states])
+                    key_cols, agg_cols = finalize(agg, merged, key_meta)
+                    res = CopResult(agg_cols, key_cols)
+        if res is None:
+            raise err
+        with self._stat_mu:
+            self.degraded += 1
+        from ..utils.metrics import global_registry
+        global_registry().counter(
+            "tidb_tpu_sched_degraded_total",
+            "statements served by the host oracle after a launch "
+            "quarantine").inc()
+        from ..copr.coordinator import QUERY_HANDLE
+        h = QUERY_HANDLE.get()
+        if h is not None:
+            h.note_degraded()
+        return res
+
+    def _host_sort_agg(self, agg: D.Aggregation, snap: ColumnarSnapshot,
+                       key_meta) -> Optional[CopResult]:
+        """The host group-by of the ladders' last rung: a host unique +
+        segment reduction over the snapshot columns (copr/hostagg), or
+        None when the DAG shape isn't the scan/filter/project chain that
+        path handles."""
+        from ..copr.hostagg import host_sort_agg
+        states = host_sort_agg(agg, snap)
+        if states is None:
+            return None
+        # single host table: groups are already unique — the cross-device
+        # re-group of merge_sorted_states would be a no-op
+        merged = {k: v for k, v in states.items() if k != "__ngroups__"}
+        key_cols, agg_cols = finalize_sorted(agg, merged, key_meta)
+        return CopResult(agg_cols, key_cols)
+
+    # -- the result cache ------------------------------------------- #
+
+    def _rc_key(self, dag, snap: ColumnarSnapshot):
+        p_epoch = snap.placement.epoch if snap.placement is not None else -1
+        return (D.dag_digest(dag), snap.epoch, p_epoch, snap.num_rows,
+                snap.n_shards)
+
+    def _rc_get(self, key, snap) -> Optional[CopResult]:
+        with self._rc_mu:
+            ent = self._result_cache.get(key)
+            if ent is not None and ent[0]() is snap:
+                self._result_cache.move_to_end(key)
+                self.result_cache_hits += 1
+                return ent[1]
+            # miss counter bumps under the same lock: the client is
+            # shared by every connection thread and an unguarded
+            # read-modify-write here loses updates under load
+            self.result_cache_misses += 1
+        return None
+
+    def _rc_put(self, key, snap, res: CopResult) -> None:
+        nbytes = sum(c.data.nbytes for c in res.columns + res.key_columns
+                     if hasattr(c.data, "nbytes"))
+        if nbytes > self._rc_max_bytes:
+            return
+        with self._rc_mu:
+            self._result_cache[key] = (weakref.ref(snap), res)
+            self._result_cache.move_to_end(key)
+            while len(self._result_cache) > self._result_cache_cap:
+                self._result_cache.popitem(last=False)
+
+    def _execute_agg_once(self, agg: D.Aggregation, snap: ColumnarSnapshot,
+                          key_meta: list[GroupKeyMeta],
+                          aux_cols=()) -> CopResult:
+        batches = self._stream_batches(agg, snap, aux_cols)
         if agg.strategy in D.HOST_MERGE_STRATEGIES:
+            # SORT, SEGMENT and SCATTER share one dispatch path:
+            # per-device group tables, host final merge, capacity regrow
+            if batches is not None:
+                return self._stream_sort_agg(agg, batches, key_meta)
+            cols, counts = self._place(snap)
             return self._execute_sort_agg(agg, cols, counts, key_meta,
                                           aux_cols)
+        if batches is not None:
+            return self._stream_dense_agg(agg, batches, key_meta)
+        cols, counts = self._place(snap)
         return self._execute_dense_agg(agg, cols, counts, key_meta,
                                        aux_cols)
+
+    # ------------------------------------------------------------- #
+    # streaming: tables bigger than device memory (SURVEY.md §5.7)
+    # ------------------------------------------------------------- #
+
+    def _stream_batches(self, dag, snap: ColumnarSnapshot, aux_cols=()):
+        """Row-range batch views when the snapshot exceeds the device
+        memory cap; None = run resident.  Plans with fused joins keep the
+        resident path (the build sides are device inputs of every batch,
+        and an expanding join's regrow re-runs programs)."""
+        if not self.device_mem_cap or aux_cols \
+                or D.find_expand_join(dag) is not None:
+            return None
+        return snap.row_batches(self.device_mem_cap)
+
+    def _put_batch(self, batch: ColumnarSnapshot) -> tuple:
+        """Place one streamed batch: ``(cols, counts, rec)``, ``rec`` the
+        batch's timing record (``device_put_uncached``'s, with ``rows``)."""
+        rec = {"rows": batch.num_rows}
+        cols, counts = batch.device_put_uncached(self.devices, rec)
+        return cols, counts, rec
+
+    def _end_batch(self, rec) -> None:
+        """Mark the end of the batch's kernels on the stream."""
+        if "h2d" in rec:
+            rec["end"] = torch.cuda.Event(enable_timing=True)
+            rec["end"].record(torch.cuda.current_stream(self.devices[0]))
+
+    @staticmethod
+    def _batch_times(recs) -> list:
+        """Each batch's times: the host stacking ms and, from the CUDA
+        events, its copy's ms, its kernels' ms and the ms the stream
+        waited for its copy after the batch before it.  Waits for the
+        last batch's end first: an event still queued behind other
+        statements' kernels on the shared stream has no elapsed time."""
+        if recs and "end" in recs[-1]:
+            recs[-1]["end"].synchronize()
+        out = []
+        for k, rec in enumerate(recs):
+            row = {"rows": rec["rows"], "stack_ms": rec["stack_s"] * 1e3}
+            if "end" in rec:
+                h0, h1 = rec["h2d"]
+                row["h2d_ms"] = h0.elapsed_time(h1)
+                row["device_ms"] = h1.elapsed_time(rec["end"])
+                row["wait_ms"] = (recs[k - 1]["end"].elapsed_time(h0)
+                                  if k else 0.0)
+            out.append(row)
+        return out
+
+    def _stream_states(self, agg, batches) -> list:
+        """Streamed dispatch: batch k's kernels are queued before batch
+        k+1 is stacked, so the host stacks the next batch while the card
+        copies and reduces this one.  The paging/double-buffer analog of
+        kv.Request.Paging (SURVEY.md §5.7)."""
+        t = self.timings = {}
+        outs, recs = [], []
+        t0 = time.perf_counter()
+        for b in batches:
+            check_killed()   # cancellation between streamed batches
+            cols, counts, rec = self._put_batch(b)
+            out, _grown = self._launch(agg, cols, counts, ())
+            self._end_batch(rec)
+            outs.append(out)
+            recs.append(rec)
+            del cols, counts     # free the batch once its program consumed it
+        t1 = time.perf_counter()
+        states = [_to_numpy(o) for o in outs]
+        t["stream"] = t1 - t0
+        t["transfer"] = time.perf_counter() - t1
+        t["batches"] = self._batch_times(recs)
+        return states
+
+    def _stream_dense_agg(self, agg, batches, key_meta) -> CopResult:
+        states_list = self._stream_states(agg, batches)
+        t0 = time.perf_counter()
+        merged = merge_states(states_list)
+        key_cols, agg_cols = finalize(agg, merged, key_meta)
+        self.timings["merge"] = time.perf_counter() - t0
+        return CopResult(agg_cols, key_cols)
+
+    def _stream_sort_agg(self, agg, batches, key_meta) -> CopResult:
+        """The high-NDV strategies over streamed batches: each batch's
+        per-device group tables, regrown while a device sees more groups
+        than the capacity holds (the capacity carries over to the next
+        batch), then one host merge of every batch's tables."""
+        t = self.timings = {}
+        t["buckets"] = []
+        cap = agg.state_capacity or DEFAULT_GROUP_CAPACITY
+        per_dev_all, recs = [], []
+        t0 = time.perf_counter()
+        for b in batches:
+            check_killed()
+            cols, counts, rec = self._put_batch(b)
+            for _ in range(10):
+                sized = self._with_capacity(agg, cap)
+                t["buckets"].append(sized.state_capacity)
+                out, _grown = self._launch(sized, cols, counts, ())
+                per_dev = self._split_devices(out)
+                true_ng = max(int(st["__ngroups__"]) for st in per_dev)
+                if true_ng <= sized.state_capacity:
+                    break
+                cap = _pow2_at_least(true_ng)
+            else:
+                raise RuntimeError("group-capacity regrow did not converge")
+            self._end_batch(rec)
+            recs.append(rec)
+            per_dev_all.extend(per_dev)
+            del cols, counts
+        t1 = time.perf_counter()
+        t["stream"] = t1 - t0
+        t["batches"] = self._batch_times(recs)
+        sized = self._with_capacity(agg, cap)
+        merged = merge_sorted_states(sized, per_dev_all)
+        key_cols, agg_cols = finalize_sorted(sized, merged, key_meta)
+        t["merge"] = time.perf_counter() - t1
+        return CopResult(agg_cols, key_cols)
 
     def _launch(self, dag, cols, counts, aux_cols, row_capacity: int = 0):
         """One run of ``dag``'s program over the devices: ``(out, grown)``,
@@ -209,6 +638,8 @@ class CopClient:
             raise RuntimeError("join-capacity regrow did not converge")
         t1 = time.perf_counter()
         states = _to_numpy(out)
+        # faultline transfer/host-merge seam, keyed by the digest
+        _faults.check("transfer", D.dag_digest(agg))
         t2 = time.perf_counter()
         merged = merge_states([states])
         key_cols, agg_cols = finalize(agg, merged, key_meta)
@@ -304,8 +735,38 @@ class CopClient:
         with the paging loop: re-run at a larger row capacity while a
         device returns more rows than the capacity holds (or an
         expanding join more rows than its capacity).  ``aux_cols`` as
-        for ``execute_agg``."""
-        cols, counts = self._place(snap)
+        for ``execute_agg``.  A snapshot past ``device_mem_cap`` runs as
+        streamed batches whose rows concatenate (a TopN or Limit root's
+        candidates too: the caller re-trims them)."""
+        return self._retry(lambda: self._execute_rows_once(
+            root, snap, out_dtypes, dictionaries, aux_cols), snap=snap)
+
+    def _execute_rows_once(self, root, snap, out_dtypes, dictionaries,
+                           aux_cols) -> list[Column]:
+        batches = self._stream_batches(root, snap, aux_cols)
+        if batches is None:
+            cols, counts = self._place(snap)
+            return self._rows_program(root, snap, cols, counts, out_dtypes,
+                                      dictionaries, aux_cols)
+        self.timings = {}
+        parts, recs = [], []
+        t0 = time.perf_counter()
+        for b in batches:
+            check_killed()
+            cols, counts, rec = self._put_batch(b)
+            parts.append(self._rows_program(root, b, cols, counts,
+                                            out_dtypes, dictionaries, ()))
+            self._end_batch(rec)
+            recs.append(rec)
+            del cols, counts
+        self.timings["stream"] = time.perf_counter() - t0
+        self.timings["batches"] = self._batch_times(recs)
+        return [Column.concat([p[j] for p in parts])
+                for j in range(len(out_dtypes))]
+
+    def _rows_program(self, root, snap, cols, counts, out_dtypes,
+                      dictionaries, aux_cols) -> list[Column]:
+        """The paging loop over one placement of ``snap``."""
         t = self.timings
         t["device"] = t["transfer"] = 0.0
         t["pages"] = []
@@ -351,6 +812,7 @@ class CopClient:
         """Each device's first ``min(count, cap)`` rows, concatenated on
         the card, moved to the host in one copy a column and decoded into
         host Columns."""
+        _faults.check("transfer")   # faultline device->host seam
         t = self.timings
         t0 = time.perf_counter()
         take = np.minimum(host_counts, cap)
@@ -453,6 +915,11 @@ class CopClient:
                             key_meta: list[GroupKeyMeta],
                             aux_cols=()) -> CopResult:
         """The aggregation over a repartition join of two tables."""
+        return self._retry(lambda: self._execute_shuffle_agg_once(
+            spec, lsnap, rsnap, key_meta, aux_cols))
+
+    def _execute_shuffle_agg_once(self, spec, lsnap, rsnap, key_meta,
+                                  aux_cols) -> CopResult:
         prog, out = self._run_shuffle(spec, lsnap, rsnap, aux_cols)
         agg = prog.spec.top
         t = self.timings
@@ -476,6 +943,11 @@ class CopClient:
                              aux_cols=()) -> list[Column]:
         """The rows of a row-returning chain over a repartition join of
         two tables."""
+        return self._retry(lambda: self._execute_shuffle_rows_once(
+            spec, lsnap, rsnap, out_dtypes, dictionaries, aux_cols))
+
+    def _execute_shuffle_rows_once(self, spec, lsnap, rsnap, out_dtypes,
+                                   dictionaries, aux_cols) -> list[Column]:
         n_dev = len(self.devices)
         if isinstance(spec.top, (D.TopN, D.Limit)):
             row_cap = max(spec.top.limit, 16)
@@ -498,6 +970,11 @@ class CopClient:
         bucket capacity starts at the rows a bucket expects under a
         uniform hash with 2x headroom, and is regrown from the reported
         largest bucket (``wmax``) and re-run while one overflows."""
+        return self._retry(lambda: self._execute_window_once(
+            spec, snap, out_dtypes, dictionaries, aux_cols))
+
+    def _execute_window_once(self, spec, snap, out_dtypes, dictionaries,
+                             aux_cols) -> list[Column]:
         cols, counts = self._place(snap)
         t = self.timings
         t["device"] = t["transfer"] = 0.0
@@ -561,4 +1038,4 @@ def _index(tree, d: int):
 
 
 __all__ = ["CopClient", "CopResult", "DEFAULT_GROUP_CAPACITY",
-           "INITIAL_SELECTIVITY"]
+           "INITIAL_SELECTIVITY", "RESULT_CACHE_ENTRIES"]

@@ -8,12 +8,20 @@ places the stacks on the port's devices once and caches them, keyed by
 the devices, the snapshot's epoch and its placement's epoch.  A snapshot
 with a ``placement`` (store/placement.py; a catalog table's always has
 one) stacks each device's shards in the order ``device_slots`` gives.
+
+A snapshot bigger than the device memory the client may use streams
+(``row_batches``: row-range ``view``s that share one program shape);
+each batch is placed by ``device_put_uncached``, outside the cache.  On
+a CUDA device that placement stacks the batch into pinned host memory
+and queues non-blocking copies on the current stream, so the host can
+stack the next batch while the card copies and reduces this one.
 """
 
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass, field
-from typing import Any, Sequence
+from typing import Any, Optional, Sequence
 
 import numpy as np
 import torch
@@ -81,7 +89,11 @@ class ColumnarSnapshot:
             ranges += [(0, 0)] * (k - len(lst))
         return ranges
 
-    def _stacked_ranges(self, ranges) -> tuple[list, np.ndarray]:
+    def _stacked_ranges(self, ranges, empty=np.empty
+                        ) -> tuple[list, np.ndarray]:
+        """The (S, C) stacks of ``ranges``, one shard a range, each slot
+        past a shard's rows zeroed; ``empty`` ((shape, dtype) -> an
+        uninitialized array) makes the buffers."""
         cap = max(_pow2_at_least(max((hi - lo for lo, hi in ranges),
                                      default=0)), self.min_capacity)
         counts = np.array([hi - lo for lo, hi in ranges], np.int64)
@@ -90,19 +102,40 @@ class ColumnarSnapshot:
             if c.data.dtype == object:
                 # wide (19-65 digit) decimal: host-only object ints; the
                 # slot only keeps TableScan offsets stable
-                cols.append((np.zeros((len(ranges), cap), np.int8), None))
+                z = empty((len(ranges), cap), np.int8)
+                z[...] = 0
+                cols.append((z, None))
                 continue
             phys = c.narrowed()
-            data = np.zeros((len(ranges), cap), dtype=phys.dtype)
-            valid = np.zeros((len(ranges), cap), dtype=bool)
+            data = empty((len(ranges), cap), phys.dtype)
+            valid = empty((len(ranges), cap), bool)
             for i, (lo, hi) in enumerate(ranges):
-                if hi > lo:
-                    data[i, : hi - lo] = phys[lo:hi]
-                    valid[i, : hi - lo] = c.validity[lo:hi]
+                n = max(hi - lo, 0)
+                data[i, :n] = phys[lo:hi]
+                valid[i, :n] = c.validity[lo:hi]
+                data[i, n:] = 0
+                valid[i, n:] = False
             live = np.arange(cap)[None, :] < counts[:, None]
             all_valid = bool(valid[live].all())
             cols.append((data, None if all_valid else valid))
         return cols, counts
+
+    def _host_stacks(self, n_dev: int, empty=np.empty
+                     ) -> tuple[list, np.ndarray]:
+        """The host stacks of this snapshot on ``n_dev`` logical devices:
+        S padded with empty shards to a multiple of ``n_dev``, so every
+        logical device gets an equal block of shards."""
+        ranges = (self._even_ranges() if self.placement is None
+                  else self._placement_ranges(n_dev))
+        ranges = ranges + [(0, 0)] * (-len(ranges) % n_dev)
+        return self._stacked_ranges(ranges, empty)
+
+    @staticmethod
+    def _one_device(devices) -> torch.device:
+        if len(set(devices)) != 1:
+            raise unported("shards spread over several physical devices",
+                           EXCHANGE)
+        return devices[0]
 
     def device_cols(self, devices: Sequence[torch.device]
                     ) -> tuple[list, torch.Tensor]:
@@ -111,28 +144,12 @@ class ColumnarSnapshot:
         S is padded with empty shards to a multiple of ``len(devices)``
         so every logical device gets an equal block of shards."""
         devices = tuple(devices)
-        if len(set(devices)) != 1:
-            raise unported("shards spread over several physical devices",
-                           EXCHANGE)
+        dev = self._one_device(devices)
         p_epoch = self.placement.epoch if self.placement is not None else -1
         key = (devices, self.epoch, p_epoch)
         if key in self._device_cache:
             return self._device_cache[key]
-        n_dev = len(devices)
-        host_cols, counts = self._stacked_ranges(
-            self._even_ranges() if self.placement is None
-            else self._placement_ranges(n_dev))
-        s = len(counts)
-        s_pad = -(-s // n_dev) * n_dev
-        if s_pad != s:
-            counts = np.concatenate([counts, np.zeros(s_pad - s, np.int64)])
-            host_cols = [
-                (np.concatenate([d, np.zeros((s_pad - s, d.shape[1]),
-                                             d.dtype)]),
-                 None if v is None else
-                 np.concatenate([v, np.zeros((s_pad - s, v.shape[1]), bool)]))
-                for d, v in host_cols]
-        dev = devices[0]
+        host_cols, counts = self._host_stacks(len(devices))
         put = ([(torch.from_numpy(d).to(dev),
                  None if v is None else torch.from_numpy(v).to(dev))
                 for d, v in host_cols],
@@ -140,6 +157,99 @@ class ColumnarSnapshot:
         self._device_cache.clear()     # one placement resident at a time
         self._device_cache[key] = put
         return put
+
+    def device_put_uncached(self, devices: Sequence[torch.device],
+                            record: Optional[dict] = None
+                            ) -> tuple[list, torch.Tensor]:
+        """A placement like ``device_cols`` that never enters the resident
+        cache: the streaming path (rows >> device memory) places one
+        batch at a time and lets it free once its program consumed it
+        (SURVEY.md §5.7 paging analog).
+
+        On a CUDA device each stack is built in pinned host memory and
+        copied with ``non_blocking=True`` on the current stream, where the
+        batch's kernels run after the copies: the call returns once the
+        copies are queued.  The pinned buffers return to torch's
+        pinned-memory cache only once their copies are done.
+
+        ``record``, when given, receives ``stack_s``, the seconds of the
+        host stacking, and on a CUDA device ``h2d``, two timing events on
+        the stream around the copies."""
+        devices = tuple(devices)
+        dev = self._one_device(devices)
+        record = {} if record is None else record
+        t0 = time.perf_counter()
+        if dev.type != "cuda":
+            host_cols, counts = self._host_stacks(len(devices))
+            record["stack_s"] = time.perf_counter() - t0
+            return ([(torch.from_numpy(d).to(dev),
+                      None if v is None else torch.from_numpy(v).to(dev))
+                     for d, v in host_cols],
+                    torch.from_numpy(counts).to(dev))
+        pinned: dict = {}
+
+        def empty(shape, dtype):
+            dtype = np.dtype(dtype)
+            buf = torch.empty(int(np.prod(shape)) * dtype.itemsize,
+                              dtype=torch.uint8, pin_memory=True)
+            arr = buf.numpy().view(dtype).reshape(shape)
+            pinned[id(arr)] = buf
+            return arr
+
+        host_cols, counts = self._host_stacks(len(devices), empty)
+        record["stack_s"] = time.perf_counter() - t0
+
+        def put(arr):
+            t_dtype = torch.from_numpy(arr[:0]).dtype
+            return (pinned[id(arr)].to(dev, non_blocking=True)
+                    .view(t_dtype).view(arr.shape))
+
+        events = (torch.cuda.Event(enable_timing=True),
+                  torch.cuda.Event(enable_timing=True))
+        events[0].record(torch.cuda.current_stream(dev))
+        cols = [(put(d), None if v is None else put(v))
+                for d, v in host_cols]
+        dev_counts = torch.from_numpy(counts).pin_memory().to(
+            dev, non_blocking=True)
+        events[1].record(torch.cuda.current_stream(dev))
+        record["h2d"] = events
+        return cols, dev_counts
+
+    # ---------------- streaming batches (rows >> device memory) ------ #
+
+    def device_bytes(self) -> int:
+        """Stacked device footprint: S x capacity x (itemsize + validity),
+        at the narrow physical width actually placed on device."""
+        s, cap, _ = self.shard_layout()
+        return s * cap * sum(c.narrowed().dtype.itemsize + 1
+                             for c in self.columns)
+
+    def view(self, lo: int, hi: int,
+             min_capacity: int = 0) -> "ColumnarSnapshot":
+        """Zero-copy row-range view (same shard count; forced capacity so
+        every batch of a stream compiles to ONE program shape)."""
+        return ColumnarSnapshot(
+            self.names, self.dtypes,
+            [c.slice(lo, hi) for c in self.columns], epoch=self.epoch,
+            n_shards=self.n_shards,
+            min_capacity=max(min_capacity, self.min_capacity))
+
+    def row_batches(self, max_bytes: int) -> Optional[list]:
+        """Split into row-range views whose device footprint fits
+        max_bytes, or None when the whole snapshot already fits."""
+        if max_bytes <= 0 or self.device_bytes() <= max_bytes or \
+                not self.num_rows:
+            return None
+        # device_bytes() above already narrowed every column, so views
+        # sliced off here inherit one shared physical width per column
+        per_row = sum(c.narrowed().dtype.itemsize + 1 for c in self.columns)
+        # pow2 capacity rounding can inflate a batch up to 2x: size for it
+        rows = max(int(max_bytes // (2 * per_row)), self.n_shards)
+        per_shard_cap = max(_pow2_at_least(-(-rows // self.n_shards)),
+                            self.min_capacity)
+        rows = per_shard_cap * self.n_shards
+        return [self.view(lo, min(lo + rows, self.num_rows), per_shard_cap)
+                for lo in range(0, self.num_rows, rows)]
 
 
 def snapshot_from_columns(names: Sequence[str], cols: Sequence[Column],
