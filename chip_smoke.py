@@ -183,7 +183,9 @@ script exits non-zero without printing a result:
    lineitem (both sampled by the handle's rule), ``SHOW STATS_META``,
    ``STATS_HISTOGRAMS`` and ``STATS_TOPN``, and two high-NDV GROUP BYs
    (orders by ``o_custkey``, phase 8's lineitem by ``l_orderkey``) whose
-   strategy the cost model chooses from those statistics.  Every result
+   strategy the cost model chooses from those statistics and the
+   correction store the scheduler fed with the measured launches of
+   phases 1-13 (not empty).  Every result
    equals a numpy oracle; every window plan is a ``CopWindow`` on the
    card; no join takes its host plan, the strategy choice never falls
    back, no plain kernel version runs, the onesweep launches equal the
@@ -251,7 +253,26 @@ script exits non-zero without printing a result:
    ``finally``; no ladder serves a statement
    outside (b), and the native host library (``copr/nativeops``) is
    built;
-16. the ``kernels`` JSON line, then the last line
+16. admission and programs: every launch of phases 1-15 already went
+   through the device scheduler (``sched/``, on by default); over 13a's
+   Domain (the SF=10 lineitem placed) and two lineitem tables of one
+   shard shape at ``ADMISSION_SF`` registered beside it: (a) 8 threads
+   x Q6 through SQL, queued under ``pause()`` and released, with the
+   launches, ``coalesced_launches``, the program cache's misses (none
+   new) and the wall of the 8 beside 8 solo walls; (b) Q6 over the two
+   tables at once: one batched launch (``batched_launches``), one
+   ``group_reduce_lanes`` call a logical device for both slots, the
+   batched program's ms beside the two solo programs', each slot's
+   states equal to its solo run's and the batched K·G reduction equal
+   to ``group_reduce_lanes_plain`` on the card; (c) Q1 and Q6 over the
+   SF=10 scan at once: one fused launch (``fused_launches``), the fused
+   program's ms beside the solo sum, each member's result equal to its
+   solo run's; (d) queue depth 2, two statements queued: the third gets
+   MySQL error 9003 in process and over the wire; (e) phase 14's
+   4 x 20 Q6 over the wire with the scheduler on: statements/s at one
+   and four connections and the coalesced launches.  Every result
+   equals its numpy oracle or its solo run;
+17. the ``kernels`` JSON line, then the last line
    ``{"ok": true, "device": {...}}``.  A ``phase ...: s=`` line after
    each phase gives its seconds.
 
@@ -1746,8 +1767,11 @@ SQL_COLS = ["l_orderkey", "l_partkey", "l_suppkey", "l_quantity",
             "l_extendedprice", "l_discount", "l_tax", "l_returnflag",
             "l_linestatus", "l_shipdate"]
 SQL_MAIN = ("Q1", "Q6")              # at --main-sf, over phase 7's columns
+# "SORT two keys filtered" (27-28 s of host decode) is left out, a cut
+# for the script's time limit (PERF.md §4): phase 8's SEGMENT and the
+# two-key SORT below run its plan shape
 SQL_CORPUS = ("Q6 corpus", "Q1 corpus", "SORT", "SORT two keys",
-              "SORT two keys filtered", "TopN", "Limit", "rows", "HAVING")
+              "TopN", "Limit", "rows", "HAVING")
 # the DAG-level run of the same statement: phase 7's (Q1, Q6) or phase
 # 8's (the rest) result of that name
 SQL_DAG = {"Q1": "Q1", "Q6": "Q6", "SORT": "SORT",
@@ -1769,7 +1793,7 @@ SQL_WARM = 5        # else the median of this many
 # the corpus statements whose first call is already warm (their table
 # placed by the session's first statement) and takes 2-38 s: they run
 # once, a cut for the script's time limit (PERF.md §4)
-SQL_ONCE = ("SORT", "SORT two keys", "SORT two keys filtered", "rows")
+SQL_ONCE = ("SORT", "SORT two keys", "rows")
 
 
 def sql_cell(v, t) -> int | str:
@@ -3535,11 +3559,15 @@ def window_stats_phase(torch, gr, os1, S, main_sess, main_data, s4_data
         meta = sessions["orders"].execute("show stats_meta").rows
         check(("test", "orders", 0, WINDOW_ORDERS) in meta,
               f"13c show stats_meta: {meta}")
+        # the scheduler's drain has fed the correction store with the
+        # measured times of phases 1-13's warm launches; the strategy
+        # choice below reads it (a candidate never launched prices as
+        # the static model)
+        corrections = pcal.correction_store().stats()["entries"]
+        check(corrections > 0, "13c: no launch fed the correction store")
         for name, sql, where, key, val in HIGH_NDV_SQL:
             sess, timer = sessions[where], timers[where]
             data = co if where == "orders" else dict(zip(*s4_data))
-            check(pcal.correction_store().stats()["entries"] == 0,
-                  "13c: the correction store is not empty")
             plan = [r[0] for r in sess.execute("explain " + sql).rows]
             strat = next(ln.split("Aggregation[", 1)[1].split("]", 1)[0]
                          for ln in plan if "Aggregation[" in ln)
@@ -3554,7 +3582,8 @@ def window_stats_phase(torch, gr, os1, S, main_sess, main_data, s4_data
             ).col(key).ndv
             select_line("13c", name, first, warm, acc,
                         f"strategy={strat} groups={want[0]} "
-                        f"ndv_estimate={ndv_est} exact=True")
+                        f"ndv_estimate={ndv_est} "
+                        f"corrections={corrections} exact=True")
     check(pplan.ARBITRATE_FALLBACKS == arb0,
           "13: the strategy choice fell back to its first candidate")
     for k, sess in sessions.items():
@@ -4388,6 +4417,383 @@ def resilience_phase(torch, gr, main_sess, main_data, s4_data) -> None:
     print(f"15b: s={time.perf_counter() - t0:.1f} ladder={LADDER}")
 
 
+# --------------------------------------------------------------------- #
+# phase 16: admission and programs (the device scheduler)
+# --------------------------------------------------------------------- #
+
+ADMISSION_SF = 1.0         # 16b's two lineitem tables
+ADMISSION_THREADS = 8      # 16a's concurrent Q6 sessions
+ADMISSION_DEPTH = 2        # 16d's queue depth
+ADMISSION_REPS = 5         # cuda_ms samples of 16b/16c's programs
+ADMISSION_TIMEOUT_S = 120.0
+
+
+def _wait_until(pred, what: str) -> None:
+    deadline = time.monotonic() + ADMISSION_TIMEOUT_S
+    while not pred():
+        check(time.monotonic() < deadline, f"16: timed out waiting for {what}")
+        time.sleep(0.002)
+
+
+def states_equal(a: dict, b: dict, rtol: float = FSUM_RTOL) -> float:
+    """Two state trees of tensors equal: float fields within ``rtol``
+    (relative), every other field bit for bit; the largest absolute
+    difference of a float field (0 if none)."""
+    err = 0.0
+    la, lb = dict(leaves(a)), dict(leaves(b))
+    check(sorted(la) == sorted(lb), f"states {sorted(la)} != {sorted(lb)}")
+    for k, x in la.items():
+        y = lb[k]
+        check(x.shape == y.shape and x.dtype == y.dtype,
+              f"state {k}: {x.shape} {x.dtype} != {y.shape} {y.dtype}")
+        if x.dtype.is_floating_point:
+            xs, ys = x.double().cpu().numpy(), y.double().cpu().numpy()
+            check(np.allclose(xs, ys, rtol=rtol, atol=0.0, equal_nan=True),
+                  f"state {k}: {xs} != {ys}")
+            if xs.size:
+                err = max(err, float(np.nanmax(np.abs(xs - ys))))
+        else:
+            check(bool((x == y).all()), f"state {k} differs")
+    return err
+
+
+class task_spy:
+    """Records the structured tasks submitted to the scheduler while it
+    is entered (``DeviceScheduler.submit`` wrapped)."""
+
+    def __enter__(self):
+        from tidb_tpu_torch.sched import scheduler as sm
+        self.cls, self.real, self.tasks = sm.DeviceScheduler, \
+            sm.DeviceScheduler.submit, []
+
+        def submit(sched, task, _real=self.real):
+            if task.key is not None:
+                self.tasks.append(task)
+            return _real(sched, task)
+        self.cls.submit = submit
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.submit = self.real
+
+
+def run_queued(sched, fns: list) -> tuple:
+    """Run ``fns`` in threads once their tasks are queued under
+    ``pause()``: (their results in order, the seconds from the release
+    to the last join)."""
+    import threading
+    out: dict = {}
+
+    def run(i, fn):
+        try:
+            out[i] = fn()
+        except Exception as e:           # reported by the check below
+            out[i] = e
+    sched.pause()
+    try:
+        ths = [threading.Thread(target=run, args=(i, fn))
+               for i, fn in enumerate(fns)]
+        for th in ths:
+            th.start()
+        _wait_until(lambda: sched.depth >= len(fns),
+                    f"{len(fns)} queued tasks")
+        t0 = time.perf_counter()
+    finally:
+        sched.resume()
+    for th in ths:
+        th.join(ADMISSION_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    check(not any(th.is_alive() for th in ths), "16: a waiter hung")
+    res = [out[i] for i in range(len(fns))]
+    check(not any(isinstance(r, Exception) for r in res), f"16: {res}")
+    return res, wall
+
+
+def admission_phase(torch, gr, main_sess, main_data, s4_data) -> int:
+    """Phase 16 (see the module docstring): returns the group_reduce
+    launches of the statements it drives (the programs it times and
+    compares are not counted)."""
+    from tidb_tpu_torch.compilecache import compile_cache
+    from tidb_tpu_torch.copr import dag as D
+    from tidb_tpu_torch.copr import exec as cexec
+    from tidb_tpu_torch.parallel import spmd
+    from tidb_tpu_torch.sched import DEFAULT_QUEUE_DEPTH, ServerBusyError
+    from tidb_tpu_torch.server.client import Client, MySQLError
+    from tidb_tpu_torch.server.mysql_server import MySQLServer
+    from tidb_tpu_torch.session import Session
+    from tidb_tpu_torch.session.catalog import TableInfo
+    from tidb_tpu_torch.testing import tpch
+    dom = main_sess.domain
+    client = dom.client
+    q1, q6 = tpch.SQL_QUERIES["Q1"], tpch.SQL_QUERIES["Q6"]
+    names = main_data[0]
+    driven = 0
+
+    def launches() -> int:
+        return gr.LAUNCHES["group_reduce"]
+
+    def solo(sql: str, name: str, data) -> tuple:
+        """One Session's run of ``sql`` over ``data`` (its table's
+        ``(names, cols)``), checked against numpy: (rows, seconds, its
+        structured tasks)."""
+        nonlocal driven
+        n0 = launches()
+        with task_spy() as spy:
+            t0 = time.perf_counter()
+            rs = Session(dom).execute(sql)
+            wall = time.perf_counter() - t0
+        driven += launches() - n0
+        sql_check(name, rs, dict(zip(*data)), data[0], None)
+        return rs.rows, wall, spy.tasks
+
+    want6, _w, tasks6 = solo(q6, "Q6", main_data)
+    want1, _w, tasks1 = solo(q1, "Q1", main_data)
+    sched = client._sched_obj
+    check(sched is not None and len(tasks6) == 1 and len(tasks1) == 1,
+          f"16: Q6 {len(tasks6)} and Q1 {len(tasks1)} scheduled tasks")
+    check(sched.fusion_enable and sched.max_depth == DEFAULT_QUEUE_DEPTH,
+          "16: the scheduler is not at its defaults")
+
+    # -- a: coalescing ------------------------------------------------- #
+    walls = [solo(q6, "Q6", main_data)[1]
+             for _ in range(ADMISSION_THREADS)]
+    st0, miss0, n0 = sched.stats(), compile_cache().misses, launches()
+    outs, wall8 = run_queued(sched, [lambda: Session(dom).execute(q6).rows]
+                             * ADMISSION_THREADS)
+    st1 = sched.stats()
+    driven += launches() - n0
+    check(outs == [want6] * ADMISSION_THREADS, "16a: != the solo Q6")
+    coal = st1["coalesced_launches"] - st0["coalesced_launches"]
+    new_miss = compile_cache().misses - miss0
+    check(coal >= 1 and new_miss == 0,
+          f"16a: coalesced_launches +{coal}, cache misses +{new_miss}")
+    print(f"16a coalescing: threads={ADMISSION_THREADS} "
+          f"launches={st1['launches'] - st0['launches']} "
+          f"coalesced_launches={coal} coalesced_tasks="
+          f"{st1['coalesced_tasks'] - st0['coalesced_tasks']} "
+          f"cache_misses={new_miss} "
+          f"group_reduce_launches={launches() - n0} "
+          f"wall8_ms={wall8 * 1e3:.1f} "
+          f"solo_ms={[round(w * 1e3, 1) for w in walls]} "
+          f"solo_sum_ms={sum(walls) * 1e3:.1f} exact=True")
+
+    # -- b: batching over two tables of one shape ---------------------- #
+    t0 = time.perf_counter()
+    tables = {"adm_a": s4_data if abs(ADMISSION_SF - 1.0) < 1e-9
+              and len(s4_data[1][0]) == int(6_000_000 * ADMISSION_SF)
+              else tpch.gen_lineitem(ADMISSION_SF, seed=0,
+                                     columns=SQL_COLS),
+              "adm_b": tpch.gen_lineitem(ADMISSION_SF, seed=1,
+                                         columns=SQL_COLS)}
+    gen_s = time.perf_counter() - t0
+    for tname, (tn, tc) in tables.items():
+        ti = TableInfo(tname, list(tn), [col.dtype for col in tc])
+        ti.register_columns(list(tc))
+        dom.catalog.create_table("test", ti)
+    qa, qb = (q6.replace("lineitem", t) for t in tables)
+    solo_a, _wa, ta = solo(qa, "Q6", tables["adm_a"])
+    solo_b, _wb, tb = solo(qb, "Q6", tables["adm_b"])
+    check(ta[0].key == tb[0].key, "16b: the two tables' tasks differ in key")
+    calls: list = []
+    real_lanes = cexec.group_reduce_lanes
+
+    def counting(gids, G, lanes):
+        calls.append(G)
+        return real_lanes(gids, G, lanes)
+    b0, n0 = sched.batched_launches, launches()
+    cexec.group_reduce_lanes = counting
+    try:
+        outs, _wall = run_queued(sched, [
+            lambda: Session(dom).execute(qa).rows,
+            lambda: Session(dom).execute(qb).rows])
+    finally:
+        cexec.group_reduce_lanes = real_lanes
+    driven += launches() - n0
+    n_dev = len(client.devices)
+    check(outs == [solo_a, solo_b], "16b: != the solo runs")
+    check(sched.batched_launches == b0 + 1 and len(calls) == n_dev,
+          f"16b: batched_launches +{sched.batched_launches - b0}, "
+          f"{len(calls)} group_reduce_lanes calls for {n_dev} devices")
+    dag = ta[0].dag
+    (cols_a, cnt_a), (cols_b, cnt_b) = ((t[0].cols, t[0].counts)
+                                        for t in (ta, tb))
+    bprog = spmd.get_batched_program(dag, client.devices, 2)
+    sprog = spmd.get_sharded_program(dag, client.devices)
+    got = bprog([cols_a, cols_b], [cnt_a, cnt_b])
+    for st, (cols, cnt) in zip(got, ((cols_a, cnt_a), (cols_b, cnt_b))):
+        states_equal(st, sprog(cols, cnt))
+    cexec.group_reduce_lanes = gr.group_reduce_lanes_plain
+    try:
+        plain = bprog([cols_a, cols_b], [cnt_a, cnt_b])
+    finally:
+        cexec.group_reduce_lanes = real_lanes
+    err_b = max(states_equal(g, p) for g, p in zip(got, plain))
+    ms_b = cuda_ms(torch, lambda: bprog([cols_a, cols_b], [cnt_a, cnt_b]),
+                   reps=ADMISSION_REPS)
+    ms_a1 = cuda_ms(torch, lambda: sprog(cols_a, cnt_a),
+                    reps=ADMISSION_REPS)
+    ms_b1 = cuda_ms(torch, lambda: sprog(cols_b, cnt_b),
+                    reps=ADMISSION_REPS)
+    print(f"16b batching: tables=2 rows={len(tables['adm_a'][1][0])} "
+          f"gen_s={gen_s:.1f} batched_launches={sched.batched_launches - b0}"
+          f" group_reduce_lanes_calls={len(calls)} groups={calls} "
+          f"devices={n_dev} batched_ms={ms_b:.3f} solo_ms={ms_a1:.3f},"
+          f"{ms_b1:.3f} solo_sum_ms={ms_a1 + ms_b1:.3f} "
+          f"plain_max_abs_err={err_b} states_equal_solo=True exact=True")
+
+    # -- c: fusion of Q1 and Q6 over one scan -------------------------- #
+    f0, n0 = sched.fused_launches, launches()
+    outs, _wall = run_queued(sched, [
+        lambda: Session(dom).execute(q1).rows,
+        lambda: Session(dom).execute(q6).rows])
+    driven += launches() - n0
+    check(outs == [want1, want6], "16c: != the solo Q1, Q6")
+    check(sched.fused_launches == f0 + 1,
+          f"16c: fused_launches +{sched.fused_launches - f0}")
+    t1, t6 = tasks1[0], tasks6[0]
+    check(t1.input_token == t6.input_token, "16c: Q1 and Q6 scans differ")
+    fprog = spmd.get_fused_program(D.FusedDag((t1.dag, t6.dag)),
+                                   client.devices)
+    p1 = spmd.get_sharded_program(t1.dag, client.devices)
+    p6 = spmd.get_sharded_program(t6.dag, client.devices)
+    fused = fprog(t1.cols, t1.counts)
+    states_equal(fused[0], p1(t1.cols, t1.counts))
+    states_equal(fused[1], p6(t6.cols, t6.counts))
+    ms_f = cuda_ms(torch, lambda: fprog(t1.cols, t1.counts),
+                   reps=ADMISSION_REPS)
+    ms_1 = cuda_ms(torch, lambda: p1(t1.cols, t1.counts),
+                   reps=ADMISSION_REPS)
+    ms_6 = cuda_ms(torch, lambda: p6(t6.cols, t6.counts),
+                   reps=ADMISSION_REPS)
+    print(f"16c fusion: members=Q1,Q6 rows={len(main_data[1][0])} "
+          f"fused_launches={sched.fused_launches - f0} fused_ms={ms_f:.3f} "
+          f"q1_ms={ms_1:.3f} q6_ms={ms_6:.3f} solo_sum_ms={ms_1 + ms_6:.3f} "
+          f"states_equal_solo=True exact=True")
+
+    # -- d, e: admission and the server -------------------------------- #
+    rev = main_oracle("Q6", names, main_data[1])[0][0]
+    wire6 = [(f"{rev // 10 ** 4}.{rev % 10 ** 4:04d}",)]
+    srv = MySQLServer(dom, host="127.0.0.1", port=0)
+    port = srv.start()
+    conns: list = []
+
+    def connect():
+        conns.append(Client("127.0.0.1", port, db="test"))
+        return conns[-1]
+    admin = Session(dom)
+    try:
+        admin.execute("set global tidb_tpu_sched_queue_depth = "
+                      f"{ADMISSION_DEPTH}")
+        admin.execute(q6)
+        check(sched.max_depth == ADMISSION_DEPTH, "16d: depth not applied")
+        wire = [connect() for _ in range(3)]
+        import threading
+        outs: dict = {}
+
+        def run(i):
+            try:
+                outs[i] = wire[i].query(q6)
+            except Exception as e:       # reported by the check below
+                outs[i] = e
+        busy0, n0 = sched.busy_rejects, launches()
+        sched.pause()
+        try:
+            ths = [threading.Thread(target=run, args=(i,)) for i in (0, 1)]
+            for th in ths:
+                th.start()
+            _wait_until(lambda: sched.depth >= ADMISSION_DEPTH,
+                        "two queued statements")
+            errno_wire = errno_local = None
+            try:
+                wire[2].query(q6)
+            except MySQLError as e:
+                errno_wire = e.errno
+            try:
+                Session(dom).execute(q6)
+            except ServerBusyError as e:
+                errno_local = e.errno
+        finally:
+            sched.resume()
+        for th in ths:
+            th.join(ADMISSION_TIMEOUT_S)
+        driven += launches() - n0
+        check(errno_wire == 9003 and errno_local == 9003,
+              f"16d: the third statement got {errno_wire} over the wire "
+              f"and {errno_local} in process")
+        check(outs == {0: wire6, 1: wire6}, f"16d: queued {outs}")
+        print(f"16d admission: depth={ADMISSION_DEPTH} queued=2 "
+              f"third_errno_wire={errno_wire} "
+              f"third_errno_local={errno_local} "
+              f"busy_rejects={sched.busy_rejects - busy0} exact=True")
+        admin.execute("set global tidb_tpu_sched_queue_depth = "
+                      f"{DEFAULT_QUEUE_DEPTH}")
+        admin.execute(q6)
+        check(sched.max_depth == DEFAULT_QUEUE_DEPTH, "16d: not restored")
+        # -- e: phase 14's 4 x 20 Q6 --------------------------------- #
+        one = connect()
+        n0 = launches()
+        t0 = time.perf_counter()
+        for _ in range(SERVER_CONNS * SERVER_REPS):
+            check(one.query(q6) == wire6, "16e Q6 serial: != numpy")
+        serial_s = time.perf_counter() - t0
+        many = [connect() for _ in range(SERVER_CONNS)]
+        st0 = sched.stats()
+        outs = {}
+
+        def rep(i):
+            try:
+                outs[i] = [many[i].query(q6) for _ in range(SERVER_REPS)]
+            except Exception as e:       # reported by the check below
+                outs[i] = e
+        ths = [threading.Thread(target=rep, args=(i,))
+               for i in range(SERVER_CONNS)]
+        t0 = time.perf_counter()
+        for th in ths:
+            th.start()
+        for th in ths:
+            th.join(ADMISSION_TIMEOUT_S)
+        par_s = time.perf_counter() - t0
+        st1 = sched.stats()
+        driven += launches() - n0
+        check(not any(th.is_alive() for th in ths), "16e: hung")
+        check(all(outs[i] == [wire6] * SERVER_REPS
+                  for i in range(SERVER_CONNS)), f"16e: {outs}")
+        n = SERVER_CONNS * SERVER_REPS
+        print(f"16e server Q6 x{SERVER_CONNS}: statements={n} "
+              f"conns{SERVER_CONNS}_stmts_per_s={n / par_s:.1f} "
+              f"conns1_stmts_per_s={n / serial_s:.1f} "
+              f"launches={st1['launches'] - st0['launches']} "
+              f"coalesced_launches="
+              f"{st1['coalesced_launches'] - st0['coalesced_launches']} "
+              f"coalesced_tasks="
+              f"{st1['coalesced_tasks'] - st0['coalesced_tasks']} "
+              f"window_waits={st1['window_waits'] - st0['window_waits']} "
+              f"exact=True")
+    finally:
+        sched.resume()
+        for cl in conns:
+            try:
+                cl.close()
+            except OSError:
+                pass
+        srv.close()
+    st = sched.stats()
+    print(f"16 sched: launches={st['launches']} tasks_done="
+          f"{st['tasks_done']} coalesced_launches="
+          f"{st['coalesced_launches']} batched_launches="
+          f"{st['batched_launches']} fused_launches={st['fused_launches']} "
+          f"window_waits={st['window_waits']} window_hits="
+          f"{st['window_hits']} busy_rejects={st['busy_rejects']} "
+          f"retried_launches={st['retried_launches']} "
+          f"bisected_launches={st['bisected_launches']} oom_faults="
+          f"{st['oom_faults']} budget_rejects={st['budget_rejects']} "
+          f"hbm_budget={st['hbm_budget']} wait_p50_ms={st['wait_p50_ms']} "
+          f"wait_p99_ms={st['wait_p99_ms']} compile_cache="
+          f"{json.dumps(compile_cache().stats())}")
+    check(driven > 0, "16: no group_reduce launch")
+    return driven
+
+
 def build_phase(*modules) -> None:
     """The kernel libraries of ``modules`` from the checkout's sources,
     one nvcc each, started together."""
@@ -4499,8 +4905,11 @@ def main() -> int:
     server_phase(torch, gr, os1, S, main_sess, main_data, main_res)
     lap("14 server")
     resilience_phase(torch, gr, main_sess, main_data, s4_data)
-    del main_sess
     lap("15 resilience")
+    counts["group_reduce"] += admission_phase(torch, gr, main_sess,
+                                              main_data, s4_data)
+    del main_sess
+    lap("16 admission")
 
     cu = "tidb_tpu_torch/copr/cuda/"
     sources = {"radix_hist": cu + "radix_kernel.cu",

@@ -55,11 +55,13 @@ COP_OPS = ("CopTaskExec", "CopJoinTaskExec", "CopShuffleJoinExec",
 
 @pytest.fixture(autouse=True)
 def no_arbitrate_fallback(monkeypatch):
-    """``ARBITRATE_FALLBACKS`` starts each test at 0 and stays 0.  The JAX
+    """``ARBITRATE_FALLBACKS`` starts each test at 0 and stays 0.  Each
     package's correction store is process-wide, and the clients of other
-    test files in this process feed it: it is emptied first, so that both
-    packages price with the static model."""
+    test files in this process feed it (the port's through its device
+    scheduler): both are emptied first, so that both packages price with
+    the static model."""
     jcal.correction_store().reset()
+    pcal.correction_store().reset()
     monkeypatch.setattr(pplan, "ARBITRATE_FALLBACKS", 0)
     yield
     assert pplan.ARBITRATE_FALLBACKS == 0

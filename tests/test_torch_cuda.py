@@ -20,7 +20,11 @@ the CPU bit for bit on the card, doubles included; rollup's states (the
 DENSE level-by-level branch and the SORT one over the materialized
 expand), the 22 TPC-H statements and the window statements (8 logical
 devices) equal the CPU's; the ANALYZE kernel equals its plain version
-in every output.
+in every output.  The scheduler's batched and fused programs equal the
+CPU's (and the solo runs'), a batched aggregation launching one
+``group_reduce`` launch set a logical device for all its slots, and
+statements submitted from threads on side streams at once return the
+CPU's rows.
 
 Every test here needs a CUDA GPU and skips without one.  The file
 imports no JAX, so it also runs on a machine that has only PyTorch:
@@ -1405,3 +1409,164 @@ def test_oom_the_stream_does_not_answer_propagates_on_gpu(dev, monkeypatch):
         client.execute_agg(agg, snapshot_from_columns(
             names, cols, min_capacity=256), meta)
     assert client.oom_recovered == client.degraded == 0
+
+
+# ------------------------------------------------------------------ #
+# admission and programs: the batched and fused programs, the streams
+# ------------------------------------------------------------------ #
+
+def _tree_on(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _tree_on(v, dev) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_tree_on(v, dev) for v in tree)
+    return tree.to(dev)
+
+
+def _assert_tree_equal(got, want, rtol=FSUM_RTOL):
+    """State or row trees: float leaves within ``rtol`` (relative), every
+    other leaf bit for bit."""
+    if isinstance(want, dict):
+        assert sorted(got) == sorted(want)
+        for k in want:
+            _assert_tree_equal(got[k], want[k], rtol)
+        return
+    if isinstance(want, (list, tuple)):
+        assert len(got) == len(want)
+        for g, w in zip(got, want):
+            _assert_tree_equal(g, w, rtol)
+        return
+    g, w = got.cpu(), want.cpu()
+    assert g.shape == w.shape and g.dtype == w.dtype
+    if w.dtype.is_floating_point:
+        assert torch.allclose(g.double(), w.double(), rtol=rtol, atol=0.0,
+                              equal_nan=True)
+    else:
+        assert torch.equal(g, w)
+
+
+def _adm_tables():
+    import chip_smoke as cs
+    from tidb_tpu_torch.store import snapshot_from_columns
+    from tidb_tpu_torch.testing.tpch import gen_lineitem
+    snaps = []
+    for seed in (0, 1, 2):
+        names, cols = gen_lineitem(0.01, seed=seed, columns=cs.Q_COLS)
+        snaps.append(snapshot_from_columns(names, cols))
+    return cs, names, cols, snaps
+
+
+@pytest.mark.parametrize("n_dev", [1, 8])
+@pytest.mark.parametrize("which", ["Q1", "Q6"])
+def test_batched_programs_on_the_card_equal_the_cpu(dev, n_dev, which):
+    """BatchedCopProgram over three tables (four slots) on the card: one
+    group_reduce launch set a logical device, each slot's states equal
+    the CPU's batched and solo states."""
+    from tidb_tpu_torch.parallel import spmd
+    cs, names, cols, snaps = _adm_tables()
+    agg, _meta = cs.build_main_query(which, names, cols)
+    gpu, cpu = (dev,) * n_dev, (torch.device("cpu"),) * n_dev
+    gin = [s.device_cols(gpu) for s in snaps]
+    cin = [s.device_cols(cpu) for s in snaps]
+    before = gr.LAUNCHES["group_reduce"]
+    got = spmd.get_batched_program(agg, gpu, 3)([c for c, _ in gin],
+                                                [n for _, n in gin])
+    assert gr.LAUNCHES["group_reduce"] - before == \
+        n_dev * cs.expected_reduces(agg)
+    want = spmd.get_batched_program(agg, cpu, 3)([c for c, _ in cin],
+                                                 [n for _, n in cin])
+    solo = spmd.get_sharded_program(agg, gpu)
+    for i in range(3):
+        _assert_tree_equal(got[i], want[i])
+        _assert_tree_equal(got[i], solo(*gin[i]))
+
+
+@pytest.mark.parametrize("cap", [1024, 16])
+def test_batched_and_fused_rows_on_the_card_equal_the_cpu(dev, cap):
+    from tidb_tpu_torch.parallel import spmd
+    cs, names, cols, snaps = _adm_tables()
+    ix = {n: i for i, n in enumerate(names)}
+    scan = D.TableScan(tuple(range(len(names))),
+                       tuple(c.dtype for c in cols))
+    qty = ColumnRef(cols[ix["l_quantity"]].dtype, ix["l_quantity"])
+    from tidb_tpu_torch.expr import builders as b
+    roots = [D.Projection(D.Selection(scan, (b.compare(
+        "lt", qty, b.decimal_lit(str(q))),)),
+        (qty, ColumnRef(cols[ix["l_extendedprice"]].dtype,
+                        ix["l_extendedprice"]))) for q in (20, 3)]
+    gpu, cpu = (dev,) * 8, (torch.device("cpu"),) * 8
+    gin = [s.device_cols(gpu) for s in snaps[:2]]
+    cin = [s.device_cols(cpu) for s in snaps[:2]]
+    got = spmd.get_batched_rows_program(roots[0], gpu, cap, 2)(
+        [c for c, _ in gin], [n for _, n in gin])
+    want = spmd.get_batched_rows_program(roots[0], cpu, cap, 2)(
+        [c for c, _ in cin], [n for _, n in cin])
+    _assert_tree_equal(got, want)
+    fused = D.FusedDag(tuple(roots))
+    got = spmd.get_fused_rows_program(fused, gpu, (cap, cap))(*gin[0])
+    want = spmd.get_fused_rows_program(fused, cpu, (cap, cap))(*cin[0])
+    _assert_tree_equal(got, want)
+
+
+def test_fused_program_on_the_card_equals_the_cpu(dev):
+    from tidb_tpu_torch.parallel import spmd
+    cs, names, cols, snaps = _adm_tables()
+    q1, _m = cs.build_main_query("Q1", names, cols)
+    q6, _m = cs.build_main_query("Q6", names, cols)
+    fused = D.FusedDag((q1, q6))
+    gin = snaps[0].device_cols((dev,))
+    cin = snaps[0].device_cols((torch.device("cpu"),))
+    got = spmd.get_fused_program(fused, (dev,))(*gin)
+    want = spmd.get_fused_program(fused, (torch.device("cpu"),))(*cin)
+    _assert_tree_equal(got, want)
+    for g, m in zip(got, (q1, q6)):
+        _assert_tree_equal(g, spmd.get_sharded_program(m, (dev,))(*gin))
+
+
+def test_scheduled_launch_from_a_side_stream_thread(dev):
+    """Threads on side streams submit through the scheduler at once: the
+    drain launches on the lead's stream after every member's ``ready``
+    event, a waiter on another stream waits on ``launched`` and adopts
+    the outputs; every result equals the CPU's."""
+    import threading
+    from tidb_tpu_torch.testing.tpch import SQL_QUERIES, gen_lineitem, \
+        sql_session
+    data = gen_lineitem(0.01, seed=0)
+    sess = sql_session({"lineitem": data}, device="cuda")
+    sess.execute("set global tidb_tpu_result_cache_entries = 0")
+    want = sql_session({"lineitem": data}, device="cpu").execute(
+        SQL_QUERIES["Q6"]).rows
+    assert sess.execute(SQL_QUERIES["Q6"]).rows == want
+    sched = sess.domain.client._sched_obj
+    from tidb_tpu_torch.session import Session
+    out, errs = {}, []
+
+    def run(i):
+        try:
+            s = torch.cuda.Stream(dev)
+            with torch.cuda.stream(s):
+                # queue work on this stream first: the launch must wait
+                # for it (the stream's ready event)
+                junk = torch.ones(1 << 24, device=dev)
+                junk.mul_(2)
+                out[i] = Session(sess.domain).execute(
+                    SQL_QUERIES["Q6"]).rows
+        except Exception as e:  # noqa: BLE001 - surfaced below
+            errs.append(e)
+    sched.pause()
+    try:
+        ths = [threading.Thread(target=run, args=(i,)) for i in range(4)]
+        for th in ths:
+            th.start()
+        import time
+        deadline = time.monotonic() + 60
+        while sched.depth < 4 and time.monotonic() < deadline:
+            time.sleep(0.005)
+        assert sched.depth >= 4
+    finally:
+        sched.resume()
+    for th in ths:
+        th.join(60)
+        assert not th.is_alive()
+    assert not errs, errs
+    assert all(out[i] == want for i in range(4))

@@ -105,9 +105,34 @@ RESILIENCE_MODULES = ["tidb_tpu_torch/faults/__init__.py",
                       "tidb_tpu_torch/store/remote.py"]
 
 
+# admission and programs: the device scheduler, resource control, the
+# program cache, the memory ledger of obs/, and the modules they grow
+SCHED_MODULES = ["tidb_tpu_torch/sched/__init__.py",
+                 "tidb_tpu_torch/sched/task.py",
+                 "tidb_tpu_torch/sched/scheduler.py",
+                 "tidb_tpu_torch/rc/__init__.py",
+                 "tidb_tpu_torch/rc/bucket.py",
+                 "tidb_tpu_torch/rc/pricing.py",
+                 "tidb_tpu_torch/rc/runaway.py",
+                 "tidb_tpu_torch/rc/controller.py",
+                 "tidb_tpu_torch/compilecache/__init__.py",
+                 "tidb_tpu_torch/compilecache/cache.py",
+                 "tidb_tpu_torch/compilecache/manifest.py",
+                 "tidb_tpu_torch/compilecache/warmup.py",
+                 "tidb_tpu_torch/obs/__init__.py",
+                 "tidb_tpu_torch/obs/hbm.py",
+                 "tidb_tpu_torch/utils/filelock.py",
+                 "tidb_tpu_torch/analysis/compilekey.py",
+                 "tidb_tpu_torch/analysis/contracts.py",
+                 "tidb_tpu_torch/analysis/copcost.py",
+                 "tidb_tpu_torch/analysis/calibrate.py",
+                 "tidb_tpu_torch/parallel/spmd.py"]
+
+
 @pytest.mark.parametrize("path", JOIN_MODULES + STORE_MODULES
                          + SELECT_MODULES + WINDOW_STATS_MODULES
-                         + SERVER_MODULES + RESILIENCE_MODULES)
+                         + SERVER_MODULES + RESILIENCE_MODULES
+                         + SCHED_MODULES)
 def test_join_modules_are_checked(path):
     assert path in SOURCES
 
@@ -275,3 +300,11 @@ def test_relative_imports_resolve_inside_the_port(path):
                     ".py").exists() or (target / name / "__init__.py"
                                         ).exists(), \
                     f"{path}:{line}: {'.'.join(mod)} has no {name}"
+
+
+def test_sched_modules_load_no_jax():
+    """The admission-and-programs slice's modules (sched/, rc/,
+    compilecache/ and the obs/ copy among them), imported one by one in
+    a fresh interpreter, each leave jax and tidb_tpu out of
+    sys.modules."""
+    _modules_load_no_jax(SCHED_MODULES)

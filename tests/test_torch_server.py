@@ -20,7 +20,8 @@ over the same tables, and the same requests go to each:
   a bad password and a graceful close;
 - the status API's JSON routes compare route by route (``/settings``
   without ``tidb_enable_auto_analyze``, whose default the port sets
-  apart); the routes of later slices answer 501 naming their item.
+  apart); ``/sched`` answers the client's scheduler stats, and the
+  routes of later slices answer 501 naming their item.
 
 Then eight threads of mixed statements over one port ``Domain`` give
 the serial results while the paging feedback evicts entries.
@@ -545,7 +546,11 @@ def test_status_routes_equal_the_jax_server(servers):
         metrics = _get(pst.port, "/metrics")
         assert "tidb_tpu_query_total" in metrics
         assert "tidb_tpu_query_duration_seconds" in metrics
-        for route in ("/sched", "/resource", "/pd", "/hbm", "/locksan",
+        # /sched answers since the scheduler slice: the client's stats
+        sched = json.loads(_get(pst.port, "/sched"))
+        assert sched["enabled"] and "client" in sched \
+            and "compile_cache" in sched
+        for route in ("/resource", "/pd", "/hbm", "/locksan",
                       "/profile", "/trace", "/trace/abc"):
             with pytest.raises(urllib.error.HTTPError) as e:
                 _get(pst.port, route)

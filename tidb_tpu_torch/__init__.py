@@ -48,8 +48,21 @@ quarantine ladder, region errors retry with the placement healed, the
 fault plane (``faults/``) injects faults at its seams, repeated
 statements hit the result cache, and ``store/remote.py`` fans a DAG out
 to store processes (``store/server.py``, numpy on the host) over the
-framed RPC of ``store/rpc.py``.  What the port does not run yet
-raises ``NotImplementedError`` naming its ROADMAP.md item (below).
+framed RPC of ``store/rpc.py``.  Every launch of the client goes through
+the device admission scheduler (``sched/``, on by default; bypassed by
+``TIDB_TPU_SCHED_DISABLE=1`` or ``tidb_tpu_sched_queue_depth = 0``): a
+bounded weighted-fair queue (MySQL error 9003 when full) that coalesces
+identical in-flight tasks, runs K tasks of one program over different
+tables as one batched program (``parallel/spmd.BatchedCopProgram``: one
+``group_reduce_lanes`` call a logical device for all K) and different
+chains over one scan as one fused call, holds an adaptive micro-batch
+window, supervises launches (retry, demux, the circuit breaker, the OOM
+bisection) and debits resource-group RU buckets (``rc/``) at the drain;
+programs are memoized by restart-stable keys in the program cache
+(``compilecache/``), whose manifest persists their capacities and the
+measured launch-time corrections (``analysis/calibrate``).  What the
+port does not run yet raises ``NotImplementedError`` naming its
+ROADMAP.md item (below).
 """
 
 # ROADMAP.md items of the paths the port does not run yet, named by the
@@ -57,7 +70,6 @@ raises ``NotImplementedError`` naming its ROADMAP.md item (below).
 HOST_BASE = "Queue 1 item 1, sub-step 1: the rest of the host base"
 PLANNER = "Queue 1 item 1, sub-step 7: the cascades planner"
 EXCHANGE = "Queue 1 item 4: several physical GPUs"
-SCHED = "Queue 1 item 6: slice 10, admission and programs"
 ANALYSIS = "Queue 1 item 7: slice 11, the analysis gates"
 CONTROL = "Queue 1 item 8: slice 12, the control and observability planes"
 HOST_SURFACE = "Queue 1 item 9: slice 13, the rest of the host surface"

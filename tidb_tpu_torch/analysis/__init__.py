@@ -1,13 +1,16 @@
-# ported from tidb_tpu/analysis/__init__.py @ 6298005
-"""The static cost model of a plan, without tracing.
+# ported from tidb_tpu/analysis/__init__.py @ 02e96d8
+"""The static cost model of a plan and the contract checks, without a
+launch.
 
 The port holds the parts of the JAX package's ``analysis/`` that the
-planner's high-NDV strategy choice reaches (``executor/plan.py
-_arbitrate_strategy``): ``contracts`` (the plan-contract error; its
-verifiers come with their callers), ``copcost`` (the shape and memory
-abstract interpreter: ``dag_cost`` and ``plan_cost``), ``calibrate``
-(``arbitrated_ms`` and the correction store's read side) and
-``compilekey`` (the restart-stable DAG digests).  The analysis gates (lint, shardflow, valueflow, lifetime,
-concurrency and ``python -m``) come later (ROADMAP.md, Queue 1 entry
-11).
+planner's high-NDV strategy choice (``executor/plan.py
+_arbitrate_strategy``) and the device scheduler's admission (sched/)
+reach: ``contracts`` (``verify_dag``, the scheduler's ``verify_task``
+and the fusion checks), ``copcost`` (the shape and memory abstract
+interpreter: ``dag_cost``, ``plan_cost``, ``task_cost`` and the
+admission budget), ``calibrate`` (the correction store the drain feeds
+and ``arbitrated_ms`` reads) and ``compilekey`` (the restart-stable
+digests and ``CompileKey``).  The analysis gates (lint, shardflow,
+valueflow, lifetime, concurrency and ``python -m``) come later
+(ROADMAP.md, Queue 1 entry 11).
 """

@@ -1,4 +1,4 @@
-# ported from tidb_tpu/analysis/compilekey.py @ 6298005
+# ported from tidb_tpu/analysis/compilekey.py @ 02e96d8
 """copforge key derivation: restart-stable program variant keys.
 
 Reference analog: the digest-keyed persisted-executable pattern of
@@ -10,28 +10,25 @@ Python salts string hashes per process, so that digest DIES with the
 process.  A compiled executable persisted across restarts needs a key
 every field of which is derivable from content alone.
 
-This module lives next to ``lifetime.py`` deliberately: the DonationPlan
-is part of the variant key BY CONSTRUCTION (``variant_key`` derives the
-donation signature itself from the dag + program shape), so a donating
-and a non-donating build of the same plan can never collide in the
-persistent cache — jax bakes input aliasing into the executable, and
-loading the wrong variant would delete the caller's arrays.
-
-Key anatomy (every part checked again at load time — a stale or
-mismatched entry is rejected, never silently deserialized):
+Key anatomy (the port's program cache, compilecache/, memoizes its
+program objects under it and persists its parts in the warm manifest):
 
 - ``digest``        restart-stable sha256 of the canonical dag encoding
 - ``family``        same, with regrow capacities (group_capacity /
                     num_buckets / join out_capacity) zeroed — the warm
                     pool's capacity-reuse index
-- ``mesh_fp``       axis names + shape + device ids (sched/task
-                    fingerprint, hashed)
+- ``mesh_fp``       the device tuple's fingerprint (type, index, count
+                    of logical devices: sched/task), hashed
 - ``capacity_sig``  program shape class: builder kind, row capacity,
-                    batch slot count
-- ``donation_sig``  DonationPlan slot classes + donate_argnums actually
-                    baked into the executable
-- ``backend_fp``    jax/jaxlib versions + platform + device kind +
-                    device count (an XLA upgrade invalidates everything)
+                    batch slot count, program knobs outside the dag
+- ``donation_sig``  ``"none"``: the port donates no buffers (the JAX
+                    package bakes XLA input aliasing into executables;
+                    its lifetime analysis comes with ROADMAP.md, Queue 1
+                    entry 11)
+- ``backend_fp``    torch version + device type and CUDA capability +
+                    logical device count + a hash of the kernel sources
+                    under ``copr/cuda/`` (a kernel edit invalidates every
+                    manifest entry)
 """
 
 from __future__ import annotations
@@ -41,7 +38,8 @@ import enum
 import functools
 import hashlib
 from dataclasses import dataclass
-from typing import Optional, Tuple
+from pathlib import Path
+from typing import Tuple
 
 import numpy as np
 
@@ -116,4 +114,102 @@ def family_digest(dag: D.CopNode) -> str:
     return h.hexdigest()[:16]
 
 
-__all__ = ["stable_digest", "family_digest"]
+@functools.lru_cache(maxsize=64)
+def mesh_fingerprint_hex(devices) -> str:
+    """Hashed form of the device tuple's fingerprint (sched/task
+    ``mesh_fingerprint``): equal across rebuilt tuples and restarts."""
+    if devices is None:
+        return "nomesh"
+    from ..sched.task import mesh_fingerprint
+    return hashlib.sha256(
+        repr(mesh_fingerprint(devices)).encode()).hexdigest()[:16]
+
+
+@functools.lru_cache(maxsize=1)
+def _kernel_sources_hash() -> str:
+    """sha256 over the kernel sources and headers under ``copr/cuda/``."""
+    h = hashlib.sha256()
+    src = Path(__file__).resolve().parents[1] / "copr" / "cuda"
+    for f in sorted(src.glob("*.cu")) + sorted(src.glob("*.cuh")):
+        h.update(f.name.encode())
+        h.update(f.read_bytes())
+    return h.hexdigest()[:16]
+
+
+@functools.lru_cache(maxsize=16)
+def _backend_fp(dev_type: str, dev_index, n: int) -> str:
+    import torch
+    cap = ""
+    if dev_type == "cuda":
+        major, minor = torch.cuda.get_device_capability(dev_index or 0)
+        cap = f"sm_{major}{minor}"
+    return "/".join((torch.__version__, dev_type, cap, str(n),
+                     _kernel_sources_hash()))
+
+
+def backend_fingerprint(devices=None) -> str:
+    """torch version + device type and CUDA capability + logical device
+    count + the kernel sources' hash: a torch upgrade, another card or a
+    kernel edit invalidates every persisted manifest entry."""
+    if not devices:
+        return _backend_fp("cpu", None, 1)
+    d0 = devices[0]
+    return _backend_fp(d0.type, d0.index, len(devices))
+
+
+@dataclass(frozen=True)
+class CompileKey:
+    """Builder-level variant key of one cacheable device program."""
+    digest: str          # stable dag digest
+    family: str          # capacity-stripped digest (warm-capacity index)
+    mesh_fp: str
+    capacity_sig: str    # program kind / row capacity / slot count
+    donation_sig: str    # "none": the port donates no buffers
+    backend_fp: str
+    capacity: int = 0    # regrow knob value (family capacity index)
+
+    def parts(self) -> dict:
+        """The fields the manifest records and re-verifies on a read."""
+        return {"digest": self.digest, "family": self.family,
+                "mesh_fp": self.mesh_fp,
+                "capacity_sig": self.capacity_sig,
+                "donation_sig": self.donation_sig,
+                "backend_fp": self.backend_fp,
+                "capacity": self.capacity}
+
+    def entry_hex(self, shape_sig: str = "") -> str:
+        """Identity of ONE program object.  The port's programs take any
+        input shape, so ``shape_sig`` is empty (the JAX package appends
+        the concrete call signature of a compiled executable)."""
+        h = hashlib.sha256()
+        for part in (self.digest, self.family, self.mesh_fp,
+                     self.capacity_sig, self.donation_sig,
+                     self.backend_fp, shape_sig):
+            h.update(part.encode())
+            h.update(b"|")
+        return h.hexdigest()[:32]
+
+
+def variant_key(dag: D.CopNode, devices, program: str,
+                row_capacity: int = 0, n_slots: int = 0,
+                extra: Tuple = ()) -> CompileKey:
+    """The persistent variant key of one spmd program kind.  ``extra``
+    carries program knobs outside the dag (fused-rows member
+    capacities)."""
+    if isinstance(dag, D.Aggregation):
+        capacity = dag.state_capacity or 0
+    elif isinstance(dag, D.FusedDag):
+        capacity = 0
+    else:
+        capacity = int(row_capacity)
+    cap_sig = (f"{program}/rc={int(row_capacity)}/k={int(n_slots)}"
+               f"/x={tuple(extra)}")
+    return CompileKey(digest=stable_digest(dag), family=family_digest(dag),
+                      mesh_fp=mesh_fingerprint_hex(devices),
+                      capacity_sig=cap_sig, donation_sig="none",
+                      backend_fp=backend_fingerprint(devices),
+                      capacity=capacity)
+
+
+__all__ = ["CompileKey", "stable_digest", "family_digest",
+           "mesh_fingerprint_hex", "backend_fingerprint", "variant_key"]

@@ -624,6 +624,64 @@ def dag_cost(dag: D.CopNode, layout: Layout,
 
 
 # ------------------------------------------------------------------ #
+# admission-time cost (exact input metadata from the stacked tensors)
+# ------------------------------------------------------------------ #
+
+def _nbytes(t) -> int:
+    return int(t.numel()) * int(t.element_size())
+
+
+def task_cost(task) -> Optional[LaunchCost]:
+    """LaunchCost of a structured CopTask (sched/task), computed from
+    tensor METADATA only (shape, dtype, size: never a device sync) plus
+    the memoized DAG walk.  None for opaque tasks (shuffle and window
+    closures: their capacities are owned by the client's regrow loop)."""
+    if task.dag is None or task.cols is None:
+        return None
+    s = c = 0
+    input_bytes = 0
+    widths = []
+    for v, m in task.cols:
+        if v.dim() >= 2 and not s:
+            s, c = int(v.shape[0]), int(v.shape[1])
+        input_bytes += _nbytes(v)
+        widths.append((int(v.element_size()), m is not None))
+        if m is not None:
+            input_bytes += _nbytes(m)
+    if task.counts is not None:
+        input_bytes += _nbytes(task.counts)
+    aux_bytes = 0
+    for grp in task.aux or ():
+        for v, m in grp:
+            aux_bytes += _nbytes(v)
+            if m is not None:
+                aux_bytes += _nbytes(m)
+    n_dev = len(task.mesh) if task.mesh is not None else 1
+    # live rows are a device-resident count; the padded extent is the
+    # honest static bound (waste reads 1.0x at admission by design)
+    layout = Layout(s or 1, c or 1, n_dev, (s or 1) * (c or 1))
+    from ..parallel.topology import topology_for
+    topo = topology_for(task.mesh) if task.mesh is not None else None
+    return dag_cost(task.dag, layout, tuple(widths),
+                    input_bytes=input_bytes, aux_bytes=aux_bytes,
+                    row_capacity=task.row_capacity, topology=topo)
+
+
+def mesh_hbm_budget(devices) -> int:
+    """Default HBM admission budget of a device tuple: a fraction of the
+    card's memory (``torch.cuda.get_device_properties().total_memory``;
+    the logical devices share the one card, so not times their count),
+    or 0 = unlimited on the CPU, which reports no device memory — as the
+    JAX package's budget is without device memory stats."""
+    from ..obs.hbm import device_memory_stats
+    stats = device_memory_stats(devices)
+    limit = int((stats or {}).get("bytes_limit", 0) or 0)
+    if limit > 0:
+        return int(HBM_BUDGET_FRACTION * limit)
+    return 0
+
+
+# ------------------------------------------------------------------ #
 # plan-level cost (EXPLAIN footer + the analysis gate's corpus pass)
 # ------------------------------------------------------------------ #
 
@@ -817,7 +875,7 @@ def plan_cost(phys, n_devices: int = 8, topology=None) -> LaunchCost:
 
 
 __all__ = ["CostError", "LaunchCost", "Layout", "dag_cost",
-           "plan_cost", "format_bytes",
+           "plan_cost", "format_bytes", "task_cost", "mesh_hbm_budget",
            "snapshot_layout", "snapshot_scan_widths",
            "snapshot_input_bytes", "chain_rows", "exchange_bucket_rows",
            "shuffle_exchange_buckets",

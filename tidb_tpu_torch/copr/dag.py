@@ -59,6 +59,29 @@ class CopNode:
     def children(self) -> Tuple["CopNode", ...]:
         return ()
 
+    def __getstate__(self):
+        # the cached hash (``_cache_hash``) is salted by the process: a
+        # copy made in another process hashes anew
+        state = dict(self.__dict__)
+        state.pop("_hash", None)
+        return state
+
+
+def _cache_hash(cls):
+    """Memoize the dataclass field hash of a frozen node on the instance:
+    a DAG is hashed at every launch it keys (the task key, the program
+    cache, the contract and cost memos), and its fields never change."""
+    field_hash = cls.__hash__
+
+    def __hash__(self):
+        h = self.__dict__.get("_hash")
+        if h is None:
+            h = field_hash(self)
+            object.__setattr__(self, "_hash", h)
+        return h
+    cls.__hash__ = __hash__
+    return cls
+
 
 @dataclass(frozen=True)
 class TableScan(CopNode):
@@ -505,6 +528,11 @@ def chain_str(node: CopNode) -> str:
         kids = cur.children()
         cur = kids[0] if kids else None
     return ">".join(reversed(parts))
+
+
+for _cls in (TableScan, Selection, Projection, Expand, Aggregation, TopN,
+             Limit, LookupJoin, FusedDag):
+    _cache_hash(_cls)
 
 
 def dag_digest(node: CopNode) -> int:

@@ -1,4 +1,4 @@
-# ported from tidb_tpu/copr/exec.py @ 70ba47f
+# ported from tidb_tpu/copr/exec.py @ 02e96d8
 """Coprocessor execution on torch: DAG nodes over one device's batch.
 
 The JAX package traces a DAG into one fused XLA program; the port runs
@@ -51,6 +51,18 @@ def _unported(what: str) -> NotImplementedError:
     return NotImplementedError(
         f"{what} arrives with a later slice of the port (ROADMAP.md, "
         "Queue 1)")
+
+
+@dataclass(frozen=True)
+class Slots:
+    """The batch-slot ids of a stacked batch (parallel/spmd
+    ``BatchedCopProgram``): row r belongs to slot ``ids[r]`` of ``k``.
+    A SCALAR or DENSE aggregation over it offsets each row's group id by
+    its slot times the plan's group count G (G = 1 for SCALAR), so ONE
+    reduction over K·G groups holds every slot's states; the (hi, lo)
+    limb bound holds per slot, at the batch's rows / k."""
+    ids: Any      # (n,) int32 tensor
+    k: int
 
 
 @dataclass
@@ -123,7 +135,7 @@ def _lane_mask(sel, am, masks: dict):
 
 
 def _agg_lanes(a: D.AggDesc, av, am, sel, n, masks: dict,
-               narrow: bool = False) -> dict:
+               narrow: bool = False, group_rows: int = -1) -> dict:
     """The state lanes of one AggDesc over (possibly grouped) rows, as
     ``{field: Lane}``; ``reduce_states`` reduces them.
 
@@ -149,7 +161,7 @@ def _agg_lanes(a: D.AggDesc, av, am, sel, n, masks: dict,
             return {"sum": Lane("sum", av, mask), "cnt": cnt}
         # (hi, lo) int64 limbs: per row |hi| < 2^32 and lo < 2^32, so with
         # n < 2^31 rows per batch neither limb sum can wrap int64
-        if n >= LIMB_SUM_ROWS:
+        if (n if group_rows < 0 else group_rows) >= LIMB_SUM_ROWS:
             raise OverflowError(
                 f"shard batch of {n} rows exceeds the 2^31 limb-exact "
                 "SUM bound; use more/smaller shards")
@@ -254,7 +266,7 @@ def _reduce_lanes(gids, num_groups: int, lanes: list) -> list:
 
 
 def agg_states(agg: D.Aggregation, scan_cols, row_count, ev: Evaluator,
-               aux=()) -> tuple:
+               aux=(), slots: Slots | None = None) -> tuple:
     """Execute agg.child and build its partial states.  Returns
     ``(states, child batch)``: the batch's extras reach the client.
 
@@ -267,17 +279,19 @@ def agg_states(agg: D.Aggregation, scan_cols, row_count, ev: Evaluator,
     branch on the TPU only (its CPU fuses the replication into one pass);
     the port takes it on the card and on the CPU alike, the same program
     wherever it runs.  SORT, SEGMENT and SCATTER read the materialized
-    Expand node, as in the JAX package."""
+    Expand node, as in the JAX package.  ``slots`` (a SCALAR or DENSE
+    plan over a stacked batch) offsets the group ids by batch slot."""
     ch = agg.child
     if isinstance(ch, D.Expand) and agg.strategy == D.GroupStrategy.DENSE:
         base = _exec_node(ch.child, scan_cols, row_count, ev, aux)
-        return _expand_level_states(agg, ch, base, ev), base
+        return _expand_level_states(agg, ch, base, ev, slots), base
     batch = _exec_node(ch, scan_cols, row_count, ev, aux)
-    return _agg_partial_states(agg, batch, ev, {}), batch
+    return _agg_partial_states(agg, batch, ev, {}, slots), batch
 
 
 def _expand_level_states(agg: D.Aggregation, exp: D.Expand,
-                         base: DeviceBatch, ev: Evaluator) -> dict:
+                         base: DeviceBatch, ev: Evaluator,
+                         slots: Slots | None = None) -> dict:
     """The DENSE states of ``agg`` over ``exp``'s levels, one level at a
     time: level ``l`` keeps the first ``len(keys) - l`` rollup keys, the
     others NULL on every row, and appends the level as the gid column."""
@@ -307,7 +321,7 @@ def _expand_level_states(agg: D.Aggregation, exp: D.Expand,
         cols.append((torch.full((n,), lvl, dtype=torch.int64,
                                 device=ev.device), True))
         st = _agg_partial_states(
-            agg, DeviceBatch(cols, base.sel, base.extras), ev, {})
+            agg, DeviceBatch(cols, base.sel, base.extras), ev, {}, slots)
         if not merged:
             merged = st
             continue
@@ -321,7 +335,8 @@ def _expand_level_states(agg: D.Aggregation, exp: D.Expand,
 
 
 def _agg_partial_states(agg: D.Aggregation, batch: DeviceBatch,
-                        ev: Evaluator, memo: dict) -> dict:
+                        ev: Evaluator, memo: dict,
+                        slots: Slots | None = None) -> dict:
     """Per-device partial-state dict of an Aggregation node.
 
     SCALAR/DENSE: a fixed group domain (one group, or the mixed-radix
@@ -331,7 +346,10 @@ def _agg_partial_states(agg: D.Aggregation, batch: DeviceBatch,
     the key hash (copr/segment.py), SCATTER partitions them by the
     hash's top bits (copr/radix.py), and each segment-reduces.  Adds
     ``__rows__`` (COUNT(*) per group) for occupancy; a COUNT(*)
-    aggregate reuses it."""
+    aggregate reuses it.  With ``slots`` (SCALAR and DENSE only) every
+    table holds K·G groups, slot-major."""
+    if slots is not None and agg.strategy in D.HOST_MERGE_STRATEGIES:
+        raise ValueError("only SCALAR and DENSE states batch by slot")
     if agg.strategy == D.GroupStrategy.SCATTER:
         from .radix import agg_scatter_states
         return agg_scatter_states(agg, batch, ev, memo)
@@ -347,8 +365,14 @@ def _agg_partial_states(agg: D.Aggregation, batch: DeviceBatch,
     gids = None
     num_groups = 1
     if agg.strategy == D.GroupStrategy.DENSE:
-        gids = _dense_group_ids(agg, batch, ev, memo)
+        gids = _dense_group_ids(agg, batch, ev, memo, slots)
         num_groups = agg.num_groups
+    group_rows = n
+    if slots is not None:
+        if gids is None:
+            gids = slots.ids
+        num_groups *= slots.k
+        group_rows = n // slots.k
 
     rows = Lane("count", None, sel)
     plan: dict[str, Any] = {"__rows__": rows}
@@ -359,16 +383,18 @@ def _agg_partial_states(agg: D.Aggregation, batch: DeviceBatch,
             continue
         av, am = ev.eval(a.arg, batch.cols, memo)
         plan[f"a{i}"] = _agg_lanes(a, av, am, sel, n, masks,
-                                   narrow=(i in agg.narrow_sums))
+                                   narrow=(i in agg.narrow_sums),
+                                   group_rows=group_rows)
     return reduce_states(plan, gids, num_groups)
 
 
 def _dense_group_ids(agg: D.Aggregation, batch: DeviceBatch, ev: Evaluator,
-                     memo: dict) -> torch.Tensor:
+                     memo: dict, slots: Slots | None = None) -> torch.Tensor:
     """Mixed-radix dense group id from the group-by key codes, int32.
 
     Key domain [0, size_i); nullable keys get slot 0 for NULL and codes
-    shifted by one (domain_sizes already include the NULL slot)."""
+    shifted by one (domain_sizes already include the NULL slot).  With
+    ``slots``, offset by each row's slot times ``num_groups``."""
     n = len(batch.cols[0][0])
     gid = torch.zeros((n,), dtype=torch.int32, device=ev.device)
     for e, size in zip(agg.group_by, agg.domain_sizes):
@@ -380,6 +406,8 @@ def _dense_group_ids(agg: D.Aggregation, batch: DeviceBatch, ev: Evaluator,
         else:
             code = v
         gid = gid * size + code
+    if slots is not None:
+        gid = slots.ids * agg.num_groups + gid
     return gid
 
 

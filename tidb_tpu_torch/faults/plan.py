@@ -23,9 +23,8 @@ through these, no real TPU required):
                 RegionError failpoint queue)
 - ``drain``     drain wakeup (scheduler loop, before a batch serves)
 
-In the port the client consults ``dispatch`` and ``transfer``; the
-``build``, ``launch`` and ``drain`` seams are the scheduler's, which
-the port does not have yet (ROADMAP.md, Queue 1 entry 10).
+The client consults ``dispatch`` and ``transfer``; the ``build``,
+``launch`` and ``drain`` seams are the device scheduler's (sched/).
 
 Fault kinds:
 

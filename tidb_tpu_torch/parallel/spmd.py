@@ -1,4 +1,4 @@
-# ported from tidb_tpu/parallel/spmd.py @ a9e9482
+# ported from tidb_tpu/parallel/spmd.py @ 02e96d8
 """Coprocessor fan-out over the port's devices.
 
 The JAX package runs one ``shard_map`` program over its mesh; the port
@@ -27,6 +27,38 @@ device, as the JAX program's replicated ``P()`` input.  A program with
 an expanding (m:n) join also returns the devices' extras, ``join_total``
 stacked one a device as ``shard_map`` returns it, for the client's
 regrow of the join capacity.
+
+Programs are memoized by their restart-stable variant key through the
+program cache (compilecache/, analysis/compilekey): ``get_sharded_
+program`` and the ``get_*`` functions below return one shared object a
+key.  The device scheduler (sched/) launches three more program kinds:
+
+- ``BatchedCopProgram``: K tasks of one SCALAR or DENSE program over
+  different snapshots of one shape as ONE call.  ``jax.vmap`` has no
+  counterpart over the hand-written kernels, so the K slots run as one
+  reduction: the (S, C) inputs stack into (S, K, C) (``_stack_slots``,
+  padded to a power-of-two slot count by repeating the last slot), each
+  logical device flattens its block into one batch, every row's group
+  id is offset by its slot times the plan's group count G (G = 1 for
+  SCALAR: copr/exec ``Slots``), and ONE ``group_reduce_lanes`` call a
+  logical device reduces every slot's lanes over K·G groups; the states
+  merge across the devices, then split (K·G,) -> (K, G) per slot.  The
+  limb-exactness fence stays per slot, at one slot's S·C rows.  Only
+  chains of row-wise nodes batch (TableScan, Selection, Projection, and
+  an Expand under a DENSE rollup, which reduces level by level):
+  ``batchable``;
+- ``BatchedRowsProgram``: K tasks of one extras-free row chain of
+  row-wise nodes, each slot compacted on its own (one cumsum along each
+  slot's rows of the (S, K, C) mask), so every waiter's paging loop sees
+  its own counts;
+- ``FusedCopProgram`` / ``FusedRowsProgram``: N different chains over
+  ONE snapshot scan as one program call: each member program runs over
+  the same resident tensors (no copy) and the members' states (or rows,
+  at per-member capacities) come back one entry a member, for the
+  scheduler to demux, with one synchronize for all.  The JAX program's
+  XLA common-subexpression elimination of the shared scan and
+  predicates across members has no eager counterpart: each member
+  evaluates its own chain.
 """
 
 from __future__ import annotations
@@ -38,7 +70,9 @@ import torch
 from ..copr import dag as D
 from ..copr.aggregate import _MERGE
 from ..copr import exec as _exec
-from ..copr.exec import _exec_node, agg_states, compact
+from ..copr.exec import (Slots, _ensure_array, _exec_node, _sel_array,
+                         agg_states, compact)
+from ..ops.sortkeys import as_int64_bits
 from ..expr.compile import Evaluator
 from ..ops import sort as _sort
 from ..types.dtypes import TypeKind as K
@@ -152,14 +186,7 @@ class ShardedCopProgram:
     def __call__(self, stacked_cols: Sequence, counts: torch.Tensor,
                  aux_cols: Sequence = ()):
         if self._psum_limb_fence and stacked_cols:
-            s, c = stacked_cols[0][0].shape[:2]
-            # the limb-exactness fence of the merge: summed (hi, lo) SUM
-            # limbs stay int64-exact only while the global row capacity
-            # is < 2^31 (see copr/exec._agg_lanes)
-            if s * c >= 2 ** 31:
-                raise OverflowError(
-                    f"global capacity {s}x{c} exceeds the 2^31 limb-exact "
-                    "SUM bound for the merge across devices")
+            _limb_fence(*stacked_cols[0][0].shape[:2])
         n_dev = len(self.devices)
         s = counts.shape[0]
         if s % n_dev:
@@ -183,4 +210,327 @@ class ShardedCopProgram:
         return out
 
 
-__all__ = ["ShardedCopProgram"]
+def _limb_fence(s: int, c: int) -> None:
+    """The limb-exactness fence of the merge: summed (hi, lo) SUM limbs
+    stay int64-exact only while the global row capacity is < 2^31 (see
+    copr/exec._agg_lanes)."""
+    if s * c >= 2 ** 31:
+        raise OverflowError(
+            f"global capacity {s}x{c} exceeds the 2^31 limb-exact "
+            "SUM bound for the merge across devices")
+
+
+def _resolve(dag, devices, program: str, build, row_capacity: int = 0,
+             n_slots: int = 0, extra: tuple = ()):
+    """The program of (dag, devices, kind) through the program cache."""
+    from ..analysis.compilekey import variant_key
+    from ..compilecache import compile_cache
+    key = variant_key(dag, devices, program, row_capacity=row_capacity,
+                      n_slots=n_slots, extra=extra)
+    return compile_cache().resolve(key, build)
+
+
+def get_sharded_program(dag_root: D.CopNode, devices,
+                        row_capacity: int = 0) -> ShardedCopProgram:
+    """The shared ``ShardedCopProgram`` of (dag, devices, row capacity)."""
+    devices = tuple(devices)
+    return _resolve(dag_root, devices, "solo",
+                    lambda: ShardedCopProgram(dag_root, devices,
+                                              row_capacity),
+                    row_capacity=row_capacity)
+
+
+# --------------------------------------------------------------------- #
+# cross-query fusion: N chains over one scan
+# --------------------------------------------------------------------- #
+
+class FusedCopProgram:
+    """N compatible aggregation chains over ONE shared scan as a single
+    program call (the scheduler's fusion seam): ``__call__(cols,
+    counts)`` -> one output a member, each as its ``ShardedCopProgram``
+    returns it (merged states, or per-device tables for a host-merged
+    member).  Members qualify when they are extras-free aggregations (an
+    expanding join's regrow loop re-runs programs per task)."""
+
+    def __init__(self, fused: D.FusedDag, devices):
+        if len(fused.members) < 2:
+            raise ValueError("fusion needs at least two member chains")
+        self.fused = fused
+        self.devices = tuple(devices)
+        self.members = tuple(get_sharded_program(m, self.devices)
+                             for m in fused.members)
+        for p in self.members:
+            if p.kind != "agg" or p.has_extras:
+                raise ValueError(
+                    "only extras-free agg chains fuse (member "
+                    f"{type(p.root).__name__} is {p.kind}"
+                    f"{'+extras' if p.has_extras else ''})")
+
+    def __call__(self, stacked_cols: Sequence, counts: torch.Tensor,
+                 aux_cols: Sequence = ()) -> tuple:
+        return tuple(p(stacked_cols, counts, aux_cols)
+                     for p in self.members)
+
+
+def get_fused_program(fused: D.FusedDag, devices) -> FusedCopProgram:
+    devices = tuple(devices)
+    return _resolve(fused, devices, "fused",
+                    lambda: FusedCopProgram(fused, devices))
+
+
+class FusedRowsProgram:
+    """N compatible ROW-returning chains over ONE shared scan with
+    PER-MEMBER output capacities: each member keeps its own compaction
+    buffer and live count, so every waiter's paging loop still sees its
+    own counts.  Only extras-free chains qualify."""
+
+    def __init__(self, fused: D.FusedDag, devices, row_capacities: tuple):
+        if len(fused.members) < 2:
+            raise ValueError("fusion needs at least two member chains")
+        if len(row_capacities) != len(fused.members):
+            raise ValueError("one row capacity per member chain")
+        self.fused = fused
+        self.devices = tuple(devices)
+        self.members = tuple(
+            get_sharded_program(m, self.devices, cap)
+            for m, cap in zip(fused.members, row_capacities))
+        for p in self.members:
+            if p.kind != "rows" or p.has_extras:
+                raise ValueError(
+                    "only extras-free row chains fuse (member "
+                    f"{type(p.root).__name__} is {p.kind}"
+                    f"{'+extras' if p.has_extras else ''})")
+
+    def __call__(self, stacked_cols: Sequence, counts: torch.Tensor,
+                 aux_cols: Sequence = ()) -> tuple:
+        return tuple(p(stacked_cols, counts, aux_cols)
+                     for p in self.members)
+
+
+def get_fused_rows_program(fused: D.FusedDag, devices,
+                           row_capacities: tuple) -> FusedRowsProgram:
+    devices = tuple(devices)
+    caps = tuple(int(c) for c in row_capacities)
+    return _resolve(fused, devices, "fused-rows",
+                    lambda: FusedRowsProgram(fused, devices, caps),
+                    extra=caps)
+
+
+# --------------------------------------------------------------------- #
+# batch slots: K tasks of one program over different inputs
+# --------------------------------------------------------------------- #
+
+_ROW_WISE = (D.TableScan, D.Selection, D.Projection)
+
+
+def _row_wise(node: D.CopNode) -> bool:
+    return isinstance(node, _ROW_WISE) and all(
+        _row_wise(c) for c in node.children())
+
+
+def batchable(prog: ShardedCopProgram) -> bool:
+    """May K tasks of ``prog`` over different inputs run as one batched
+    call?  An extras-free SCALAR or DENSE aggregation, or row chain,
+    whose nodes all work row by row (a Limit, a TopN, a join or a
+    materialized Expand would mix the slots of one flattened batch); a
+    DENSE rollup's Expand reduces level by level and batches too."""
+    if prog.has_extras:
+        return False
+    if prog.kind == "rows":
+        return _row_wise(prog.root)
+    if prog.host_merge:
+        return False
+    ch = prog.agg.child
+    if isinstance(ch, D.Expand) \
+            and prog.agg.strategy == D.GroupStrategy.DENSE:
+        ch = ch.child
+    return _row_wise(ch)
+
+
+def _pow2_slots(n_slots: int) -> int:
+    return max(2, 1 << (n_slots - 1).bit_length())
+
+
+def _stack_slots(cols_list, counts_list, n_slots):
+    """Stack K tasks' (S, C) inputs along a batch-slot dim -> (S, K, C),
+    padding short batches by repeating the last slot: one program per
+    power-of-two slot count instead of one per K."""
+    k = len(cols_list)
+    pads = list(cols_list) + [cols_list[-1]] * (n_slots - k)
+    cnts = list(counts_list) + [counts_list[-1]] * (n_slots - k)
+    stacked = []
+    for j in range(len(pads[0])):
+        v = torch.stack([c[j][0] for c in pads], dim=1)
+        m = None if pads[0][j][1] is None else \
+            torch.stack([c[j][1] for c in pads], dim=1)
+        stacked.append((v, m))
+    return stacked, torch.stack(list(cnts), dim=1)
+
+
+def _slot_blocks(stacked, counts, devices):
+    """Each logical device's (S/D, K, C) block: ``[(cols, counts,
+    device)]``."""
+    n_dev = len(devices)
+    s = counts.shape[0]
+    if s % n_dev:
+        raise ValueError(f"{s} shards do not split over {n_dev} devices")
+    per = s // n_dev
+    out = []
+    for d, device in enumerate(devices):
+        blk = slice(d * per, (d + 1) * per)
+        out.append(([(v[blk], None if m is None else m[blk])
+                     for v, m in stacked], counts[blk], device))
+    return out
+
+
+def _flatten_slots(cols, counts):
+    """(S_local, K, C) blocks -> one (S_local*K*C,) batch, its live-row
+    mask and each row's slot id (copr/exec ``Slots``)."""
+    s, k, c = cols[0][0].shape
+    dev = counts.device
+    base_sel = (torch.arange(c, device=dev)[None, None, :]
+                < counts[:, :, None]).reshape(-1)
+    flat = [(v.reshape(-1), True if m is None else m.reshape(-1))
+            for v, m in cols]
+    ids = torch.arange(k, dtype=torch.int32, device=dev).view(1, k, 1) \
+        .expand(s, k, c).reshape(-1)
+    return flat, base_sel, Slots(ids, k)
+
+
+def _tree_map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+class BatchedCopProgram:
+    """K tasks of one SCALAR or DENSE program over different inputs of
+    one shape as ONE call: ``__call__(cols_list, counts_list)`` -> one
+    merged state dict a task, each as ``ShardedCopProgram`` returns it
+    (the module docstring gives the design: one ``group_reduce_lanes``
+    call a logical device over K·G groups)."""
+
+    def __init__(self, dag_root: D.CopNode, devices, n_slots: int):
+        self.base = get_sharded_program(dag_root, devices)
+        if self.base.kind != "agg" or not batchable(self.base):
+            raise ValueError("only row-wise SCALAR/DENSE agg plans batch")
+        self.agg = self.base.agg
+        self.devices = self.base.devices
+        self.n_slots = n_slots
+        self.groups = 1 if self.agg.strategy == D.GroupStrategy.SCALAR \
+            else self.agg.num_groups
+
+    def __call__(self, cols_list: Sequence, counts_list: Sequence) -> list:
+        k = len(cols_list)
+        if self.base._psum_limb_fence and cols_list[0]:
+            # per slot, at one slot's global capacity, as the solo run
+            _limb_fence(*cols_list[0][0][0].shape[:2])
+        stacked, counts = _stack_slots(cols_list, counts_list, self.n_slots)
+        outs = []
+        for cols, cnt, device in _slot_blocks(stacked, counts,
+                                              self.devices):
+            flat, base_sel, slots = _flatten_slots(cols, cnt)
+            st, _batch = agg_states(self.agg, flat, base_sel,
+                                    Evaluator(device), (), slots=slots)
+            outs.append(st)
+        merged = _collective_merge(outs)
+        K, G = self.n_slots, self.groups
+        if self.agg.strategy == D.GroupStrategy.SCALAR:
+            return [_tree_map(lambda t, i=i: t.view(K)[i], merged)
+                    for i in range(k)]
+        return [_tree_map(lambda t, i=i: t.view(K, G)[i], merged)
+                for i in range(k)]
+
+
+def get_batched_program(dag_root: D.CopNode, devices,
+                        n_slots: int) -> BatchedCopProgram:
+    devices = tuple(devices)
+    n_slots = _pow2_slots(n_slots)
+    return _resolve(dag_root, devices, "batched",
+                    lambda: BatchedCopProgram(dag_root, devices, n_slots),
+                    n_slots=n_slots)
+
+
+def _compact_slots(batch, capacity: int, s: int, k: int, c: int):
+    """``copr/exec.compact`` of each slot on its own: each slot's live
+    rows (in the (shard, row) order of its solo run) packed to the front
+    of its own ``capacity`` buffer by one cumsum along the slot's rows;
+    ``([(data (K, cap), valid (K, cap)), ...], count (K,))``."""
+    n = s * k * c
+    dev = batch.cols[0][0].device if batch.cols else None
+
+    def by_slot(t):                 # (S*K*C,) -> (K, S*C)
+        return t.reshape(s, k, c).transpose(0, 1).reshape(k, s * c)
+    sel = by_slot(_sel_array(batch.sel, n, dev))
+    pos = torch.cumsum(sel, 1) - 1
+    base = (torch.arange(k, device=dev) * (capacity + 1))[:, None]
+    idx = (torch.where(sel & (pos < capacity), pos, capacity)
+           + base).reshape(-1)
+    out_cols = []
+    for v, m in batch.cols:
+        v = _ensure_array(v, n, dev)
+        if v.dtype == torch.bool:
+            v = v.to(torch.int64)
+        bits = by_slot(as_int64_bits(v)).reshape(-1)
+        data = torch.zeros((k * (capacity + 1),), dtype=bits.dtype,
+                           device=dev)
+        data.index_put_((idx,), bits)
+        valid = torch.zeros((k * (capacity + 1),), dtype=torch.bool,
+                            device=dev)
+        valid.index_put_((idx,),
+                         by_slot(_sel_array(m, n, dev)).reshape(-1))
+        out_cols.append(
+            (data.view(k, capacity + 1)[:, :capacity].view(v.dtype),
+             valid.view(k, capacity + 1)[:, :capacity]))
+    return out_cols, sel.sum(1, dtype=torch.int64)
+
+
+class BatchedRowsProgram:
+    """K tasks of one extras-free row chain over different inputs of one
+    shape as ONE call: ``__call__(cols_list, counts_list)`` -> one
+    ``([(data (D, cap), valid (D, cap)), ...], count (D,))`` a task, as
+    ``ShardedCopProgram`` returns it, each slot compacted on its own."""
+
+    def __init__(self, dag_root: D.CopNode, devices, row_capacity: int,
+                 n_slots: int):
+        self.base = get_sharded_program(dag_root, devices, row_capacity)
+        if self.base.kind != "rows" or not batchable(self.base):
+            raise ValueError("only extras-free row-wise row plans batch")
+        self.root = dag_root
+        self.devices = self.base.devices
+        self.row_capacity = row_capacity
+        self.n_slots = n_slots
+
+    def __call__(self, cols_list: Sequence, counts_list: Sequence) -> list:
+        k = len(cols_list)
+        stacked, counts = _stack_slots(cols_list, counts_list, self.n_slots)
+        outs = []
+        for cols, cnt, device in _slot_blocks(stacked, counts,
+                                              self.devices):
+            s_loc, kk, c = cols[0][0].shape
+            flat, base_sel, _slots = _flatten_slots(cols, cnt)
+            batch = _exec_node(self.root, flat, base_sel,
+                               Evaluator(device), ())
+            outs.append(_compact_slots(batch, self.row_capacity,
+                                       s_loc, kk, c))
+        out_cols, out_counts = _stack(outs)     # (D, K, cap) / (D, K)
+        return [([(v[:, i], m[:, i]) for v, m in out_cols],
+                 out_counts[:, i]) for i in range(k)]
+
+
+def get_batched_rows_program(dag_root: D.CopNode, devices,
+                             row_capacity: int,
+                             n_slots: int) -> BatchedRowsProgram:
+    devices = tuple(devices)
+    n_slots = _pow2_slots(n_slots)
+    return _resolve(dag_root, devices, "batched-rows",
+                    lambda: BatchedRowsProgram(dag_root, devices,
+                                               row_capacity, n_slots),
+                    row_capacity=row_capacity, n_slots=n_slots)
+
+
+__all__ = ["ShardedCopProgram", "get_sharded_program", "batchable",
+           "BatchedCopProgram", "get_batched_program",
+           "BatchedRowsProgram", "get_batched_rows_program",
+           "FusedCopProgram", "get_fused_program",
+           "FusedRowsProgram", "get_fused_rows_program"]

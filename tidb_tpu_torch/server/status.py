@@ -1,4 +1,4 @@
-# ported from tidb_tpu/server/status.py @ 6233200
+# ported from tidb_tpu/server/status.py @ 02e96d8
 """HTTP status/admin API.
 
 Reference analog: pkg/server http_handler.go + handler/ — /status,
@@ -7,11 +7,12 @@ Prometheus-text /metrics endpoint (pkg/metrics scrape surface).
 
 The port answers the routes whose subsystems it has: ``/status``,
 ``/schema[/<db>[/<table>]]``, ``/stats``, ``/metrics``, ``/settings``,
-``/regions/meta``, ``/mvcc/key/<db>/<table>/<handle>``, ``/ddl/history``
-and ``/schema_version``.  The JAX package's ``/sched``, ``/resource``,
-``/pd``, ``/hbm``, ``/locksan``, ``/profile`` and ``/trace`` read the
-scheduler and the control and observability planes, which the port has
-not yet: each answers HTTP 501 naming its ROADMAP.md item.
+``/regions/meta``, ``/mvcc/key/<db>/<table>/<handle>``, ``/ddl/history``,
+``/schema_version`` and ``/sched`` (the device scheduler's and the
+client's counters, ``CopClient.sched_stats``).  The JAX package's
+``/resource``, ``/pd``, ``/hbm``, ``/locksan``, ``/profile`` and
+``/trace`` read the control and observability planes, which the port
+has not yet: each answers HTTP 501 naming its ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -21,13 +22,13 @@ import threading
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Optional
 
-from .. import CONTROL, SCHED, unported
+from .. import CONTROL, unported
 from ..session.session import Domain
 
 # routes over subsystems of later slices, by the ROADMAP.md item that
 # ports them
 _UNPORTED_ROUTES = {
-    "/sched": SCHED, "/resource": CONTROL, "/pd": CONTROL,
+    "/resource": CONTROL, "/pd": CONTROL,
     "/hbm": CONTROL, "/locksan": CONTROL, "/profile": CONTROL,
     "/trace": CONTROL,
 }
@@ -133,6 +134,15 @@ class StatusServer:
         if path == "/metrics":
             from ..utils.metrics import global_registry
             return global_registry().prometheus_text(), "text/plain"
+        if path == "/sched":
+            # the device admission scheduler: queue depth, per-group
+            # fair share and RU accounting, coalesce/batch/fusion launch
+            # counters, the window's state, HBM-budget admission, launch
+            # supervision (retries, bisections, breaker states), wait
+            # p50/p99, the program cache, and the shared client's
+            # counters
+            return json.dumps(self.domain.client.sched_stats(),
+                              default=str), "application/json"
         if path in _UNPORTED_ROUTES or path.startswith("/trace/"):
             raise unported(f"the status route {path}",
                            _UNPORTED_ROUTES.get(path, CONTROL))

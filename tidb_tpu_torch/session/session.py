@@ -60,6 +60,7 @@ from ..planner.join_reorder import reorder_joins
 from ..planner.build import (PLAN_TAINTS, SEQUENCE_RESOLVER, SESSION_INFO,
                              SUBQUERY_EXECUTOR, PlanError, build_query)
 from ..planner.optimize import optimize_plan
+from ..sched.task import SCHED_GROUP
 from ..planner.ranger import apply_index_paths
 from ..sql import ast as A
 from ..sql.parser import parse_sql
@@ -86,6 +87,56 @@ class ResultSet:
         return self.rows[0][0] if self.rows else None
 
 
+
+def _knob(merged: dict, name: str):
+    """A sysvar's value, or None when unset or empty."""
+    v = merged.get(name)
+    return None if v is None or v == "" else v
+
+
+def _apply_sched_knobs(client, merged: dict) -> None:
+    """The device scheduler's, resource control's, calibration's, memory
+    ledger's and program cache's sysvars onto the client, as the JAX
+    package's session applies them (-1 = keep the engine default)."""
+    v = _knob(merged, "tidb_tpu_sched_queue_depth")
+    if v is not None and int(v) >= 0:
+        client.sched_queue_depth = int(v)       # 0 bypasses admission
+    v = _knob(merged, "tidb_tpu_sched_max_coalesce")
+    if v is not None and int(v) > 0:
+        client.sched_max_coalesce = int(v)
+    v = _knob(merged, "tidb_tpu_sched_fusion")
+    if v is not None:
+        client.sched_fusion = bool(int(v))
+    v = _knob(merged, "tidb_tpu_sched_window_us")
+    if v is not None and int(v) >= -1:
+        client.sched_window_us = int(v)
+    v = _knob(merged, "tidb_tpu_sched_hbm_budget")
+    if v is not None and int(v) >= -1:
+        client.sched_hbm_budget = int(v)
+    v = _knob(merged, "tidb_tpu_rc_enable")
+    if v is not None:
+        client.rc_enable = bool(int(v))
+    v = _knob(merged, "tidb_tpu_rc_overdraft_ru")
+    if v is not None and int(v) >= 0:
+        client.rc_overdraft = float(v)
+    v = _knob(merged, "tidb_tpu_cost_calibration")
+    if v is not None:
+        client.calibration = bool(int(v))
+    v = _knob(merged, "tidb_tpu_hbm_ledger")
+    if v is not None:
+        client.hbm_ledger = bool(int(v))
+    from ..compilecache import configure as cc_configure
+    from ..compilecache import maybe_warm_start
+    v11 = _knob(merged, "tidb_tpu_compile_cache")
+    v12 = _knob(merged, "tidb_tpu_compile_cache_dir")
+    v13 = _knob(merged, "tidb_tpu_compile_warm_pool")
+    cc_configure(
+        enable=None if v11 is None else bool(int(v11)),
+        cache_dir=None if v12 is None else str(v12),
+        pool_bytes=None if v13 is None or int(v13) < 0 else int(v13))
+    maybe_warm_start(client)
+
+
 class Domain:
     """Per-process state (pkg/domain analog): catalog + the native KV row
     store + the port's ``CopClient`` + statistics + sysvars + the
@@ -103,9 +154,13 @@ class Domain:
     (``watch``) carries ``SET GLOBAL`` and the grant tables, persisted
     in a durable store so both survive a reopen.  ``register_session``
     keeps a weak registry of the sessions for ``SHOW PROCESSLIST`` and
-    ``KILL``.  The JAX package's Domain also takes a tenant keyspace and
-    holds the statement summary, resource groups, DXF and the background
-    workers; the port's has none of them yet (ROADMAP.md, Queue 1)."""
+    ``KILL``.  ``resource_groups`` holds the resource groups: only
+    ``default``, unlimited, whose live object each statement binds for
+    the device scheduler (``sched.SCHED_GROUP``); the resource-group
+    statements come with ROADMAP.md, Queue 1 entry 12.  The JAX
+    package's Domain also takes a tenant keyspace and holds the
+    statement summary, DXF and the background workers; the port's has
+    none of them yet (ROADMAP.md, Queue 1)."""
 
     def __init__(self, device="cuda", n_devices: int = 1,
                  data_dir: Optional[str] = None, sync: bool = False):
@@ -139,6 +194,8 @@ class Domain:
         from ..ddl.mdl import MDLRegistry
         self.mdl = MDLRegistry()               # pkg/ddl/mdl analog
         self.coordinator = Coordinator()       # mppcoordmanager analog
+        from ..rc.controller import ResourceGroupManager
+        self.resource_groups = ResourceGroupManager()
         self._ddl = None
         self._ddl_mu = threading.Lock()
         # leaf lock for the domain's id allocators (table ids, conn
@@ -403,6 +460,14 @@ class Session:
             handle = self.domain.coordinator.begin(self.conn_id, text)
             ktok = KILL_EVENT.set(self._kill_event)
             htok = QUERY_HANDLE.set(handle)
+            # tag device cop tasks with the statement's resource group so
+            # the admission scheduler orders them weighted-fair and can
+            # enforce the group's RU bucket at the drain (rc/)
+            gname = self.vars.get("tidb_resource_group") or \
+                self.domain.sysvars.get("tidb_resource_group", "default")
+            grp = self.domain.resource_groups.get(gname)
+            gtok = SCHED_GROUP.set(
+                (gname, grp.sched_weight if grp is not None else 8.0, grp))
 
             def _getvar(name, scope=""):
                 if scope == "global":
@@ -436,6 +501,7 @@ class Session:
                 TEMP_TABLES.reset(ttok)
                 SEQUENCE_RESOLVER.reset(qtok)
                 SESSION_INFO.reset(stok)
+                SCHED_GROUP.reset(gtok)
                 QUERY_HANDLE.reset(htok)
                 KILL_EVENT.reset(ktok)
                 self.domain.coordinator.end(self.conn_id)
@@ -1049,12 +1115,15 @@ class Session:
     def _exec_ctx(self) -> P.ExecContext:
         """Statement-scoped execution context with a fresh memory tracker
         rooted at tidb_mem_quota_query (util/memory Tracker analog).  The
-        engine knobs of the client ride sysvars: the streaming cap, the
-        result cache's capacity, the host fallback of the ladders (once a
-        SET GLOBAL gave it a value) and the fault-injection spec.  The
-        JAX package's scheduler, resource-control, calibration and pd
-        knobs stay inert: they tune parts of its client the port's does
-        not have yet (ROADMAP.md, Queue 1 entries 10 and 12)."""
+        engine knobs of the client ride sysvars, as the JAX package's
+        session applies them: the streaming cap, the result cache's
+        capacity, the device scheduler's (queue depth, coalescing,
+        fusion, window, HBM budget), resource control's, the
+        calibration's, the memory ledger's, the host fallback of the
+        ladders (once a SET GLOBAL gave it a value), the fault-injection
+        spec and the program cache's (then its warm replay, once a
+        directory).  The JAX package's pd knobs stay inert (ROADMAP.md,
+        Queue 1 entry 12)."""
         from ..utils.memory import Tracker
         merged = {**self.domain.sysvars, **self.vars}
         quota = int(merged.get("tidb_mem_quota_query", 1 << 30))
@@ -1084,6 +1153,7 @@ class Session:
         if v10 is not None:
             from ..faults import install_spec
             install_spec(str(v10))
+        _apply_sched_knobs(client, merged)
         return P.ExecContext(client, merged,
                              mem_tracker=Tracker("query", quota))
 

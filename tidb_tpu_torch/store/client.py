@@ -1,4 +1,4 @@
-# ported from tidb_tpu/store/client.py @ ba365f2
+# ported from tidb_tpu/store/client.py @ 02e96d8
 """Coprocessor client: dispatches a pushed-down DAG to the devices and
 merges what they return.
 
@@ -71,8 +71,20 @@ Around those routes, as in the JAX package's client:
   XLA.  Its last rung, the host (``copr/hostagg``), runs only when
   ``host_fallback`` is on; otherwise the OOM propagates;
 - **the quarantine ladder**: a ``LaunchQuarantinedError`` (the launch
-  circuit breaker; raised by the scheduler, not ported yet) is served by
-  the host when ``host_fallback`` is on, counted in ``degraded``.
+  circuit breaker of the scheduler, raised at submit) is served by the
+  host when ``host_fallback`` is on, counted in ``degraded``.
+
+Every device launch goes through the device admission scheduler
+(sched/), as in the JAX package, and it is on by default: ``_launch``
+submits a structured ``CopTask`` (the scheduler resolves the program
+through the program cache and may coalesce, batch or fuse it with other
+sessions' tasks), ``_launch_opaque`` the hash, shuffle and window
+programs as opaque tasks (fair-ordered, never coalesced).
+``TIDB_TPU_SCHED_DISABLE=1`` or a queue depth of 0
+(``tidb_tpu_sched_queue_depth``) launches directly.  The regrow and
+paging loops enter at a capacity the program cache already holds for
+the plan family (``_warm_cap``), and ``sched_stats()`` is the status
+API's ``/sched``.
 
 ``host_fallback`` (``tidb_tpu_sched_host_fallback``) is off by default in
 the port, where the JAX package's is on: a statement meant for the card
@@ -84,8 +96,7 @@ the result cache and its counters under ``_rc_mu``.  On the CPU the
 client runs the same device programs through the plain kernel versions:
 it keeps none of the JAX package's CPU engine choice (its CPU client
 sends DENSE, SCALAR and the high-NDV strategies to ``host_dense_agg`` and
-``host_sort_agg``), nor its warm-capacity cache (``_warm_cap``, which
-reads the compile cache: ROADMAP.md, Queue 1 entry 10).
+``host_sort_agg``).
 
 ``execute_window`` runs the window functions (parallel/window.py): each
 device's scan chain, the hash exchange by PARTITION BY, each device's
@@ -118,7 +129,7 @@ from ..device import get_devices
 from ..faults import plan as _faults
 from ..faults.breaker import LaunchQuarantinedError
 from ..parallel.shuffle import ShardedShuffleJoinProgram, ShuffleCaps
-from ..parallel.spmd import ShardedCopProgram
+from ..parallel.spmd import get_sharded_program
 from ..parallel.window import ShardedWindowProgram
 from .columnar import ColumnarSnapshot, _pow2_at_least
 
@@ -224,6 +235,23 @@ class CopClient:
         # device memory retries through the recovery ladder — streamed
         # half-size batches, then (host_fallback) the host oracle
         self.oom_recovered = 0
+        # device admission scheduler (sched/): every launch onto the
+        # devices goes through a bounded weighted-fair queue that
+        # coalesces concurrent compatible tasks.  -1 = scheduler
+        # defaults; queue depth 0 (or TIDB_TPU_SCHED_DISABLE=1) bypasses
+        # admission.  The other knobs: None = keep the scheduler's state
+        self.sched_enable = os.environ.get(
+            "TIDB_TPU_SCHED_DISABLE", "") != "1"
+        self.sched_queue_depth = -1
+        self.sched_max_coalesce = -1
+        self.sched_fusion = None       # tidb_tpu_sched_fusion
+        self.sched_window_us = None    # tidb_tpu_sched_window_us
+        self.sched_hbm_budget = None   # tidb_tpu_sched_hbm_budget
+        self.rc_enable = None          # tidb_tpu_rc_enable
+        self.rc_overdraft = None       # tidb_tpu_rc_overdraft_ru
+        self.calibration = None        # tidb_tpu_cost_calibration
+        self.hbm_ledger = None         # tidb_tpu_hbm_ledger
+        self._sched_obj = None
 
     @property
     def timings(self) -> dict:
@@ -562,7 +590,8 @@ class CopClient:
         batch), then one host merge of every batch's tables."""
         t = self.timings = {}
         t["buckets"] = []
-        cap = agg.state_capacity or DEFAULT_GROUP_CAPACITY
+        cap = self._warm_cap(agg, agg.state_capacity
+                             or DEFAULT_GROUP_CAPACITY)
         per_dev_all, recs = [], []
         t0 = time.perf_counter()
         for b in batches:
@@ -576,7 +605,7 @@ class CopClient:
                 true_ng = max(int(st["__ngroups__"]) for st in per_dev)
                 if true_ng <= sized.state_capacity:
                     break
-                cap = _pow2_at_least(true_ng)
+                cap = self._warm_cap(agg, _pow2_at_least(true_ng))
             else:
                 raise RuntimeError("group-capacity regrow did not converge")
             self._end_batch(rec)
@@ -592,13 +621,119 @@ class CopClient:
         t["merge"] = time.perf_counter() - t1
         return CopResult(agg_cols, key_cols)
 
+    # -- the device launch seam: the admission scheduler (sched/) ----- #
+
+    def _scheduler(self):
+        """This device tuple's admission scheduler; None = direct."""
+        if not self.sched_enable or self.sched_queue_depth == 0:
+            return None
+        s = self._sched_obj
+        if s is None:
+            from ..sched import scheduler_for
+            s = self._sched_obj = scheduler_for(self.devices)
+        s.configure(
+            self.sched_queue_depth if self.sched_queue_depth > 0 else None,
+            self.sched_max_coalesce if self.sched_max_coalesce > 0
+            else None,
+            fusion=self.sched_fusion,
+            window_us=self.sched_window_us,
+            hbm_budget=self.sched_hbm_budget,
+            rc_enable=self.rc_enable,
+            rc_overdraft=self.rc_overdraft,
+            calibration=self.calibration,
+            hbm_ledger=self.hbm_ledger)
+        return s
+
+    def _client_stats(self) -> dict:
+        with self._stat_mu:
+            return {"last_page_iters": self.last_page_iters,
+                    "last_retries": self.last_retries,
+                    "last_heals": self.last_heals,
+                    "degraded": self.degraded,
+                    "oom_recovered": self.oom_recovered,
+                    "host_fallback": self.host_fallback}
+
+    def sched_stats(self) -> dict:
+        """The status API's ``/sched``: the client's counters, the
+        program cache's and, once a launch started it, the scheduler's."""
+        with self._rc_mu:
+            rc = {"result_cache_hits": self.result_cache_hits,
+                  "result_cache_misses": self.result_cache_misses}
+        client = {**self._client_stats(), **rc}
+        from ..compilecache import compile_cache
+        cc = {"compile_cache": compile_cache().stats()}
+        if self._sched_obj is None:
+            return {"enabled": self.sched_enable, "started": False,
+                    "client": client, **cc}
+        return {"enabled": self.sched_enable, "started": True,
+                "client": client, **cc, **self._sched_obj.stats()}
+
+    @staticmethod
+    def _note_sched(task) -> None:
+        """The served task's queue wait, coalescing, RUs and build time,
+        onto the statement's QueryHandle."""
+        from ..copr.coordinator import QUERY_HANDLE
+        h = QUERY_HANDLE.get()
+        if h is not None:
+            h.note_sched(task.wait_ns, task.coalesced, task.fused,
+                         rus=task.rus_charged, retried=task.retries,
+                         compile_ns=task.compile_ns,
+                         compile_miss=task.compile_miss,
+                         hbm_predicted=task.hbm_predicted,
+                         hbm_measured=task.hbm_measured)
+
+    def _submit(self, dag, cols, counts, aux_cols, row_capacity: int = 0):
+        """One run of ``dag``'s program over the devices through the
+        admission queue: ``(program, out)``.  The scheduler resolves the
+        program (so concurrent identical tasks share ONE call) and may
+        coalesce, batch or fuse the task with other sessions' tasks."""
+        sched = self._scheduler()
+        if sched is None:
+            prog = get_sharded_program(dag, self.devices, row_capacity)
+            return prog, prog(cols, counts, aux_cols)
+        from ..sched import CopTask
+        est = 0
+        if cols:
+            s, c = cols[0][0].shape[:2]
+            est = s * c
+        t = sched.submit(CopTask.structured(
+            dag, self.devices, row_capacity, cols, counts, tuple(aux_cols),
+            est_rows=est))
+        try:
+            return t.wait()
+        finally:
+            self._note_sched(t)
+
+    def _launch_opaque(self, fn, est_rows: int = 0):
+        """Admission-controlled launch of a program with another
+        signature (the key hash, shuffle and window programs):
+        fair-ordered, never coalesced."""
+        sched = self._scheduler()
+        if sched is None:
+            return fn()
+        from ..sched import CopTask
+        t = sched.submit(CopTask.opaque(fn, self.devices, est_rows=est_rows))
+        try:
+            return t.wait()
+        finally:
+            self._note_sched(t)
+
+    def _warm_cap(self, dag, needed: int) -> int:
+        """The regrow and paging re-entry seam: prefer a capacity the
+        program cache (or its manifest) already holds for this plan
+        FAMILY over the minimal pow2 step, bounded at 4x the need."""
+        from ..analysis.compilekey import backend_fingerprint, family_digest
+        from ..compilecache import compile_cache
+        warm = compile_cache().warm_capacity(
+            family_digest(dag), needed, backend_fingerprint(self.devices))
+        return warm if warm is not None else needed
+
     def _launch(self, dag, cols, counts, aux_cols, row_capacity: int = 0):
         """One run of ``dag``'s program over the devices: ``(out, grown)``,
         ``grown`` the DAG at a larger join capacity when an expanding
         join's output overflowed its capacity (``out`` is then stale),
         else None."""
-        prog = ShardedCopProgram(dag, self.devices, row_capacity)
-        out = prog(cols, counts, aux_cols)
+        prog, out = self._submit(dag, cols, counts, aux_cols, row_capacity)
         if not prog.has_extras:
             return out, None
         out, extras = out
@@ -675,14 +810,17 @@ class CopClient:
         pre = None if aux_cols else radix.prehash_plan(agg, len(cols))
         if pre is not None:
             hashed_dag, leaf_scan = pre
-            hv = radix.HashProgram(leaf_scan, agg.group_by)(cols)
+            hprog = radix.HashProgram(leaf_scan, agg.group_by)
+            hv = self._launch_opaque(lambda: hprog(cols),
+                                     est_rows=cols[0][0].numel())
             cols = list(cols) + [(hv, None)]
             agg = hashed_dag
             _sync(self.devices)
             t["hash"] = time.perf_counter() - t0
         t["device"] = t["transfer"] = 0.0
         t["buckets"] = []
-        cap = agg.state_capacity or DEFAULT_GROUP_CAPACITY
+        cap = self._warm_cap(agg, agg.state_capacity
+                             or DEFAULT_GROUP_CAPACITY)
         for _ in range(10):
             sized = self._with_capacity(agg, cap)
             t["buckets"].append(sized.state_capacity)
@@ -700,7 +838,7 @@ class CopClient:
             true_ng = max(int(st["__ngroups__"]) for st in per_dev)
             if true_ng <= sized.state_capacity:
                 break
-            cap = _pow2_at_least(true_ng)
+            cap = self._warm_cap(agg, _pow2_at_least(true_ng))
         else:
             raise RuntimeError("group-capacity regrow did not converge")
         t0 = time.perf_counter()
@@ -717,16 +855,21 @@ class CopClient:
                               per_shard: int) -> int:
         """``max(limit, 16)`` for a TopN or Limit root; else the page
         feedback's last observed live fraction with 50% headroom, or a
-        quarter of a shard (``INITIAL_SELECTIVITY``), at least 1024."""
+        quarter of a shard (``INITIAL_SELECTIVITY``), at least 1024,
+        rounded up to a warm capacity (``_warm_cap``)."""
         if isinstance(root, (D.TopN, D.Limit)):
             return max(root.limit, 16)
         with self._pf_mu:
             fb = self._page_feedback.get(fb_key)
         if fb is not None:
-            return _pow2_at_least(
+            cap = _pow2_at_least(
                 max(int(per_shard * min(fb * 1.5, 1.0)) + 1, 256))
-        return max(_pow2_at_least(
-            max(per_shard // INITIAL_SELECTIVITY, 1)), 1024)
+        else:
+            cap = max(_pow2_at_least(
+                max(per_shard // INITIAL_SELECTIVITY, 1)), 1024)
+        # a capacity whose program the cache already holds beats the
+        # feedback guess
+        return self._warm_cap(root, cap)
 
     def execute_rows(self, root: D.CopNode, snap: ColumnarSnapshot,
                      out_dtypes, dictionaries=None,
@@ -791,7 +934,8 @@ class CopClient:
             t["transfer"] += time.perf_counter() - t1
             if top or (host_counts <= cap).all():
                 break
-            cap = _pow2_at_least(int(host_counts.max()))
+            cap = self._warm_cap(root,
+                                 _pow2_at_least(int(host_counts.max())))
         else:
             raise RuntimeError("paging loop did not converge")
         with self._stat_mu:
@@ -869,7 +1013,9 @@ class CopClient:
             t["shuffles"].append(dataclasses.astuple(caps))
             prog = ShardedShuffleJoinProgram(spec, self.devices, caps)
             t0 = time.perf_counter()
-            out, extras = prog(lcols, lcounts, rcols, rcounts, aux_cols)
+            out, extras = self._launch_opaque(
+                lambda p=prog: p(lcols, lcounts, rcols, rcounts, aux_cols),
+                est_rows=lsnap.num_rows + rsnap.num_rows)
             _sync(self.devices)
             t1 = time.perf_counter()
             extras = {k: v.cpu().numpy() for k, v in extras.items()}
@@ -986,7 +1132,9 @@ class CopClient:
             t["windows"].append(cap)
             prog = ShardedWindowProgram(spec, self.devices, cap)
             t0 = time.perf_counter()
-            (out_cols, out_counts), extras = prog(cols, counts, aux_cols)
+            (out_cols, out_counts), extras = self._launch_opaque(
+                lambda p=prog: p(cols, counts, aux_cols),
+                est_rows=snap.num_rows)
             _sync(self.devices)
             t1 = time.perf_counter()
             need = int(extras["wmax"].max())
