@@ -272,7 +272,32 @@ script exits non-zero without printing a result:
    4 x 20 Q6 over the wire with the scheduler on: statements/s at one
    and four connections and the coalesced launches.  Every result
    equals its numpy oracle or its solo run;
-17. the ``kernels`` JSON line, then the last line
+17. observability (every statement of phases 9-16 was traced: the
+   span tree is on by default), over 13a's Domain and a fresh
+   connection, every trace kept: (a) TPC-H Q1 at SF=10 through SQL,
+   equal to numpy, its span tree from the flight recorder printed, with
+   ``session.ExecuteStmt``, ``cop.dispatch``, ``sched.queue`` and
+   ``sched.launch`` (recorded by the drain thread, carrying
+   ``device_ms`` from the launch's CUDA events beside ``measured_ms``,
+   the drain's enqueue wall), ``cop.transfer`` and ``cop.host_merge``;
+   (b) phase 8's SORT GROUP BY (its DAG over the ``--s4-sf`` lineitem)
+   through ``CopClient.execute_agg`` under a ``Tracer`` region, equal
+   to numpy in groups and sum, launching ``group_reduce`` and the
+   onesweep pair, its tree printed; (c) ``EXPLAIN ANALYZE`` of Q1: its
+   rows printed, the top operator's and the cop task's ``actRows``
+   equal to Q1's oracle groups, the cop task's time beside the launch's
+   device ms; (d) the roofline (``obs/roofline``): its peak source (on
+   an ``H100 80GB HBM3`` NVIDIA's datasheet, on another card the device
+   microbench), Q1's, Q6's and the SORT's digests and the digests
+   furthest from their peak, each with its bytes share clamped at 100%
+   and unclamped, at least three; (e) ``/profile?ms=1500`` through the
+   status server with ``tidb_tpu_profile`` on: CPU and CUDA activities,
+   five Q6 calls inside the window, the exported Chrome trace's kernel
+   events, at least one ``group_reduce`` kernel; (f) warm Q6 medians
+   with ``tidb_tpu_trace`` on and off, interleaved; (g) ``SHOW
+   SLOW_QUERIES`` at a zero threshold, its trace id found in the
+   flight recorder;
+18. the ``kernels`` JSON line, then the last line
    ``{"ok": true, "device": {...}}``.  A ``phase ...: s=`` line after
    each phase gives its seconds.
 
@@ -4794,6 +4819,295 @@ def admission_phase(torch, gr, main_sess, main_data, s4_data) -> int:
     return driven
 
 
+# --------------------------------------------------------------------- #
+# phase 17: the statement's observability
+# --------------------------------------------------------------------- #
+
+OBS_TRACE_REPS = 40        # 17f's warm Q6 calls a setting, interleaved
+OBS_PROFILE_MS = 1500      # 17e's capture window
+OBS_Q6_IN_CAPTURE = 5      # Q6 calls inside it
+OBS_ROOF_ROWS = 12         # 17d's rows by roofline gap
+OBS_REQUIRED = ("session.ExecuteStmt", "cop.dispatch", "sched.queue",
+                "sched.launch", "cop.transfer", "cop.host_merge")
+
+
+def print_tree(tag: str, tree) -> None:
+    """One span tree as TRACE renders it: a line a span, indented by
+    depth, with its start and duration in µs from the statement's
+    start."""
+    print(f"{tag} trace_id={tree.trace_id} latency_ms={tree.latency_ms:.3f}"
+          f" flags={sorted(tree.flags)} spans={len(tree.spans)}")
+    for label, start_us, dur_us in tree.rows():
+        print(f"{tag}   {label} start_us={start_us} dur_us={dur_us}")
+
+
+def newest_trace(dom, sql: str):
+    """The flight recorder's newest trace of ``sql``."""
+    for ent in dom.flight_recorder.index():
+        if ent["sql"] == sql.strip()[:200]:
+            return dom.flight_recorder.get(ent["trace_id"])
+    return None
+
+
+def launch_spans(tree) -> list:
+    return [sp for sp in tree.spans if sp.name == "sched.launch"]
+
+
+def observability_phase(torch, gr, os1, main_sess, main_data,
+                        s4_data) -> int:
+    """Phase 17 (see the module docstring): returns the group_reduce
+    launches of the main-path statements it drives (Q1 and Q6; 17b's
+    SORT is phase 8's slice-4 shape and is not counted)."""
+    from tidb_tpu_torch.analysis.compilekey import stable_digest
+    from tidb_tpu_torch.obs.hbm import profiler_gate
+    from tidb_tpu_torch.obs.roofline import roofline_status, roofline_store
+    from tidb_tpu_torch.server.status import StatusServer
+    from tidb_tpu_torch.session import Session
+    from tidb_tpu_torch.store import snapshot_from_columns
+    from tidb_tpu_torch.testing import tpch
+    from tidb_tpu_torch.utils.tracing import Tracer
+    dom = main_sess.domain
+    on_card = dom.client.devices[0].type == "cuda"
+    sess = Session(dom)
+    q1, q6 = tpch.SQL_QUERIES["Q1"], tpch.SQL_QUERIES["Q6"]
+    c = dict(zip(*main_data))
+    sess.execute("set global tidb_tpu_trace_sample = 1")
+    driven = 0
+    step_t: dict = {}
+
+    def launches() -> int:
+        return gr.LAUNCHES["group_reduce"]
+
+    def run(sql: str, name: str):
+        nonlocal driven
+        n0 = launches()
+        with task_spy() as spy:
+            rs = sess.execute(sql)
+        driven += launches() - n0
+        if name:
+            sql_check(name, rs, c, main_data[0], None)
+        return rs, spy.tasks
+
+    step_t["a"] = time.perf_counter()
+    # -- a: Q1's span tree --------------------------------------------- #
+    rs1, tasks1 = run(q1, "Q1")
+    tree = newest_trace(dom, q1)
+    check(tree is not None, "17a: Q1's trace is not in the recorder")
+    names = {sp.name for sp in tree.spans}
+    check(set(OBS_REQUIRED) <= names, f"17a: Q1's spans {sorted(names)}")
+    lsp = launch_spans(tree)
+    check(lsp and all("device_ms" in sp.attrs for sp in lsp),
+          f"17a: sched.launch without device_ms {[sp.attrs for sp in lsp]}")
+    if on_card:
+        check(all(sp.thread.startswith("sched-drain") for sp in lsp),
+              "17a: a launch span not recorded by the drain")
+    print_tree("17a Q1", tree)
+    q1_device_ms = sum(sp.attrs["device_ms"] for sp in lsp)
+    q1_measured_ms = sum(sp.attrs["measured_ms"] for sp in lsp)
+
+    step_t["b"] = time.perf_counter()
+    # -- b: the SORT GROUP BY of phase 8's shape ----------------------- #
+    names4, cols4 = s4_data
+    snap = snapshot_from_columns(
+        S4_COLS, [cols4[names4.index(n)] for n in S4_COLS])
+    _kind, agg, key_meta = build_s4("SORT")
+    reset([gr.LAUNCHES, os1.LAUNCHES])
+    tracer = Tracer()
+    tracer.tree.sql = "SORT (phase 8's DAG)"
+    t0 = time.perf_counter()
+    with task_spy() as spy, tracer.region("session.ExecuteStmt"):
+        res = dom.client.execute_agg(agg, snap, key_meta)
+    sort_ms = (time.perf_counter() - t0) * 1e3
+    tasks_sort = spy.tasks
+    ok =cols4[names4.index("l_orderkey")].data
+    price = cols4[names4.index("l_extendedprice")].data
+    got = res.columns[0].data
+    got_sum = exact_sum(got) if got.dtype == np.int64 \
+        else sum(int(v) for v in got)
+    check(len(res.key_columns[0].data) == len(np.unique(ok))
+          and got_sum == exact_sum(price),
+          "17b: SORT's groups or sum != numpy")
+    check(gr.LAUNCHES["group_reduce"] >= 1
+          and os1.LAUNCHES["radix_onesweep64"] >= 1
+          and os1.LAUNCHES["radix_hist_all64"] >= 1,
+          f"17b: SORT launches {gr.LAUNCHES} {os1.LAUNCHES}")
+    snames = {sp.name for sp in tracer.tree.spans}
+    check({"cop.dispatch", "sched.launch", "cop.transfer",
+           "cop.host_merge"} <= snames, f"17b: SORT's spans {snames}")
+    check(all("device_ms" in sp.attrs
+              for sp in launch_spans(tracer.tree)),
+          "17b: a SORT launch without device_ms")
+    print(f"17b SORT: groups={len(res.key_columns[0].data)} "
+          f"wall_ms={sort_ms:.1f} group_reduce_launches="
+          f"{gr.LAUNCHES['group_reduce']} radix_hist_all64_launches="
+          f"{os1.LAUNCHES['radix_hist_all64']} radix_onesweep64_launches="
+          f"{os1.LAUNCHES['radix_onesweep64']} exact=True")
+    tracer.tree.latency_ms = sort_ms
+    print_tree("17b SORT", tracer.tree)
+    del res, snap
+
+    step_t["c"] = time.perf_counter()
+    # -- c: EXPLAIN ANALYZE of Q1 --------------------------------------- #
+    n0 = launches()
+    ea = sess.execute("explain analyze " + q1)
+    driven += launches() - n0
+    groups = len(rs1.rows)           # 17a checked them against numpy
+    check(ea.names == ["operator", "actRows", "time", "loops"]
+          and ea.rows[0][1] == groups
+          and any(r[0].lstrip().startswith("CopTask") and r[1] == groups
+                  for r in ea.rows),
+          f"17c: EXPLAIN ANALYZE {ea.rows}")
+    ea_tree = newest_trace(dom, "explain analyze " + q1)
+    ea_dev = sum(sp.attrs.get("device_ms", 0.0)
+                 for sp in launch_spans(ea_tree)) if ea_tree else 0.0
+    for op, act, tm, loops in ea.rows:
+        print(f"17c EXPLAIN ANALYZE: {op} actRows={act} time={tm} "
+              f"loops={loops}")
+    cop = next(r for r in ea.rows if r[0].lstrip().startswith("CopTask"))
+    print(f"17c Q1: groups={groups} "
+          f"cop_task_ms={cop[2]} launch_device_ms={ea_dev:.3f} "
+          f"(17a: device_ms={q1_device_ms:.3f} "
+          f"measured_ms={q1_measured_ms:.3f})")
+
+    step_t["d"] = time.perf_counter()
+    # -- d: the roofline ------------------------------------------------ #
+    _rs6, tasks6 = run(q6, "Q6")
+    st = roofline_status(OBS_ROOF_ROWS)
+    peak_bw, peak_fl = st["peak_bytes_per_s"], st["peak_flops_per_s"]
+    print(f"17d roofline: entries={st['entries']} observed={st['observed']}"
+          f" peak_bytes_per_s={peak_bw} peak_flops_per_s={peak_fl} "
+          f"peak_source={st['peak_source']} bounds={st['bounds']}")
+    if on_card:
+        kind = torch.cuda.get_device_name(0)
+        want = ("declared:nvidia-datasheet" if "H100 80GB HBM3" in kind
+                else "microbench:cuda")
+        check(st["peak_source"].startswith(want),
+              f"17d: peak source {st['peak_source']} on {kind}")
+
+    def roof_line(tag: str, att: dict) -> None:
+        unclamped = att["achieved_gbps"] * 1e9 / peak_bw * 100.0
+        print(f"17d {tag}: ewma_ms={att['ewma_ms']} achieved_gbps="
+              f"{att['achieved_gbps']} bytes_pct={att['bytes_pct']} "
+              f"bytes_pct_unclamped={unclamped:.3f} flops_pct="
+              f"{att['flops_pct']} bound={att['bound']} samples="
+              f"{att['samples']}")
+    rows = 0
+    for tag, tasks in (("Q1", tasks1), ("Q6", tasks6),
+                       ("SORT", tasks_sort)):
+        for d in dict.fromkeys(stable_digest(t.dag) for t in tasks):
+            att = roofline_store().get(d)
+            if att is not None:
+                roof_line(f"{tag} {d[:16]}", att)
+                rows += 1
+            else:
+                print(f"17d {tag} {d[:16]}: no warm launch measured")
+    for d, att in st["by_gap"].items():
+        roof_line(f"gap {d}", att)
+    # every digest, closest to the peak first: an unclamped share past
+    # 100% means the copied LaunchCost counts too few bytes for the
+    # port's program (or the time is not the card's)
+    every = roofline_store().top(st["entries"])["by_gap"]
+    near = sorted(every.items(), key=lambda kv: kv[1]["gap_pct"])[:3]
+    for d, att in near:
+        roof_line(f"near {d}", att)
+    over = [d for d, att in every.items()
+            if att["achieved_gbps"] * 1e9 / peak_bw * 100.0 > 100.0]
+    print(f"17d over_peak_unclamped={len(over)} {over}")
+    check(st["entries"] >= 3 and len(st["by_gap"]) >= 3,
+          f"17d: {st['entries']} roofline digests ({rows} of 17's)")
+
+    step_t["e"] = time.perf_counter()
+    # -- e: a /profile capture around Q6 -------------------------------- #
+    srv = StatusServer(dom)
+    port = srv.start()
+    gate = profiler_gate()
+    try:
+        sess.execute("set global tidb_tpu_profile = 1")
+        import urllib.request
+        with urllib.request.urlopen(
+                f"http://127.0.0.1:{port}/profile?ms={OBS_PROFILE_MS}",
+                timeout=60) as r:
+            started = json.loads(r.read())
+        check(started.get("started") is True, f"17e: /profile {started}")
+        if on_card:
+            check("CUDA" in started["activities"],
+                  f"17e: activities {started['activities']}")
+        t0 = time.perf_counter()
+        n0 = launches()
+        for _ in range(OBS_Q6_IN_CAPTURE):
+            sess.execute(q6)
+        in_capture = launches() - n0
+        driven += in_capture
+        q6_s = time.perf_counter() - t0
+        check(q6_s * 1e3 < OBS_PROFILE_MS,
+              f"17e: the Q6 calls outlasted the capture ({q6_s:.2f} s)")
+        deadline = time.monotonic() + 120
+        while gate.stats()["active"]:
+            check(time.monotonic() < deadline, "17e: the capture never ended")
+            time.sleep(0.05)
+        gst = gate.stats()
+        check(gst["trace"] and not gst["last_error"], f"17e: {gst}")
+        with open(gst["trace"]) as f:
+            events = json.load(f)["traceEvents"]
+        kern = [e for e in events if e.get("cat") == "kernel"]
+        grk = [e for e in kern if "group_reduce" in e.get("name", "")]
+        if on_card:
+            check(len(grk) >= 1, "17e: no group_reduce kernel event in "
+                                 f"the capture ({len(kern)} kernels)")
+        print(f"17e profile: ms={OBS_PROFILE_MS} q6_calls="
+              f"{OBS_Q6_IN_CAPTURE} group_reduce_launches={in_capture} "
+              f"events={len(events)} kernel_events={len(kern)} "
+              f"group_reduce_kernel_events={len(grk)} "
+              f"kernel_us={sum(e.get('dur', 0) for e in kern):.1f} "
+              f"activities={started['activities']}")
+    finally:
+        sess.execute("set global tidb_tpu_profile = 0")
+        srv.close()
+
+    step_t["f"] = time.perf_counter()
+    # -- f: tracing's cost on a warm Q6 --------------------------------- #
+    walls: dict = {1: [], 0: []}
+    n0 = launches()
+    gc.collect()          # once: a collection a call would be the time
+    for _ in range(OBS_TRACE_REPS):
+        for on in (1, 0):
+            sess.execute(f"set tidb_tpu_trace = {on}")
+            t0 = time.perf_counter()
+            sess.execute(q6)
+            walls[on].append((time.perf_counter() - t0) * 1e3)
+    sess.execute("set tidb_tpu_trace = 1")
+    driven += launches() - n0
+    on_ms, off_ms = (statistics.median(walls[k]) for k in (1, 0))
+    print(f"17f trace cost: q6_warm_ms_on={on_ms:.3f} q6_warm_ms_off="
+          f"{off_ms:.3f} diff_ms={on_ms - off_ms:.3f} diff_pct="
+          f"{(on_ms - off_ms) / off_ms * 100:.2f} reps={OBS_TRACE_REPS}")
+
+    step_t["g"] = time.perf_counter()
+    # -- g: the slow log at a zero threshold ---------------------------- #
+    sess.execute("set tidb_tpu_slow_threshold_ms = 0")
+    try:
+        n0 = launches()
+        sess.execute(q6)
+        driven += launches() - n0
+        slow = sess.execute("show slow_queries")
+    finally:
+        sess.execute("set tidb_tpu_slow_threshold_ms = 300")
+        sess.execute("set global tidb_tpu_trace_sample = 16")
+    mine = [r for r in slow.rows if r[0] == q6]
+    check(mine and mine[-1][7]
+          and dom.flight_recorder.get(mine[-1][7]) is not None,
+          f"17g: slow log {slow.rows[-3:]}")
+    for r in slow.rows[-3:]:
+        print("17g SHOW SLOW_QUERIES: " + " | ".join(
+            f"{k}={' '.join(str(v).split())[:60]}"
+            for k, v in zip(slow.names, r)))
+    check(driven > 0, "17: no group_reduce launch")
+    ends = list(step_t.values())[1:] + [time.perf_counter()]
+    print("17 steps: " + " ".join(
+        f"{k}_s={e - t:.2f}" for (k, t), e in zip(step_t.items(), ends)))
+    return driven
+
+
 def build_phase(*modules) -> None:
     """The kernel libraries of ``modules`` from the checkout's sources,
     one nvcc each, started together."""
@@ -4908,8 +5222,11 @@ def main() -> int:
     lap("15 resilience")
     counts["group_reduce"] += admission_phase(torch, gr, main_sess,
                                               main_data, s4_data)
-    del main_sess
     lap("16 admission")
+    counts["group_reduce"] += observability_phase(torch, gr, os1, main_sess,
+                                                  main_data, s4_data)
+    del main_sess
+    lap("17 observability")
 
     cu = "tidb_tpu_torch/copr/cuda/"
     sources = {"radix_hist": cu + "radix_kernel.cu",

@@ -24,7 +24,9 @@ in every output.  The scheduler's batched and fused programs equal the
 CPU's (and the solo runs'), a batched aggregation launching one
 ``group_reduce`` launch set a logical device for all its slots, and
 statements submitted from threads on side streams at once return the
-CPU's rows.
+CPU's rows.  EXPLAIN ANALYZE and the JSON functions on the card return
+the CPU's operators, row counts and rows, and a traced launch carries
+its device time from CUDA events.
 
 Every test here needs a CUDA GPU and skips without one.  The file
 imports no JAX, so it also runs on a machine that has only PyTorch:
@@ -1570,3 +1572,59 @@ def test_scheduled_launch_from_a_side_stream_thread(dev):
         assert not th.is_alive()
     assert not errs, errs
     assert all(out[i] == want for i in range(4))
+
+
+# ------------------------------------------------------------------ #
+# the statement's observability on the card
+# ------------------------------------------------------------------ #
+
+def _obs_pair():
+    from tidb_tpu_torch.session import Domain, Session
+    out = []
+    for device in ("cuda", "cpu"):
+        s = Session(Domain(device, n_devices=8))
+        s.execute("create table j (id bigint, doc json, n bigint)")
+        s.execute("""insert into j values
+            (1, '{"a": 1, "b": {"c": "x"}, "arr": [1,2,3]}', 4),
+            (2, '{"a": 2}', 5), (3, 'not json', 6), (4, NULL, 7),
+            (5, '[1, {"a": "x"}]', 8), (6, '{"a": [1, 2]}', 9)""")
+        s.execute("set global tidb_tpu_result_cache_entries = 0")
+        s.execute("set global tidb_tpu_trace_sample = 1")
+        out.append(s)
+    return out
+
+
+def test_explain_analyze_on_the_card_equals_the_cpu(dev):
+    """EXPLAIN ANALYZE on the card: the CPU's operators, actRows and
+    loops, the cop task named on cuda with one launch; the statement's
+    sched.launch span carries device_ms from its CUDA events."""
+    import re
+    card, cpu = _obs_pair()
+    sql = ("select json_type(doc), count(*), sum(n) from j "
+           "group by json_type(doc) order by 1")
+    for s in (card, cpu):
+        s.execute(sql)
+
+    def norm(s):
+        rows = s.execute("explain analyze " + sql).rows
+        return [(re.sub(r" \[schedWait.*\]$", "", op)
+                 .replace("-> cuda", "-> dev").replace("-> cpu", "-> dev"),
+                 act, loops) for op, act, _t, loops in rows]
+    assert norm(card) == norm(cpu)
+    assert any("-> cuda" in r[0] for r in card.execute(
+        "explain analyze " + sql).rows)
+    card.execute("select count(*), sum(n) from j "
+                 "where json_valid(doc) = 1")
+    tree = card.domain.flight_recorder.get(
+        card.domain.flight_recorder.index()[0]["trace_id"])
+    launch = [sp for sp in tree.spans if sp.name == "sched.launch"]
+    assert launch and all(sp.attrs.get("device_ms", 0) > 0
+                          for sp in launch), [sp.attrs for sp in launch]
+
+
+def test_json_statement_on_the_card_equals_the_cpu(dev):
+    card, cpu = _obs_pair()
+    sql = ("select id, json_extract(doc, '$.a'), json_type(doc), "
+           "json_valid(doc), json_length(doc), json_keys(doc) from j "
+           "where json_valid(doc) = 1 or doc is null order by id")
+    assert card.execute(sql).rows == cpu.execute(sql).rows

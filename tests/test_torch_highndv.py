@@ -349,7 +349,11 @@ def test_with_capacity_sizes_each_strategys_table():
 
 def test_sort_regrow_returns_every_group():
     """All-distinct keys from a 16-group SORT table: the regrow compares
-    the observed groups with the SORT table, not the bucket space."""
+    the observed groups with the SORT table, not the bucket space.  The
+    program pool starts empty: a warm capacity another test of the
+    worker left for this plan family would start the regrow above 16."""
+    from tidb_tpu_torch.compilecache import compile_cache
+    compile_cache().clear_pool()
     n = 5000
     k = np.arange(n) * 3 - 7000
     snap = snapshot_from_numpy(["k"], [

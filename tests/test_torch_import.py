@@ -129,10 +129,35 @@ SCHED_MODULES = ["tidb_tpu_torch/sched/__init__.py",
                  "tidb_tpu_torch/parallel/spmd.py"]
 
 
+# the statement's observability: the spans, the flight recorder, the
+# roofline and the rest of the memory plane, the runtime statistics,
+# the statement summary, telemetry, the JSON functions, and the modules
+# they grow
+OBS_MODULES = ["tidb_tpu_torch/obs/__init__.py",
+               "tidb_tpu_torch/obs/trace.py",
+               "tidb_tpu_torch/obs/recorder.py",
+               "tidb_tpu_torch/obs/roofline.py",
+               "tidb_tpu_torch/obs/hbm.py",
+               "tidb_tpu_torch/utils/tracing.py",
+               "tidb_tpu_torch/utils/execdetails.py",
+               "tidb_tpu_torch/utils/stmtsummary.py",
+               "tidb_tpu_torch/utils/telemetry.py",
+               "tidb_tpu_torch/utils/jsonfns.py",
+               "tidb_tpu_torch/sched/task.py",
+               "tidb_tpu_torch/sched/scheduler.py",
+               "tidb_tpu_torch/store/client.py",
+               "tidb_tpu_torch/faults/plan.py",
+               "tidb_tpu_torch/expr/lower_strings.py",
+               "tidb_tpu_torch/planner/build.py",
+               "tidb_tpu_torch/executor/physical.py",
+               "tidb_tpu_torch/server/status.py",
+               "tidb_tpu_torch/session/session.py"]
+
+
 @pytest.mark.parametrize("path", JOIN_MODULES + STORE_MODULES
                          + SELECT_MODULES + WINDOW_STATS_MODULES
                          + SERVER_MODULES + RESILIENCE_MODULES
-                         + SCHED_MODULES)
+                         + SCHED_MODULES + OBS_MODULES)
 def test_join_modules_are_checked(path):
     assert path in SOURCES
 
@@ -227,6 +252,12 @@ def test_resilience_modules_load_no_jax():
     imported one by one in a fresh interpreter, each leave jax and
     tidb_tpu out of sys.modules."""
     _modules_load_no_jax(RESILIENCE_MODULES)
+
+
+def test_obs_modules_load_no_jax():
+    """The observability slice's modules, imported one by one in a fresh
+    interpreter, each leave jax and tidb_tpu out of sys.modules."""
+    _modules_load_no_jax(OBS_MODULES)
 
 
 def test_import_loads_no_jax_module():

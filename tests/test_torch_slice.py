@@ -493,26 +493,42 @@ def _unported_cases():
 
 # SQL statements of later slices: (statement, the ROADMAP.md item named)
 _UNPORTED_SQL = {
-    "SQL show statements summary": ("show statements_summary",
-                                    "Queue 1 item 1, sub-step 1"),
-    "SQL show slow queries": ("show slow_queries",
-                              "Queue 1 item 1, sub-step 1"),
-    "SQL show status": ("show status", "Queue 1 item 1, sub-step 1"),
     "SQL cascades planner": ("""set tidb_enable_cascades_planner = 1;
                                 select count(*) from part""",
                              "Queue 1 item 1, sub-step 7"),
-    "SQL explain analyze": ("explain analyze select count(*) from part",
-                            "Queue 1 item 8: slice 12"),
-    "SQL trace": ("trace select count(*) from part",
-                  "Queue 1 item 8: slice 12"),
     "SQL create resource group": ("create resource group rg1 ru_per_sec = 100",
                                   "Queue 1 item 8: slice 12"),
     "SQL memtable": ("select count(*) from information_schema.tables",
                      "Queue 1 item 9: slice 13"),
     "SQL admin recommend index": ("admin recommend index",
                                   "Queue 1 item 8: slice 12"),
-    "SQL plan replayer": ("plan replayer dump explain select * from part",
-                          "Queue 1 item 8: slice 12"),
+}
+
+# the statements that raised in the cases above before the observability
+# slice ported them, each with a check of what it now returns
+_PORTED_SQL = {
+    "SQL show statements summary": (
+        "show statements_summary",
+        lambda res: res.names[:2] == ["Digest_text", "Exec_count"]
+        and any(r[0] == "select count(*) from part" for r in res.rows)),
+    "SQL show slow queries": (
+        "show slow_queries",
+        lambda res: res.names[-1] == "Trace_id"),
+    "SQL show status": (
+        "show status",
+        lambda res: dict(res.rows)["Queries"] == "0"),
+    "SQL explain analyze": (
+        "explain analyze select count(*) from part",
+        lambda res: res.names == ["operator", "actRows", "time", "loops"]
+        and res.rows[-1][1] == 1),
+    "SQL trace": (
+        "trace select count(*) from part",
+        lambda res: [r[0] for r in res.rows][:3] == [
+            "session.ExecuteStmt", "  planner.Optimize",
+            "  executor.Run"]),
+    "SQL plan replayer": (
+        "plan replayer dump explain select * from part",
+        lambda res: res.rows[0][0].startswith("replayer_")),
 }
 
 
@@ -529,6 +545,18 @@ def _sql_session():
         Column.from_numpy(dt.bigint(False), np.arange(n) % 50)])
     return sql_session({"lineitem": gen_lineitem(0.0005, seed=1),
                         "part": part}, device="cpu", n_devices=8)
+
+
+@pytest.mark.parametrize("case", sorted(_PORTED_SQL))
+def test_ported_observability_statements_answer(case):
+    """The statements of the observability slice answer through the
+    port's session (tests/test_torch_observability.py holds them
+    against the JAX package's)."""
+    sql, ok = _PORTED_SQL[case]
+    sess = _sql_session()
+    sess.execute("select count(*) from part")
+    res = sess.execute(sql)
+    assert ok(res), (sql, res.names, res.rows)
 
 
 @pytest.mark.parametrize("case", sorted(_unported_cases())

@@ -60,18 +60,28 @@ window, supervises launches (retry, demux, the circuit breaker, the OOM
 bisection) and debits resource-group RU buckets (``rc/``) at the drain;
 programs are memoized by restart-stable keys in the program cache
 (``compilecache/``), whose manifest persists their capacities and the
-measured launch-time corrections (``analysis/calibrate``).  What the
-port does not run yet raises ``NotImplementedError`` naming its
+measured launch-time corrections (``analysis/calibrate``).  Every
+statement is observed as the JAX package observes it (``obs/``): a span
+tree rooted at ``session.ExecuteStmt`` (on by default,
+``tidb_tpu_trace``), stitched from the client's ``cop.dispatch``,
+``cop.transfer`` and ``cop.host_merge`` and the scheduler drain's
+``sched.*`` spans, kept by the flight recorder and served at ``/trace``;
+the roofline store divides each warm launch's bytes and operations by
+its device time from CUDA events against the card's datasheet peaks;
+``/hbm`` and ``/profile`` (``torch.profiler``), ``EXPLAIN ANALYZE``,
+``TRACE``, ``PLAN REPLAYER DUMP``, the statement summary and slow log
+(``SHOW STATEMENTS_SUMMARY``, ``SHOW SLOW_QUERIES``, ``SHOW STATUS``),
+the opt-in telemetry report and the JSON functions (``utils/``).  What
+the port does not run yet raises ``NotImplementedError`` naming its
 ROADMAP.md item (below).
 """
 
 # ROADMAP.md items of the paths the port does not run yet, named by the
 # NotImplementedError each raises
-HOST_BASE = "Queue 1 item 1, sub-step 1: the rest of the host base"
 PLANNER = "Queue 1 item 1, sub-step 7: the cascades planner"
 EXCHANGE = "Queue 1 item 4: several physical GPUs"
 ANALYSIS = "Queue 1 item 7: slice 11, the analysis gates"
-CONTROL = "Queue 1 item 8: slice 12, the control and observability planes"
+CONTROL = "Queue 1 item 8: slice 12, the control plane"
 HOST_SURFACE = "Queue 1 item 9: slice 13, the rest of the host surface"
 
 

@@ -131,6 +131,10 @@ class BoundedLRU:
         with self._mu:
             return list(self._od.items())
 
+    def __len__(self) -> int:
+        with self._mu:
+            return len(self._od)
+
 
 @dataclass
 class Correction:

@@ -369,6 +369,16 @@ class CopTaskExec(PhysOp):
         handle = QUERY_HANDLE.get()
         if handle is not None:
             handle.note_fragment(self.describe())
+        sched_w0 = handle.sched_wait_ns if handle is not None else 0
+        sched_n0 = handle.sched_tasks if handle is not None else 0
+        sched_f0 = handle.sched_fused if handle is not None else 0
+        sched_r0 = handle.sched_rus if handle is not None else 0.0
+        sched_t0 = handle.sched_retried if handle is not None else 0
+        sched_d0 = handle.degraded if handle is not None else 0
+        sched_c0 = handle.compile_ns if handle is not None else 0
+        sched_m0 = handle.compile_misses if handle is not None else 0
+        sched_hp0 = handle.hbm_predicted if handle is not None else 0
+        sched_hm0 = handle.hbm_measured if handle is not None else 0
         if self.as_of_ts is not None:
             snap = self.as_of_snap
             if snap is None:
@@ -395,6 +405,42 @@ class CopTaskExec(PhysOp):
         # NOTE: scan output is NOT charged to the statement quota — the
         # columns are the device-resident data plane; the quota governs
         # host-side operator working memory.
+        if handle is not None:
+            # admission-queue wait this cop task paid, for EXPLAIN
+            # ANALYZE (select_result.go copr execution-info analog),
+            # plus how many of its launches were cross-query fused
+            dw = handle.sched_wait_ns - sched_w0
+            dn = handle.sched_tasks - sched_n0
+            df = handle.sched_fused - sched_f0
+            dr = handle.sched_rus - sched_r0
+            # where the schedWait went: a launch that built its program
+            # shows `compile: miss Nms`, a pooled program `compile: hit`
+            dc = handle.compile_ns - sched_c0
+            dm = handle.compile_misses - sched_m0
+            # tasks/fused ride the same handle counters the statement
+            # summary aggregates: one story across EXPLAIN ANALYZE and
+            # statements_summary
+            self._rt_detail = (f"schedWait: {dw / 1e6:.3f}ms, "
+                               f"compile: {'miss' if dm else 'hit'} "
+                               f"{dc / 1e6:.3f}ms, "
+                               f"tasks: {dn}, fused: {df}, ru: {dr:.1f}")
+            # launch supervision: transient re-launches the drain paid,
+            # and whether the host oracle served this task after a
+            # quarantine — only noted when they happened
+            dt = handle.sched_retried - sched_t0
+            if dt:
+                self._rt_detail += f", retried: {dt}"
+            if handle.degraded - sched_d0:
+                self._rt_detail += ", degraded"
+            # the memory axis: the measured launch peak next to the
+            # admission prediction (only when a launch measured one)
+            dhm = handle.hbm_measured - sched_hm0
+            dhp = handle.hbm_predicted - sched_hp0
+            if dhm > 0:
+                from ..analysis.copcost import format_bytes
+                self._rt_detail += (
+                    f", hbm: {format_bytes(dhm)} measured / "
+                    f"{format_bytes(dhp)} predicted")
         return ResultChunk(list(self.out_names), cols)
 
 

@@ -27,13 +27,6 @@ from ..chunk.column import StringDict
 from ..types import dtypes as dt
 from . import builders as B
 from .ir import ColumnRef, Const, Expr, Func
-from .. import HOST_BASE, unported
-
-
-def _jsonfns(name: str):
-    """The JSON helper ``name`` of utils/jsonfns, which the port does not
-    have yet: raises."""
-    raise unported(f"the JSON function helper {name}", HOST_BASE)
 
 K = dt.TypeKind
 
@@ -298,48 +291,48 @@ def _str_valued_impl(op: str, consts: list):
     if op == "reverse":
         return lambda v: v[::-1]
     if op == "json_extract":
-        extract = _jsonfns("extract")
+        from ..utils.jsonfns import extract
         path = str(consts[0])
         return lambda v: extract(v, path)
     if op == "json_unquote":
-        unquote = _jsonfns("unquote")
+        from ..utils.jsonfns import unquote
         return unquote
     if op == "json_type":
-        jtype = _jsonfns("jtype")
+        from ..utils.jsonfns import jtype
         return jtype
     if op in ("json_set", "json_insert", "json_replace"):
-        modify = _jsonfns("modify")
+        from ..utils.jsonfns import modify
         mode = op[5:]
         return lambda v: modify(v, mode, *consts)
     if op == "json_remove":
-        remove = _jsonfns("remove")
+        from ..utils.jsonfns import remove
         return lambda v: remove(v, *consts)
     if op == "json_keys":
-        keys = _jsonfns("keys")
+        from ..utils.jsonfns import keys
         path = str(consts[0]) if consts else "$"
         return lambda v: keys(v, path)
     if op == "json_search":
-        search = _jsonfns("search")
+        from ..utils.jsonfns import search
         one_all, target = str(consts[0]), str(consts[1])
         rest = consts[2:]              # [escape[, path...]]
         return lambda v: search(v, one_all, target, *rest)
     if op == "json_merge_patch":
-        merge_patch = _jsonfns("merge_patch")
+        from ..utils.jsonfns import merge_patch
         return lambda v: merge_patch(v, *consts)
     if op in ("json_merge_preserve", "json_merge"):
-        merge_preserve = _jsonfns("merge_preserve")
+        from ..utils.jsonfns import merge_preserve
         return lambda v: merge_preserve(v, *consts)
     if op == "json_array_append":
-        array_append = _jsonfns("array_append")
+        from ..utils.jsonfns import array_append
         return lambda v: array_append(v, *consts)
     if op == "json_pretty":
-        pretty = _jsonfns("pretty")
+        from ..utils.jsonfns import pretty
         return pretty
     if op == "json_quote":
-        quote = _jsonfns("quote")
+        from ..utils.jsonfns import quote
         return quote
     if op == "json_value":
-        value_at = _jsonfns("value_at")
+        from ..utils.jsonfns import value_at
         path = str(consts[0])
         return lambda v: value_at(v, path)
     if op == "uuid_to_bin":
@@ -659,7 +652,7 @@ def fold_string_func(e: Expr) -> Optional[Const]:
         return Const(e.dtype, "".join(str(v) for v in vals))
     if e.op in STRING_INT_FUNCS:
         if e.op in ("json_valid", "json_length", "json_contains"):
-            jsonfns = _jsonfns("jsonfns")
+            from ..utils import jsonfns
             if e.op == "json_valid":
                 r = jsonfns.valid(str(vals[0]))
             elif e.op == "json_length":
@@ -1155,18 +1148,18 @@ def _str_int_impl(op: str, consts: list):
         return lambda v, rx=rx: (
             (m.start() + 1) if (m := rx.search(v)) else 0)
     if op == "json_depth":
-        depth = _jsonfns("depth")
+        from ..utils.jsonfns import depth
         return depth
     if op == "json_contains_path":
-        contains_path = _jsonfns("contains_path")
+        from ..utils.jsonfns import contains_path
         one_all = str(consts[0]) if consts else "one"
         paths = [str(c) for c in consts[1:]]
         return lambda v: contains_path(v, one_all, *paths)
     if op == "json_storage_size":
-        storage_size = _jsonfns("storage_size")
+        from ..utils.jsonfns import storage_size
         return storage_size
     if op == "json_overlaps":
-        overlaps = _jsonfns("overlaps")
+        from ..utils.jsonfns import overlaps
         other = str(consts[0]) if consts else "null"
         return lambda v: overlaps(v, other)
     if op == "is_uuid":
@@ -1283,7 +1276,7 @@ def _lower_str_int(e: Func, args, dicts) -> Optional[Expr]:
         vals = [fn(v) for v in d.values]
         return _derived_ilut_nullable(e.dtype, col, vals)
     if e.op in ("json_valid", "json_length", "json_contains"):
-        jsonfns = _jsonfns("jsonfns")
+        from ..utils import jsonfns
         col = args[0]
         d = _dict_for(col, dicts)
         if d is None:

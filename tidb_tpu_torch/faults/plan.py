@@ -262,14 +262,23 @@ class FaultPlan:
                 fault = _KIND_EXC[r.kind](seam, key)
                 break
         if fault is not None:
-            # the JAX package also marks the injection on the statement's
-            # trace (obs/, not ported: Queue 1 entry 12)
             from ..utils.metrics import global_registry
             global_registry().counter(
                 "tidb_tpu_faults_injected_total",
                 "faults injected by the armed FaultPlan",
                 labels=("seam", "kind")).inc(seam=fault.seam,
                                              kind=fault.kind())
+            # copscope: statement-thread seams (dispatch/transfer) mark
+            # the injection on the active trace; drain-thread seams
+            # have no context here — their injections surface through
+            # the scheduler's retry/fail span error labels instead
+            from ..obs.trace import current as _obs_current
+            ctx = _obs_current()
+            if ctx is not None:
+                import time as _time
+                now = _time.perf_counter_ns()
+                ctx.add("fault.inject", now, now, seam=fault.seam,
+                        kind=fault.kind())
             raise fault
 
     def backoff_rng(self):

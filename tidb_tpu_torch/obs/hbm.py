@@ -1,39 +1,72 @@
 # ported from tidb_tpu/obs/hbm.py @ 02e96d8
-"""copgauge: the live device-memory ledger the scheduler's drain reads.
+"""copgauge: the live device-memory ledger, its reconciliation with the
+card's own memory counters, and the on-demand profiler capture.
 
-Of the JAX package's ``obs/`` the port holds this one part: the
-per-device ledger (``ledger_for``) that the drain credits at launch
-admission (``launch_begin``), debits at finish (``launch_end``) and
-feeds each launch's measured peak (``note_measured``).  On the card the
-measured peak of a launch is ``torch.cuda.max_memory_allocated`` around
-it, taken by the scheduler; ``device_memory_stats`` reads the card's
-total memory, which the admission budget derives from (analysis/copcost
-``mesh_hbm_budget``).  The CPU reports none.
+Reference analog: the executor memory tracker tree of the reference
+engine (util/memory Tracker feeding quota actions, PAPER.md) — per-query
+memory is TRACKED while it is resident, not predicted once and
+forgotten.  The per-device ledger (``ledger_for``) is credited by the
+scheduler's drain at launch admission (``launch_begin``), debited at
+finish (``launch_end``) and fed each launch's measured peak
+(``note_measured``: ``torch.cuda.max_memory_allocated`` around it, taken
+by the scheduler).  ``reconcile`` compares the ledger with the card's
+allocator at a bounded rate (``RECONCILE_MIN_S``), from the status
+routes, never from the drain.  ``device_memory_stats`` is the one raw
+device memory poll of the port (``torch.cuda.memory_stats`` and
+``mem_get_info``); the admission budget (analysis/copcost
+``mesh_hbm_budget``) derives from its ``bytes_limit``.  The CPU reports
+none, and the ledger runs alone there.
 
-The rest of ``obs/`` (the statement spans, the flight recorder, the
-roofline store, the ``/hbm`` and ``/profile`` routes) comes with the
-control and observability planes (ROADMAP.md, Queue 1 entry 12).
+The JAX package's ledger also tracks the snapshot residents through the
+lifetime analysis's weakref registry (ROADMAP.md, Queue 1 entry 11); the
+port's accounts the launches in flight and the measured peaks.
+
+The module also owns the ``/profile?ms=N`` capture gate (sysvar
+``tidb_tpu_profile``): one ``torch.profiler`` capture at a time, CPU and
+CUDA activities on the card, CPU alone on the CPU, exported as a Chrome
+trace into the capture directory when its timer stops it.
 """
 
 from __future__ import annotations
 
+import os
 import threading
+import time
 from collections import deque
 from typing import Optional
 
+# reconcile against the device's memory stats at most this often — the
+# poll builds the allocator's stats and must NEVER ride the launch path
+RECONCILE_MIN_S = 0.5
 # recent per-launch measured peaks kept for the stats (bounded ring)
 MEASURED_RING = 64
+# /profile capture bounds (ms): a zero-length capture is useless, an
+# unbounded one fills the disk with trace events
+PROFILE_MIN_MS = 10
+PROFILE_MAX_MS = 60_000
+# the Chrome trace a capture exports into its directory
+PROFILE_TRACE = "trace.json"
 
 
 def device_memory_stats(devices) -> Optional[dict]:
-    """``bytes_limit``, the memory of the card behind ``devices`` (a tuple
-    of torch devices), or None on the CPU, which reports nothing."""
+    """Raw memory stats of the card behind ``devices`` (a tuple of torch
+    devices), or None on the CPU, which reports nothing: ``bytes_limit``
+    (the card's memory), ``bytes_free`` (``mem_get_info``), and the
+    caching allocator's ``bytes_in_use``, ``peak_bytes_in_use`` and
+    ``bytes_reserved`` (``memory_stats``)."""
     dev = devices[0] if devices else None
     if getattr(dev, "type", None) != "cuda":
         return None
     import torch
-    return {"bytes_limit": int(
-        torch.cuda.get_device_properties(dev).total_memory)}
+    free, total = torch.cuda.mem_get_info(dev)
+    stats = torch.cuda.memory_stats(dev)
+    return {"bytes_limit": int(total), "bytes_free": int(free),
+            "bytes_in_use": int(stats.get("allocated_bytes.all.current",
+                                          0)),
+            "peak_bytes_in_use": int(stats.get("allocated_bytes.all.peak",
+                                               0)),
+            "bytes_reserved": int(stats.get("reserved_bytes.all.current",
+                                            0))}
 
 
 class HbmLedger:
@@ -60,6 +93,8 @@ class HbmLedger:
         self.measured_launches = 0     # launches with a measured peak
         self.negative_events = 0       # clamped would-be-negative balances
         self._measured_ring: deque = deque(maxlen=MEASURED_RING)
+        self._recon_ts = 0.0
+        self._recon: Optional[dict] = None
         from ..utils.metrics import global_registry
         reg = global_registry()
         self._m_resident = reg.gauge(
@@ -106,10 +141,46 @@ class HbmLedger:
         self._m_resident.set(self.inflight_bytes)
         self._m_watermark.set(self.watermark_bytes)
 
+    # ---- reconciliation (bounded poll, never the launch path) ------- #
+
+    def reconcile(self, mesh, force: bool = False) -> Optional[dict]:
+        """Compare the ledger against the card's own view where one
+        exists.  Rate-limited to RECONCILE_MIN_S; called from status
+        routes, NEVER from the drain.  Returns the last reconciliation
+        record (None on the CPU).  The logical devices of ``mesh`` share
+        one card, so its counters count once a physical device."""
+        now = time.monotonic()
+        with self._mu:
+            due = force or (now - self._recon_ts >= RECONCILE_MIN_S)
+            if due:
+                self._recon_ts = now
+        if due and mesh is not None:
+            stats = device_memory_stats(mesh)
+            if stats is not None:
+                n_dev = len({(d.type, d.index) for d in mesh})
+                in_use = stats["bytes_in_use"] * n_dev
+                with self._mu:
+                    self._recon = {
+                        "device_bytes_in_use": in_use,
+                        "ledger_bytes": self.inflight_bytes,
+                        "drift_bytes": in_use - self.inflight_bytes,
+                        "peak_bytes_in_use":
+                            stats["peak_bytes_in_use"] * n_dev,
+                        "bytes_limit": stats["bytes_limit"] * n_dev,
+                    }
+        with self._mu:
+            return dict(self._recon) if self._recon is not None else None
+
+    @property
+    def resident_bytes(self) -> int:
+        with self._mu:
+            return self.inflight_bytes
+
     def stats(self) -> dict:
         with self._mu:
             return {
                 "inflight_bytes": self.inflight_bytes,
+                "resident_bytes": self.inflight_bytes,
                 "watermark_bytes": self.watermark_bytes,
                 "max_measured_bytes": self.max_measured_bytes,
                 "last_measured_bytes": self.last_measured_bytes,
@@ -117,6 +188,7 @@ class HbmLedger:
                 "measured_launches": self.measured_launches,
                 "negative_events": self.negative_events,
                 "measured_recent": list(self._measured_ring)[-8:],
+                "reconciled": self._recon,
             }
 
 
@@ -144,5 +216,126 @@ def all_ledgers() -> list:
         return list(_LEDGERS.values())
 
 
-__all__ = ["HbmLedger", "ledger_for", "all_ledgers", "device_memory_stats",
-           "MEASURED_RING"]
+def hbm_status() -> dict:
+    """The ledger half of the ``/hbm`` status route."""
+    leds = all_ledgers()
+    return {
+        "ledgers": [led.stats() for led in leds],
+        "resident_bytes": sum(led.resident_bytes for led in leds),
+        "watermark_bytes": max(
+            (led.watermark_bytes for led in leds), default=0),
+    }
+
+
+# ------------------------------------------------------------------ #
+# on-demand profiler capture (/profile?ms=N)
+# ------------------------------------------------------------------ #
+
+class ProfilerGate:
+    """One-at-a-time ``torch.profiler`` capture.  ``start`` refuses
+    while a capture is active (two profilers cannot run in one process);
+    the capture runs on a thread of its own, which starts the profiler,
+    holds it for ``ms`` and stops it, so start and stop share a thread.
+    Stopping exports the Chrome trace (``PROFILE_TRACE``) into the
+    capture directory; a failed stop still releases the gate."""
+
+    def __init__(self):
+        self._mu = threading.Lock()
+        self.active = False
+        self.dir = ""
+        self.trace = ""
+        self.captures = 0
+        self.last_error = ""
+
+    def start(self, ms: int, base_dir: str = "", cuda: bool = False) -> dict:
+        """Start one capture of ``ms`` milliseconds into ``base_dir`` (a
+        new temporary directory when empty); ``cuda`` records the card's
+        activity beside the CPU's.  Answers ``started`` or ``refused``
+        with the error."""
+        ms = min(max(int(ms), PROFILE_MIN_MS), PROFILE_MAX_MS)
+        with self._mu:
+            if self.active:
+                return {"refused": "a profiler capture is already "
+                                   "active", "dir": self.dir}
+            self.active = True
+        try:
+            import tempfile
+            d = base_dir or tempfile.mkdtemp(prefix="tidb-tpu-profile-")
+            os.makedirs(d, exist_ok=True)
+        except OSError as e:
+            return self._refuse(e)
+        started = threading.Event()
+        box: dict = {}
+        t = threading.Thread(target=self._capture,
+                             args=(ms, d, cuda, started, box),
+                             name="profile-capture", daemon=True)
+        t.start()
+        started.wait()
+        if "error" in box:
+            return self._refuse(box["error"])
+        with self._mu:
+            self.dir = d
+            self.trace = ""
+            self.captures += 1
+        return {"started": True, "dir": d, "ms": ms,
+                "activities": box["activities"]}
+
+    def _refuse(self, e: BaseException) -> dict:
+        with self._mu:
+            self.active = False
+            self.last_error = f"{type(e).__name__}: {e}"
+        return {"refused": f"profiler unavailable: {self.last_error}"}
+
+    def _capture(self, ms: int, d: str, cuda: bool,
+                 started: threading.Event, box: dict) -> None:
+        try:
+            import torch
+            acts = [torch.profiler.ProfilerActivity.CPU]
+            if cuda:
+                acts.append(torch.profiler.ProfilerActivity.CUDA)
+            prof = torch.profiler.profile(activities=acts)
+            prof.start()
+        except Exception as e:  # noqa: BLE001 - capability probe: the
+            # route answers `refused` with the error, never a 500
+            box["error"] = e
+            started.set()
+            return
+        box["activities"] = [a.name for a in acts]
+        started.set()
+        try:
+            time.sleep(ms / 1000.0)
+            prof.stop()
+            path = os.path.join(d, PROFILE_TRACE)
+            prof.export_chrome_trace(path)
+            with self._mu:
+                self.trace = path
+        except Exception as e:  # noqa: BLE001 - a failed stop must
+            # still release the gate or no capture could ever run again
+            with self._mu:
+                self.last_error = f"{type(e).__name__}: {e}"
+        finally:
+            with self._mu:
+                self.active = False
+
+    def stats(self) -> dict:
+        with self._mu:
+            return {"active": self.active, "dir": self.dir,
+                    "trace": self.trace, "captures": self.captures,
+                    "last_error": self.last_error}
+
+
+_GATE: Optional[ProfilerGate] = None
+_GATE_MU = threading.Lock()
+
+
+def profiler_gate() -> ProfilerGate:
+    global _GATE
+    with _GATE_MU:
+        if _GATE is None:
+            _GATE = ProfilerGate()
+        return _GATE
+
+
+__all__ = ["HbmLedger", "ledger_for", "all_ledgers", "hbm_status",
+           "device_memory_stats", "ProfilerGate", "profiler_gate",
+           "RECONCILE_MIN_S", "MEASURED_RING", "PROFILE_TRACE"]

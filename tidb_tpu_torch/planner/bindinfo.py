@@ -47,6 +47,10 @@ class BindManager:
             return self._bindings.pop(d, None) is not None
 
     def match(self, sql: str) -> Optional[Binding]:
+        if not self._bindings:
+            # no binding to match: skip the digest, which every
+            # statement would otherwise pay twice (session and global)
+            return None
         with self._lock:
             b = self._bindings.get(normalize_sql(sql))
         return b if b is not None and b.status == "enabled" else None

@@ -23,7 +23,6 @@ from ..sql import ast as A
 from ..types import dtypes as dt
 from ..types import temporal as tmp
 from ..copr.aggregate import sum_out_dtype
-from ..expr.lower_strings import _jsonfns
 from .logical import (AggItem, CTEStorage, DataSource, LogicalAggregate,
                       LogicalCTEScan, LogicalExpand, LogicalJoin,
                       LogicalLimit, LogicalPlan, LogicalProjection,
@@ -674,7 +673,11 @@ class ExprBuilder:
             if path_pos is not None and path_pos < len(args) \
                     and isinstance(args[path_pos], Const) \
                     and isinstance(args[path_pos].value, str):
-                _jsonfns("parse_path")
+                from ..utils.jsonfns import JSONPathError, parse_path
+                try:
+                    parse_path(args[path_pos].value)
+                except JSONPathError as e:
+                    raise PlanError(str(e))
             return self._str_func(name.lower(), *args)
         if name in ("JSON_SET", "JSON_INSERT", "JSON_REPLACE",
                     "JSON_REMOVE", "JSON_KEYS", "JSON_SEARCH",
@@ -699,12 +702,14 @@ class ExprBuilder:
                     raise PlanError(f"{name} supports constant arguments")
                 vals.append(a)
             if name == "JSON_ARRAY":
-                return B.lit(_jsonfns("_dump")([_jval(v) for v in vals]))
+                from ..utils.jsonfns import _dump
+                return B.lit(_dump([_jval(v) for v in vals]))
             if len(vals) % 2:
                 raise PlanError("JSON_OBJECT needs key/value pairs")
+            from ..utils.jsonfns import _dump
             obj = {str(vals[i].value): _jval(vals[i + 1])
                    for i in range(0, len(vals), 2)}
-            return B.lit(_jsonfns("_dump")(obj))
+            return B.lit(_dump(obj))
         if name in ("UUID_TO_BIN", "BIN_TO_UUID", "INET6_ATON",
                     "INET6_NTOA", "COMPRESS", "UNCOMPRESS", "IS_UUID",
                     "ORD"):

@@ -55,12 +55,25 @@ its count of logical devices, sched/task ``mesh_fingerprint``):
 
 Queue-wait, launch, coalesce and fusion stats feed utils/metrics, the
 /sched status route, the statement's QueryHandle (``note_sched``) and
-the calibration store (analysis/calibrate).  The JAX package's drain
-also records spans (obs/: ROADMAP.md, Queue 1 entry 12; the port's
-tasks carry no trace, so ``_trace_launch`` keeps only the latency
-histograms), warms predicted fused variants in the background (a port
-program costs no compile to hide), and feeds the roofline store and
-the coordination plane (entry 12).
+the calibration store (analysis/calibrate).  For a traced task (its
+statement's ``obs/trace`` context, captured at submit) the drain
+records the ``sched.queue``, ``sched.launch`` (with ``sched.compile``
+and ``sched.fusion`` children), ``sched.retry`` and marker spans into
+the statement's tree BEFORE it finishes the task, so a waiter that
+renders its tree right after ``wait()`` sees them.  Warm launches feed
+the roofline store (obs/roofline).  On the card a launch's host wall is
+its enqueue: the drain records a CUDA event on the lead stream before
+the launch beside ``launched`` after it (``LaunchTiming``), and the
+launch's device time is read from the two once both have completed —
+at the drain's next pickup, or by the waiter after its transfer — and
+then annotates ``device_ms`` on each traced ``sched.launch`` span and
+feeds the roofline store; no synchronize on the drain.  On the CPU the
+roofline reads the drain's wall, as in the JAX package.  The
+calibration store keeps the drain's wall on both (an enqueue on the
+card: ROADMAP.md, Queue 2).  The JAX package's drain also warms
+predicted fused variants in the background (a port program costs no
+compile to hide) and feeds the coordination plane (ROADMAP.md, Queue 1
+entry 12).
 
 The drain thread starts lazily on first submit, exits after
 ``IDLE_EXIT_S`` idle, and an ``atexit`` hook stops every drain (failing
@@ -118,6 +131,69 @@ ADMIT_MEMO_CAP = 256
 # launch; each read builds the allocator's stats) is taken for at most
 # one launch in this many seconds
 MEM_SAMPLE_S = 0.5
+# launches on the card whose device time is not read yet (CUDA events
+# still pending): a bounded ring — an overflowing one drops its oldest
+TIMING_PENDING_CAP = 256
+
+
+class LaunchTiming:
+    """The device time of one launch on the card: ``start``, a CUDA
+    event the drain records on the lead stream before the launch, and
+    ``end``, the ``launched`` event after it.  ``settle`` reads the time
+    once both events have completed (``Event.query``, never a
+    synchronize), then annotates ``device_ms`` on the traced tasks'
+    ``sched.launch`` spans and hands the launch's members and the time,
+    split by the drain's weights, to ``observe`` (the roofline feed).
+    ``members`` are ``_RoofMember``s, not the tasks: a pending record
+    must not keep a streamed batch's input tensors alive.  Idempotent
+    and thread-safe: the drain and the waiter may both call it."""
+
+    __slots__ = ("start", "end", "members", "weights", "spans", "observe",
+                 "device_ns", "_mu")
+
+    def __init__(self, start, end, members: list, weights: list, observe):
+        self.start = start
+        self.end = end
+        self.members = members
+        self.weights = weights
+        self.spans: list = []        # (SpanTree, sched.launch span id)
+        self.observe = observe
+        self.device_ns = 0           # 0 until settled
+        self._mu = threading.Lock()
+
+    def settle(self) -> bool:
+        """True once the device time is read (now or before)."""
+        with self._mu:
+            if self.device_ns:
+                return True
+            if not self.end.query():
+                return False
+            self.device_ns = max(
+                int(self.start.elapsed_time(self.end) * 1e6), 1)
+            spans, members = self.spans, self.members
+            self.spans, self.members = [], []
+        device_ms = round(self.device_ns / 1e6, 3)
+        for tree, sid in spans:
+            tree.annotate(sid, device_ms=device_ms)
+        self.observe(members, split_device_time(self.weights,
+                                                self.device_ns))
+        return True
+
+
+class _RoofMember:
+    """What the roofline feed reads of one served task: its program, its
+    static cost, its device tuple, its measured peak and whether its
+    launch built the program."""
+
+    __slots__ = ("dag", "cost_static", "mesh", "hbm_measured",
+                 "compile_miss")
+
+    def __init__(self, t):
+        self.dag = t.dag
+        self.cost_static = t.cost_static
+        self.mesh = t.mesh
+        self.hbm_measured = t.hbm_measured
+        self.compile_miss = t.compile_miss
 # deadline-aware early shedding: a submit whose corrected-cost backlog
 # (sum of the queue's measured expected service times) already exceeds
 # this is rejected 9003 at the queue head — and an rc-limited waiter
@@ -189,6 +265,9 @@ class DeviceScheduler:
         self.hbm_enable = True
         self._ledger_obj = None
         self._mem_sampled = 0.0           # monotonic s of the last measure
+        # launches on the card whose device time is still to be read
+        # (drain thread only)
+        self._timings: deque = deque(maxlen=TIMING_PENDING_CAP)
         # launch supervision: per-digest circuit breaker consulted at
         # submit, transient-retry budget spent at the drain;
         # _retry_sleep is the Backoffer sleep seam (tests)
@@ -508,6 +587,14 @@ class DeviceScheduler:
         bookkeeping drift can never wedge admission)."""
         self._backlog_ns = max(self._backlog_ns - task.svc_ns, 0)
 
+    def _member_weights(self, tasks: list) -> list:
+        """The weights a launch's time splits by across its members: the
+        lead's peak (the shared scan is the lead's), each rider's
+        marginal bytes."""
+        lead = tasks[0]
+        return [lead.cost.peak_hbm_bytes if lead.cost is not None else 0] \
+            + [self._marginal_bytes(t, lead) for t in tasks[1:]]
+
     @staticmethod
     def _marginal_bytes(t: CopTask, lead: CopTask) -> int:
         """Bytes a rider ADDS to lead's launch: its payload only when it
@@ -537,6 +624,10 @@ class DeviceScheduler:
                 with self._mu:
                     self.quarantined += 1
                 self._m_quar.inc()
+                self._trace_mark(task, "sched.quarantine",
+                                 digest=f"{task.key[0] & ((1 << 64) - 1):016x}")
+                if task.trace is not None:
+                    task.trace.tree.flag("quarantined")
                 raise
         # rc pricing in the submitting thread: structured tasks from the
         # LaunchCost the gate just computed, opaque ones from their row
@@ -683,6 +774,11 @@ class DeviceScheduler:
                     self._backlog_sub_locked(t)
                     self.rc_exhausted += 1
                     self._m_rc_exhaust.inc(group=g.name)
+                    if t.trace is not None:
+                        # the waiter never launched: its whole life was
+                        # queue wait — record it with the expiry marked
+                        t.trace.add("sched.queue", t.submit_ns, now,
+                                    group=g.name, expired=True)
                     t.fail(ResourceExhaustedError(
                         t.group, (now - t.submit_ns) / 1e9, t.rus))
                     expired = True
@@ -893,6 +989,8 @@ class DeviceScheduler:
                     # submits still notify the condition
                     self._cv.wait(timeout=RC_RETRY_S)
             idle_since = time.monotonic()
+            if self._timings:
+                self._settle_timings()
             if not batch or batch == [None]:
                 continue
             now = time.perf_counter_ns()
@@ -949,17 +1047,51 @@ class DeviceScheduler:
             yield
 
     @staticmethod
-    def _mark_launched(tasks: list) -> None:
+    def _device_mark(lead):
+        """A CUDA event recorded on the current (the lead's) stream just
+        before a launch, the start of its device time; None off the
+        card."""
+        if lead.stream is None:
+            return None
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record(torch.cuda.current_stream(lead.mesh[0]))
+        return ev
+
+    @staticmethod
+    def _mark_launched(tasks: list):
         """Record the launch's end on the current (the lead's) stream for
-        the waiters, BEFORE they are finished."""
+        the waiters, BEFORE they are finished; returns the event (None
+        off the card)."""
         lead = tasks[0]
         if lead.stream is None:
-            return
+            return None
         stream = torch.cuda.current_stream(lead.mesh[0])
-        ev = torch.cuda.Event()
+        ev = torch.cuda.Event(enable_timing=True)
         ev.record(stream)
         for t in tasks:
             t.launched = (ev, stream)
+        return ev
+
+    def _launch_timing(self, tasks: list, start, end):
+        """The device-time record of a launch on the card (``start``
+        before it, ``end`` after it), stamped on its tasks and queued
+        for the drain's next pickup; None off the card."""
+        if start is None or end is None:
+            return None
+        timing = LaunchTiming(start, end, [_RoofMember(t) for t in tasks],
+                              self._member_weights(tasks),
+                              self._observe_roofline_safe)
+        for t in tasks:
+            t.timing = timing
+        self._timings.append(timing)
+        return timing
+
+    def _settle_timings(self) -> None:
+        """Read the device time of every pending launch whose events have
+        completed (drain thread, at pickup; never a synchronize)."""
+        keep = [t for t in self._timings if not t.settle()]
+        self._timings.clear()
+        self._timings.extend(keep)
 
     def _ledger(self, mesh):
         """This device tuple's live HBM ledger; None when it is off."""
@@ -1048,14 +1180,97 @@ class DeviceScheduler:
         s = getattr(dag, "strategy", None)
         return getattr(s, "value", None) if s is not None else None
 
-    def _trace_launch(self, tasks: list, start_ns: int, end_ns: int) -> None:
-        """One physical launch's latency histograms.  The JAX package
-        also records the launch's spans here for traced tasks; the
-        port's tasks carry no trace (ROADMAP.md, Queue 1 entry 12)."""
+    @staticmethod
+    def _err_label(e: BaseException) -> str:
+        return f"{type(e).__name__}: {str(e)[:80]}"
+
+    @staticmethod
+    def _trace_mark(t, name: str, **attrs) -> None:
+        """Zero-duration marker span on one task's trace (oom / bisect
+        / quarantine / fail seams); no-op when untraced."""
+        if t.trace is not None:
+            now = time.perf_counter_ns()
+            t.trace.add(name, now, now, **attrs)
+
+    def _trace_launch(self, tasks: list, start_ns: int, end_ns: int,
+                      mode: str, fused: int = 0, timing=None) -> None:
+        """Record one physical launch's scheduler-side span tree +
+        latency histograms, on the DRAIN thread BEFORE the tasks
+        finish — a waiter rendering its trace right after wait()
+        always sees these spans (no post-finish race).
+
+        Per traced task: a ``sched.queue`` span (submit -> drain
+        pickup; rc debit rides it as the ``ru`` attr) and a
+        ``sched.launch`` span (resolve + launch) carrying predicted_ms
+        (calibrated LaunchCost) vs measured_ms (the drain's wall: on the
+        card the enqueue) and device_ms (on the card annotated from the
+        launch's CUDA events once ``timing`` settles; on the CPU the
+        wall), the memory axis, and — as children — the ``sched.compile``
+        span (hit/miss) and the ``sched.fusion`` assembly span with the
+        member count and this member's attributed share."""
         wall_ms = (end_ns - start_ns) / 1e6
         self._m_launch_ms.observe(wall_ms)
         for strat in {self._strategy_of(t.dag) for t in tasks} - {None}:
             self._m_agg_ms.observe(wall_ms, strategy=strat)
+        if all(t.trace is None for t in tasks):
+            return
+        shares = None
+        if fused > 1 or len(tasks) > 1:
+            shares = split_device_time(self._member_weights(tasks),
+                                       end_ns - start_ns)
+        from ..analysis.calibrate import predict_ms
+        for i, t in enumerate(tasks):
+            ctx = t.trace
+            if ctx is None:
+                continue
+            attrs = {"mode": mode, "measured_ms": round(wall_ms, 3)}
+            if timing is None:
+                attrs["device_ms"] = round(wall_ms, 3)
+            if t.cost is not None:
+                attrs["predicted_ms"] = round(predict_ms(t.cost), 3)
+                bd = t.cost.transfer_breakdown or (0, 0, 0)
+                if bd[1] or bd[2]:
+                    attrs["ici_bytes"], attrs["dci_bytes"] = bd[1], bd[2]
+            # the memory axis of the launch span — the admission
+            # prediction next to the measured peak
+            if t.hbm_predicted:
+                attrs["hbm_predicted"] = t.hbm_predicted
+            if t.hbm_measured:
+                attrs["hbm_measured"] = t.hbm_measured
+            strat = self._strategy_of(t.dag)
+            if strat is not None:
+                attrs["strategy"] = strat
+            if t.retries:
+                attrs["retries"] = t.retries
+            items = [
+                ("sched.queue", t.submit_ns, t.start_ns, ctx.span_id,
+                 {"group": t.group, "ru": round(t.rus_charged, 2)}),
+                ("sched.launch", start_ns, end_ns, ctx.span_id, attrs),
+            ]
+            if t.compile_ns:
+                items.append((
+                    "sched.compile", start_ns, start_ns + t.compile_ns,
+                    ("rel", 1),
+                    {"result": "miss" if t.compile_miss else "hit"}))
+            if fused > 1:
+                fat = {"members": fused}
+                if shares is not None:
+                    fat["share_ms"] = round(shares[i] / 1e6, 3)
+                items.append(("sched.fusion", t.start_ns, start_ns,
+                              ("rel", 1), fat))
+            sids = ctx.tree.add_batch(items)
+            if timing is not None:
+                timing.spans.append((ctx.tree, sids[1]))
+
+    def _trace_retry(self, tasks: list, err: BaseException,
+                     start_ns: int, end_ns: int) -> None:
+        """One transient-failure backoff cycle: a real span covering
+        the retry sleep, per affected waiter."""
+        label = self._err_label(err)
+        for t in tasks:
+            if t.trace is not None:
+                t.trace.add("sched.retry", start_ns, end_ns,
+                            attempt=t.retries, error=label)
 
     # ------------------------------------------------------------- #
     # launch supervision
@@ -1127,6 +1342,7 @@ class DeviceScheduler:
                 if self._is_transient(e):
                     if bo is None:
                         bo = self._launch_backoffer()
+                    retry_t0 = time.perf_counter_ns()
                     try:
                         bo.backoff(DEVICE_FAILED, e)
                     except RetryBudgetExceeded as budget:
@@ -1138,6 +1354,8 @@ class DeviceScheduler:
                     self._m_retried.inc(len(live))
                     for t in live:
                         t.retries += 1
+                    self._trace_retry(live, e, retry_t0,
+                                      time.perf_counter_ns())
                     continue
                 self._isolate([t for t in batch if not t.done], e)
                 return
@@ -1171,6 +1389,10 @@ class DeviceScheduler:
         OOM ladder (streamed batches).  The breaker is NEVER charged."""
         self.oom_faults += 1
         self._m_oom.inc()
+        for t in live:
+            self._trace_mark(t, "sched.oom", error=self._err_label(err))
+            if t.trace is not None:
+                t.trace.tree.flag("oom")
         if self.calibration_enable:
             from ..analysis.calibrate import correction_store
             store = correction_store()
@@ -1205,10 +1427,14 @@ class DeviceScheduler:
                     # restart: purge the digest's manifest entries
                     self._cc_quarantine(d, live)
             for t in live:
+                self._trace_mark(t, "sched.fail",
+                                 error=self._err_label(err))
                 t.fail(err)
             return
         self.bisected_launches += 1
         self._m_bisect.inc()
+        for t in live:
+            self._trace_mark(t, "sched.bisect", members=len(subs))
         for sub in subs:
             self._serve_supervised(sub)
 
@@ -1240,12 +1466,16 @@ class DeviceScheduler:
         self._m_launch_bytes.set(est)
 
     def _finish(self, tasks: list, value_of, t_l0: int,
-                before: tuple) -> None:
-        """Stamp a launch's measured peak, histograms and ``launched``
-        event on its tasks, then finish each with ``value_of(task)``."""
+                before: tuple, mode: str, start=None,
+                fused: int = 0) -> None:
+        """Stamp a launch's measured peak, ``launched`` event, device-time
+        record (``start``: the event before the launch) and spans on its
+        tasks, then finish each with ``value_of(task)``."""
         self._mem_note(tasks, before)
-        self._trace_launch(tasks, t_l0, time.perf_counter_ns())
-        self._mark_launched(tasks)
+        end = self._mark_launched(tasks)
+        timing = self._launch_timing(tasks, start, end)
+        self._trace_launch(tasks, t_l0, time.perf_counter_ns(), mode,
+                           fused=fused, timing=timing)
         for t in tasks:
             t.finish(value_of(t))
 
@@ -1256,8 +1486,10 @@ class DeviceScheduler:
             _faults.check("launch")
             before = self._mem_mark([lead])
             t_l0 = time.perf_counter_ns()
+            start = self._device_mark(lead)
             val = lead.fn()
-            self._finish([lead], lambda _t: val, t_l0, before)
+            self._finish([lead], lambda _t: val, t_l0, before, "opaque",
+                         start)
             self.launches += 1
             self._m_launch.inc(mode="single")
             return
@@ -1313,6 +1545,7 @@ class DeviceScheduler:
         else:
             fprog = get_fused_rows_program(
                 fused, lead.mesh, tuple(t.row_capacity for t in members))
+        start = self._device_mark(lead)
         outs = fprog(lead.cols, lead.counts)
         total = sum(len(grp) for grp in programs)
         all_tasks = [t for grp in programs for t in grp]
@@ -1327,7 +1560,8 @@ class DeviceScheduler:
                 t.fused = len(programs)
                 t.coalesced = total
                 out_of[id(t)] = (sprog, out)
-        self._finish(all_tasks, lambda t: out_of[id(t)], t_l0, before)
+        self._finish(all_tasks, lambda t: out_of[id(t)], t_l0, before,
+                     "fused", start, fused=len(programs))
         self.launches += 1
         self.fused_launches += 1
         self.fused_tasks += total
@@ -1370,6 +1604,7 @@ class DeviceScheduler:
                 bprog = get_batched_rows_program(
                     lead.dag, lead.mesh, lead.row_capacity, len(slots))
             before = self._mem_mark(batch)
+            start = self._device_mark(lead)
             outs = bprog([s[0].cols for s in slots],
                          [s[0].counts for s in slots])
             self._cc_note(batch, cc0)
@@ -1378,7 +1613,8 @@ class DeviceScheduler:
                 for t in s:
                     t.coalesced = len(batch)
                     out_of[id(t)] = (prog, out)
-            self._finish(batch, lambda t: out_of[id(t)], t_l0, before)
+            self._finish(batch, lambda t: out_of[id(t)], t_l0, before,
+                         "batched", start)
             self.launches += 1
             self.batched_launches += 1
             if prog.kind == "rows":
@@ -1390,6 +1626,7 @@ class DeviceScheduler:
             t_s0 = t_l0 if first else time.perf_counter_ns()
             first = False
             before = self._mem_mark(s)
+            start = self._device_mark(lead)
             out = prog(s[0].cols, s[0].counts, s[0].aux)
             # cumulative from the group's entry: a later slot DID wait
             # on the earlier slots' (and the lead's) program build
@@ -1397,7 +1634,8 @@ class DeviceScheduler:
             if len(batch) > 1:
                 for t in s:
                     t.coalesced = len(batch)
-            self._finish(s, lambda _t, out=out: (prog, out), t_s0, before)
+            self._finish(s, lambda _t, out=out: (prog, out), t_s0, before,
+                         "coalesced" if len(s) > 1 else "single", start)
             self.launches += 1
             self._m_launch.inc(
                 mode="coalesced" if len(s) > 1 else "single")
@@ -1414,13 +1652,45 @@ class DeviceScheduler:
         weighs what it ADDED — so per-group and per-digest device time
         stays honest under fusion and coalescing."""
         lead = batch[0]
-        weights = [lead.cost.peak_hbm_bytes if lead.cost is not None
-                   else 0]
-        weights += [self._marginal_bytes(t, lead) for t in batch[1:]]
-        for t, ns in zip(batch, split_device_time(weights, wall_ns)):
+        for t, ns in zip(batch, split_device_time(
+                self._member_weights(batch), wall_ns)):
             t.device_ns = ns
         if self.calibration_enable:
             self._observe_launch(batch)
+        if lead.stream is None:
+            # off the card the wall is the device's time (the JAX
+            # package's feed); on the card LaunchTiming feeds the
+            # roofline the launch's CUDA-event time once it settles
+            self._observe_roofline_safe(
+                [_RoofMember(t) for t in batch if not t.failed],
+                [t.device_ns for t in batch if not t.failed])
+
+    def _observe_roofline_safe(self, members: list, times_ns: list) -> None:
+        """Roofline feedback: each warm member's attributed device time
+        and static work terms land in the per-digest utilization store
+        (obs/roofline), classifying the digest memory-/compute-/launch-
+        bound against the device's peak table."""
+        if not self.hbm_enable:
+            return
+        try:
+            self._observe_roofline(members, times_ns)
+        except Exception:   # noqa: BLE001 - pure observability: a
+            # failed attribution must never kill the drain or a waiter
+            pass
+
+    def _observe_roofline(self, members: list, times_ns: list) -> None:
+        from ..obs.roofline import peaks_for_mesh, roofline_store
+        roof = roofline_store()
+        for t, ns in zip(members, times_ns):
+            if ns <= 0 or t.cost_static is None or t.compile_miss:
+                # a launch that built its program measured the build
+                continue
+            digest = self._stable_digest(t)
+            if digest is None:
+                continue
+            roof.observe(digest, t.cost_static, ns,
+                         peaks_for_mesh(t.mesh),
+                         measured_hbm=t.hbm_measured)
 
     def _observe_launch(self, batch: list) -> None:
         """Calibration feedback: each SERVED member's attributed wall

@@ -27,9 +27,14 @@ waiting on every member's ``ready``, records ``launched`` after the
 launch, and a waiter whose stream differs waits on ``launched`` and
 marks the output tensors with ``record_stream`` before it reads them.
 
-The JAX package's task also carries its statement's trace context
-(``obs/trace``); the port's spans come with ROADMAP.md, Queue 1 entry
-12, so ``trace`` is always None and the drain takes its untraced path.
+Tracing: a task captures its submitting statement's trace context
+(``obs/trace.TRACE_CTX``) at construction, as it captures the resource
+group, so the drain thread records the queue, launch, compile, fusion
+and retry spans under the statement's ``cop.dispatch`` span; an untraced
+statement's task carries None and the drain records nothing for it.  A
+launch on the card also carries ``timing``: the drain's CUDA events
+around it, from which the launch's device time is read once both have
+completed (sched/scheduler ``LaunchTiming``).
 """
 
 from __future__ import annotations
@@ -40,6 +45,8 @@ import time
 from typing import Any, Callable, Optional
 
 import torch
+
+from ..obs.trace import TRACE_CTX as _TRACE_CTX
 
 # the submitting statement's (resource group name, fair-share weight,
 # rc ResourceGroup-or-None) — bound by Session.execute around each
@@ -142,7 +149,7 @@ class CopTask:
                  "rus_charged", "device_ns", "deadline_ns", "svc_ns",
                  "retries", "compile_ns", "compile_miss",
                  "hbm_predicted", "hbm_measured", "trace", "stream",
-                 "ready", "launched")
+                 "ready", "launched", "timing")
 
     def __init__(self, *, key=None, dag=None, devices=None,
                  row_capacity=0, cols=None, counts=None, aux=(),
@@ -194,13 +201,19 @@ class CopTask:
                                   # calibrated peak the budget enforced)
         self.hbm_measured = 0     # measured launch peak bytes, set by
                                   # the drain BEFORE finish (0 = none)
-        self.trace = None         # spans: ROADMAP.md, Queue 1 entry 12
+        # copscope trace propagation (obs/): the submitting statement's
+        # TraceCtx rides the task like SCHED_GROUP does, so the drain
+        # thread records queue/compile/launch/retry spans under the
+        # statement's dispatch span — None = untraced, zero overhead
+        self.trace = _TRACE_CTX.get()
         self.stream = _cuda_stream(self.mesh)
         self.ready = None
         if self.stream is not None:
             self.ready = torch.cuda.Event()
             self.ready.record(self.stream)
         self.launched = None      # event after the launch (drain)
+        self.timing = None        # the launch's CUDA-event device time
+                                  # (drain; None off the card)
         self.cancelled = False
         self._done = threading.Event()
         self._value = None

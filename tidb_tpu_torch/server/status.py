@@ -8,11 +8,16 @@ Prometheus-text /metrics endpoint (pkg/metrics scrape surface).
 The port answers the routes whose subsystems it has: ``/status``,
 ``/schema[/<db>[/<table>]]``, ``/stats``, ``/metrics``, ``/settings``,
 ``/regions/meta``, ``/mvcc/key/<db>/<table>/<handle>``, ``/ddl/history``,
-``/schema_version`` and ``/sched`` (the device scheduler's and the
-client's counters, ``CopClient.sched_stats``).  The JAX package's
-``/resource``, ``/pd``, ``/hbm``, ``/locksan``, ``/profile`` and
-``/trace`` read the control and observability planes, which the port
-has not yet: each answers HTTP 501 naming its ROADMAP.md item.
+``/schema_version``, ``/sched`` (the device scheduler's and the
+client's counters, ``CopClient.sched_stats``), and the observability
+plane: ``/trace`` (the flight recorder's index) and ``/trace/<id>``
+(one statement's span tree; ``?fmt=chrome`` the Chrome trace-event
+JSON for ui.perfetto.dev), ``/hbm`` (the memory ledgers reconciled with
+the card, the roofline tables, the calibration's memory counters) and
+``/profile?ms=N`` (a ``torch.profiler`` capture, gated by
+``tidb_tpu_profile``).  The JAX package's ``/resource``, ``/pd`` and
+``/locksan`` read the control plane, which the port has not yet: each
+answers HTTP 501 naming its ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -28,9 +33,7 @@ from ..session.session import Domain
 # routes over subsystems of later slices, by the ROADMAP.md item that
 # ports them
 _UNPORTED_ROUTES = {
-    "/resource": CONTROL, "/pd": CONTROL,
-    "/hbm": CONTROL, "/locksan": CONTROL, "/profile": CONTROL,
-    "/trace": CONTROL,
+    "/resource": CONTROL, "/pd": CONTROL, "/locksan": CONTROL,
 }
 
 
@@ -143,9 +146,74 @@ class StatusServer:
             # counters
             return json.dumps(self.domain.client.sched_stats(),
                               default=str), "application/json"
-        if path in _UNPORTED_ROUTES or path.startswith("/trace/"):
+        if path in _UNPORTED_ROUTES:
             raise unported(f"the status route {path}",
-                           _UNPORTED_ROUTES.get(path, CONTROL))
+                           _UNPORTED_ROUTES[path])
+        if path == "/hbm":
+            # copgauge (obs/hbm + obs/roofline): the device-memory and
+            # utilization plane — live ledger balances (in-flight launch
+            # bytes), measured watermarks, bounded reconciliation with
+            # the card's allocator, per-digest memory prediction error
+            # (mem_factor calibration state), and the roofline tables
+            # (top-N digests by residency and by gap, memory-/compute-/
+            # launch-bound)
+            from ..analysis.calibrate import correction_store
+            from ..obs.hbm import all_ledgers, hbm_status, profiler_gate
+            from ..obs.roofline import roofline_status
+            sched = self.domain.client.sched_stats()
+            for led in all_ledgers():
+                led.reconcile(self.domain.client.devices)
+            cal = correction_store().stats()
+            return json.dumps({
+                "enabled": (sched.get("hbm") or {}).get("enabled", True),
+                "budget_bytes": sched.get("hbm_budget", 0),
+                "last_launch_bytes": sched.get("last_launch_bytes", 0),
+                "budget_admitted": sched.get("budget_admitted", 0),
+                "budget_rejects": sched.get("budget_rejects", 0),
+                **hbm_status(),
+                "calibration": {
+                    "mem_observed": cal.get("mem_observed", 0),
+                    "mean_mem_err_pct": cal.get("mean_mem_err_pct"),
+                    "oom_events": cal.get("oom_events", 0),
+                },
+                "roofline": roofline_status(),
+                "profiler": profiler_gate().stats(),
+            }, default=str), "application/json"
+        if path == "/profile":
+            # on-demand torch.profiler capture (?ms=N): gated by the
+            # tidb_tpu_profile sysvar, refused while one is active —
+            # the Chrome trace lands in the capture directory for
+            # ui.perfetto.dev; the card's activity rides with the CPU's
+            from ..obs.hbm import profiler_gate
+            enabled = bool(int(
+                self.domain.sysvars.get("tidb_tpu_profile", 0) or 0))
+            if not enabled:
+                return json.dumps({
+                    "refused": "profiling disabled; "
+                               "SET GLOBAL tidb_tpu_profile = 1"}), \
+                    "application/json"
+            ms = int(query.get("ms", "1000"))
+            cuda = self.domain.client.devices[0].type == "cuda"
+            return json.dumps(profiler_gate().start(ms, cuda=cuda)), \
+                "application/json"
+        if path == "/trace":
+            # copscope flight recorder (obs/): newest-first index of
+            # retained statement traces (failed/degraded/quarantined/
+            # retried/slow always kept, the rest sampled) + ring stats
+            fr = self.domain.flight_recorder
+            return json.dumps({"stats": fr.stats(),
+                               "traces": fr.index()}), "application/json"
+        if path.startswith("/trace/"):
+            # one statement's full span tree; ?fmt=chrome exports the
+            # Chrome trace-event / Perfetto JSON (load in ui.perfetto.dev
+            # or chrome://tracing)
+            trace_id = path.split("/")[2]
+            tree = self.domain.flight_recorder.get(trace_id)
+            if tree is None:
+                raise KeyError(trace_id)
+            if query.get("fmt") == "chrome":
+                return json.dumps(tree.chrome_trace()), "application/json"
+            return json.dumps(tree.to_dict()), "application/json"
         if path == "/settings":
             # handler/settings analog: live global sysvars
             return json.dumps(dict(sorted(

@@ -10,8 +10,9 @@ parse -> plan -> execute, returning a RecordSet.  The Domain analog
 session.session.Domain.
 
 The port's session runs the JAX package's statements but those of later
-slices: ``SELECT`` (with ``FOR UPDATE``), ``EXPLAIN`` (not ``EXPLAIN
-ANALYZE``), ``SET`` and ``USE``; the write statements over the port's
+slices: ``SELECT`` (with ``FOR UPDATE``), ``EXPLAIN`` and ``EXPLAIN ANALYZE``
+(utils/execdetails), ``TRACE``, ``PLAN REPLAYER DUMP``, ``SET`` and
+``USE``; the write statements over the port's
 own KV row store (``INSERT`` with ``ON DUPLICATE KEY UPDATE``,
 ``REPLACE`` and ``IGNORE``, ``LOAD DATA``, ``UPDATE`` and ``DELETE``
 with ``ORDER BY``/``LIMIT`` and the foreign-key actions); transactions
@@ -27,7 +28,8 @@ plan time, planner/partition_prune.py); in a SELECT, ``WITH ROLLUP``,
 ``SHOW`` kinds ``CREATE TABLE``, ``TABLES``, ``DATABASES``,
 ``COLUMNS``, ``INDEX``, ``STATS_META``, ``STATS_HISTOGRAMS``,
 ``STATS_TOPN``, ``COLLATION``, ``CHARSET``, ``VARIABLES``, ``GRANTS``,
-``PROCESSLIST`` and ``BINDINGS``; users and grants (``CREATE``/``ALTER``/
+``PROCESSLIST``, ``BINDINGS``, ``STATEMENTS_SUMMARY``, ``SLOW_QUERIES``
+and ``STATUS``; users and grants (``CREATE``/``ALTER``/
 ``DROP USER``, ``GRANT``, ``REVOKE``, ``FLUSH``, each statement checked
 against the privilege manager), ``KILL``, ``PREPARE``/``EXECUTE``/
 ``DEALLOCATE``, optimizer hints and ``CREATE``/``DROP BINDING``.  Its
@@ -37,7 +39,15 @@ the join reorder, the index paths and the high-NDV strategy choice read
 the domain's statistics.  The port's ``Domain`` starts with
 ``tidb_enable_auto_analyze = 0`` (the JAX package's default is 1) and
 runs no background stats load, so a session that never runs ANALYZE
-plans as the JAX package's does with auto-analyze off.  A physical plan
+plans as the JAX package's does with auto-analyze off.  Every statement
+is observed as the JAX package's is: with ``tidb_tpu_trace`` on (the
+default) ``execute`` roots a span tree at ``session.ExecuteStmt`` and
+binds ``obs.trace.TRACE_CTX`` for it, so the client's and the
+scheduler drain's spans stitch under it; at the statement's end the
+tree is flagged (``degraded``, ``retried``, ``failed``, ``slow``), the
+domain's ``stmt_summary`` records the statement (its latency, rows, CPU
+time, plan digest and the scheduler's columns from the QueryHandle)
+and its ``flight_recorder`` offers the tree.  A physical plan
 that holds an operator of a later slice (a memtable) raises
 ``NotImplementedError`` naming its ROADMAP.md item, as do every other
 statement kind and the SHOW kinds of later slices.
@@ -45,6 +55,7 @@ statement kind and the SHOW kinds of later slices.
 
 from __future__ import annotations
 
+import sys
 import threading
 import time
 from dataclasses import dataclass, field
@@ -52,10 +63,11 @@ from typing import Any, Optional
 
 import numpy as np
 
-from .. import CONTROL, HOST_BASE, HOST_SURFACE, PLANNER, unported
+from .. import CONTROL, HOST_SURFACE, PLANNER, unported
 from ..copr.coordinator import KILL_EVENT, QUERY_HANDLE, Coordinator
 from ..executor import physical as P
 from ..executor.plan import STATS_HANDLE, to_physical
+from ..obs import trace as _obs_trace
 from ..planner.join_reorder import reorder_joins
 from ..planner.build import (PLAN_TAINTS, SEQUENCE_RESOLVER, SESSION_INFO,
                              SUBQUERY_EXECUTOR, PlanError, build_query)
@@ -157,10 +169,11 @@ class Domain:
     ``KILL``.  ``resource_groups`` holds the resource groups: only
     ``default``, unlimited, whose live object each statement binds for
     the device scheduler (``sched.SCHED_GROUP``); the resource-group
-    statements come with ROADMAP.md, Queue 1 entry 12.  The JAX
-    package's Domain also takes a tenant keyspace and holds the
-    statement summary, DXF and the background workers; the port's has
-    none of them yet (ROADMAP.md, Queue 1)."""
+    statements come with ROADMAP.md, Queue 1 entry 12.
+    ``stmt_summary`` holds the statement summary and the slow log,
+    ``flight_recorder`` the statements' span trees.  The JAX package's
+    Domain also takes a tenant keyspace and holds DXF and the background
+    workers; the port's has none of them yet (ROADMAP.md, Queue 1)."""
 
     def __init__(self, device="cuda", n_devices: int = 1,
                  data_dir: Optional[str] = None, sync: bool = False):
@@ -227,6 +240,13 @@ class Domain:
         self.watch.subscribe("privilege", self._on_privilege_event)
         from ..planner.plan_cache import PlanCache
         self.plan_cache = PlanCache()          # instance plan cache
+        from ..utils.stmtsummary import StmtSummary
+        self.stmt_summary = StmtSummary()   # util/stmtsummary analog
+        # copscope flight recorder (obs/): bounded ring of completed
+        # statement traces — failed/degraded/quarantined/slow always
+        # kept, the rest sampled; served at /trace on the StatusServer
+        from ..obs import FlightRecorder
+        self.flight_recorder = FlightRecorder()
         from ..planner.bindinfo import BindManager
         self.bindings = BindManager()          # GLOBAL plan bindings
         self._sessions = None                  # WeakValueDictionary, lazy
@@ -347,15 +367,8 @@ class Domain:
 
 # statement kinds of later slices, by the ROADMAP.md item that ports them
 _UNPORTED_STMTS = {
-    "TraceStmt": CONTROL, "PlanReplayerDump": CONTROL,
     "CreateResourceGroup": CONTROL, "DropResourceGroup": CONTROL,
     "SetResourceGroup": CONTROL,
-}
-
-# SHOW kinds of later slices, by the ROADMAP.md item that ports them
-_UNPORTED_SHOW = {
-    "statements_summary": HOST_BASE, "slow_queries": HOST_BASE,
-    "status": HOST_BASE,
 }
 
 # physical operators of later slices, by the ROADMAP.md item that ports
@@ -403,6 +416,7 @@ class Session:
         self.bindings = BindManager()            # SESSION plan bindings
         self.prepared: dict[str, tuple[str, int]] = {}  # name -> (sql, n_params)
         self._cur_sql: Optional[str] = None      # text of the running stmt
+        self._last_plan_text = ""                # Top-SQL plan digest
         self.timings: dict = {}
         self.txn = None              # active explicit transaction
         self._txn_tables: set = set()
@@ -456,6 +470,8 @@ class Session:
                     # vice versa after DROP BINDING)
                     self._cur_sql = None
             _plugins.fire("on_stmt_begin", self, text)
+            cpu0 = time.thread_time_ns()    # Top-SQL CPU attribution
+            self._last_plan_text = ""
             self._kill_event.clear()
             handle = self.domain.coordinator.begin(self.conn_id, text)
             ktok = KILL_EVENT.set(self._kill_event)
@@ -478,6 +494,21 @@ class Session:
                 ent = REGISTRY.get(name)
                 return ent.default if ent is not None else None
 
+            # copscope statement trace (obs/): one span tree per
+            # statement, rooted here; the TraceCtx contextvar carries it
+            # into every dispatch so scheduler threads stitch their
+            # spans under it.  Off (tidb_tpu_trace=0) = no tree, no
+            # contextvar, zero recording anywhere.
+            merged_obs = {**self.domain.sysvars, **self.vars}
+            trace_tree = None
+            trace_root = None
+            obs_tok = None
+            if _flag_on(merged_obs, "tidb_tpu_trace", True):
+                trace_tree = _obs_trace.SpanTree(sql=text,
+                                                 conn_id=self.conn_id)
+                trace_root = trace_tree.begin("session.ExecuteStmt")
+                obs_tok = _obs_trace.TRACE_CTX.set(
+                    _obs_trace.TraceCtx(trace_tree, trace_root))
             stok = SESSION_INFO.set({
                 "db": self.db, "user": self.user,
                 "conn_id": self.conn_id,
@@ -504,14 +535,55 @@ class Session:
                 SCHED_GROUP.reset(gtok)
                 QUERY_HANDLE.reset(htok)
                 KILL_EVENT.reset(ktok)
+                if obs_tok is not None:
+                    _obs_trace.TRACE_CTX.reset(obs_tok)
+                    trace_tree.end(trace_root)
+                    trace_tree.latency_ms = \
+                        (time.perf_counter_ns() - t0) / 1e6
+                    if handle.degraded:
+                        trace_tree.flag("degraded")
+                    if handle.sched_retried:
+                        trace_tree.flag("retried")
+                    if sys.exc_info()[0] is not None:
+                        # failed statements ALWAYS reach the recorder —
+                        # the success path records after the slow-log
+                        # verdict below
+                        trace_tree.flag("failed")
+                        self.domain.flight_recorder.record(trace_tree)
                 self.domain.coordinator.end(self.conn_id)
                 self._cur_sql = None
             dt_ns = time.perf_counter_ns() - t0
             qcnt.inc(type=type(stmt).__name__)
             qdur.observe(dt_ns / 1e9)
-            # (the JAX package records the statement summary, the slow
-            # log, the flight recorder's trace and the resource group's
-            # charge here: ROADMAP.md, Queue 1 entries 7 and 12)
+            # slow-log threshold is live sysvar state (session scope
+            # shadows global), plumbed session -> Domain on each record
+            try:
+                self.domain.stmt_summary.slow_threshold_ms = float(
+                    merged_obs.get("tidb_tpu_slow_threshold_ms", 300)
+                    or 0)
+                self.domain.flight_recorder.sample_every = max(int(
+                    merged_obs.get("tidb_tpu_trace_sample", 16) or 16),
+                    1)
+            except (TypeError, ValueError):
+                pass
+            was_slow = self.domain.stmt_summary.record(
+                text, dt_ns, len(out.rows),
+                cpu_ns=time.thread_time_ns() - cpu0,
+                plan_text=self._last_plan_text,
+                sched_wait_ns=handle.sched_wait_ns,
+                rus=handle.sched_rus,
+                compile_ns=handle.compile_ns,
+                sched_tasks=handle.sched_tasks,
+                fused=handle.sched_fused,
+                retried=handle.sched_retried,
+                trace_id=trace_tree.trace_id
+                if trace_tree is not None else "")
+            if trace_tree is not None:
+                if was_slow:
+                    trace_tree.flag("slow")
+                self.domain.flight_recorder.record(trace_tree)
+            # (the JAX package charges the statement's resource group
+            # here: ROADMAP.md, Queue 1 entry 12)
             _plugins.fire("on_stmt_end", self, text, None, dt_ns / 1e9,
                           len(out.rows) + out.affected)
             # ROW_COUNT()/FOUND_ROWS() state (executor/adapter.go
@@ -596,6 +668,10 @@ class Session:
             return ResultSet()
         if isinstance(stmt, A.Explain):
             return self._exec_explain(stmt)
+        if isinstance(stmt, A.TraceStmt):
+            return self._exec_trace(stmt)
+        if isinstance(stmt, A.PlanReplayerDump):
+            return self._exec_plan_replayer(stmt)
         if isinstance(stmt, A.CreateTable):
             return self._exec_create_table(stmt)
         if isinstance(stmt, A.DropTable):
@@ -1011,6 +1087,10 @@ class Session:
             plan = rewrite_skew_distinct(plan)
         plan = reorder_joins(plan, self.domain.stats)
         phys = self._to_physical(apply_index_paths(plan, self.domain.stats))
+        try:       # Top-SQL plan digest attribution (util/topsql)
+            self._last_plan_text = phys.explain()
+        except Exception:
+            pass
         use_cache = use_cache and not ran_subquery
         if use_cache and _plan_cacheable(phys):
             keys = {}
@@ -1177,11 +1257,90 @@ class Session:
     def _exec_explain(self, stmt: A.Explain) -> ResultSet:
         if not isinstance(stmt.stmt, (A.SelectStmt, A.SetOpStmt)):
             raise PlanError("EXPLAIN supports SELECT only")
-        if stmt.analyze:
-            raise unported("EXPLAIN ANALYZE (runtime statistics)", CONTROL)
         _built, phys = self._plan_select(stmt.stmt)
+        if stmt.analyze:
+            # runtime statistics (utils/execdetails): each operator's
+            # rows, loops and inclusive wall, and the cop task's
+            # scheduler detail; the plan is a fresh one (no cache_sql),
+            # so the instrumented operators never reach the plan cache
+            from ..utils.execdetails import (RuntimeStatsColl,
+                                             explain_analyze_text,
+                                             instrument_tree)
+            coll = RuntimeStatsColl()
+            instrument_tree(phys, coll)
+            phys.execute(self._exec_ctx())
+            return ResultSet(["operator", "actRows", "time", "loops"],
+                             explain_analyze_text(phys, coll))
         rows = [(line,) for line in phys.explain().split("\n")]
         return ResultSet(["plan"], rows)
+
+    def _exec_plan_replayer(self, stmt: A.PlanReplayerDump) -> ResultSet:
+        """PLAN REPLAYER DUMP EXPLAIN <sql> (executor/plan_replayer.go):
+        writes a zip bundle — sql, plan text, CREATE TABLE statements for
+        every referenced table, stats JSON, session/global sysvars,
+        engine version — and returns its token filename."""
+        import json as _json
+        import os
+        import tempfile
+        import zipfile
+
+        parsed = parse_sql(stmt.sql)[0]
+        if not isinstance(parsed, (A.SelectStmt, A.SetOpStmt)):
+            raise PlanError("PLAN REPLAYER DUMP supports SELECT only")
+        _built, phys = self._plan_select(parsed)
+        plan_text = phys.explain()
+        tables = []
+        for db, name in self._referenced_tables(parsed):
+            try:
+                tables.append(self.domain.catalog.get_table(
+                    db or self.db, name))
+            except Exception:
+                continue
+        stats_blob = {}
+        for t in tables:
+            st = self.domain.stats.get(t)
+            if st is None:
+                continue
+            stats_blob[t.name] = {
+                "count": st.count,
+                "modify_count": st.modify_count,
+                "columns": {cn: {"ndv": cs.ndv,
+                                 "null_count": cs.null_count}
+                            for cn, cs in st.cols.items()},
+            }
+        out_dir = os.path.join(tempfile.gettempdir(), "tidb_tpu_replayer")
+        os.makedirs(out_dir, exist_ok=True)
+        token = f"replayer_{int(time.time() * 1000):x}.zip"
+        path = os.path.join(out_dir, token)
+        with zipfile.ZipFile(path, "w") as z:
+            z.writestr("sql/sql.sql", stmt.sql)
+            z.writestr("plan.txt", plan_text)
+            z.writestr("schema/schema.sql", "\n\n".join(
+                _render_create_table(t) for t in tables))
+            z.writestr("stats.json", _json.dumps(stats_blob, indent=1))
+            z.writestr("variables.json", _json.dumps(
+                {**self.domain.sysvars, **self.vars}, default=str,
+                indent=1))
+            z.writestr("meta.txt", "tidb-tpu 0.2.0")
+        return ResultSet(["File_token"], [(token,)])
+
+    def _exec_trace(self, stmt: A.TraceStmt) -> ResultSet:
+        """TRACE <stmt>: span tree of the statement's phases
+        (executor/trace.go analog); the device work dispatched inside
+        stitches its client and scheduler spans under ``executor.Run``."""
+        from ..utils.tracing import Tracer
+        tracer = Tracer()
+        with tracer.region("session.ExecuteStmt"):
+            if isinstance(stmt.stmt, (A.SelectStmt, A.SetOpStmt)):
+                with tracer.region("planner.Optimize"):
+                    _built, phys = self._plan_select(stmt.stmt)
+                with tracer.region("executor.Run"):
+                    phys.execute(self._exec_ctx())
+            else:
+                with tracer.region("executor.Run"):
+                    self._exec_stmt(stmt.stmt)
+        return ResultSet(["operation", "startTS_us", "duration_us"],
+                         tracer.rows())
 
     # ---------------- transactions, DDL and DML ---------------- #
 
@@ -2259,9 +2418,36 @@ class Session:
                 rx = like_to_regex(stmt.like.lower())
                 rows = [r for r in rows if rx.match(r[0].lower())]
             return ResultSet(["Variable_name", "Value"], rows)
-        if stmt.kind in _UNPORTED_SHOW:
-            raise unported(f"SHOW {stmt.kind.upper()}",
-                           _UNPORTED_SHOW[stmt.kind])
+        if stmt.kind == "statements_summary":
+            return ResultSet(
+                ["Digest_text", "Exec_count", "Avg_latency_ms",
+                 "Max_latency_ms", "Sum_rows", "Sample_sql",
+                 "Avg_sched_wait_ms", "Avg_compile_ms",
+                 "Sum_sched_tasks", "Sum_fused", "Avg_ru"],
+                self.domain.stmt_summary.summary_rows())
+        if stmt.kind == "slow_queries":
+            return ResultSet(["Query", "Latency_ms", "Rows",
+                              "Sched_wait_ms", "Compile_ms", "Ru",
+                              "Retried", "Trace_id"],
+                             self.domain.stmt_summary.slow_rows())
+        if stmt.kind == "status":
+            # the JAX package's quirks kept for parity: Uptime reads a
+            # Domain._t0 that nothing sets (so it is 0) and Queries a
+            # StmtSummary.rows() that does not exist (so it is 0)
+            qs = sum(1 for _ in self.domain.sessions())
+            rows = [("Threads_connected", str(qs)),
+                    ("Uptime", str(int(time.time()
+                                       - getattr(self.domain, "_t0",
+                                                 time.time())))),
+                    ("Ssl_cipher", ""),
+                    ("Queries", str(len(self.domain.stmt_summary.rows())
+                                    if hasattr(self.domain.stmt_summary,
+                                               "rows") else 0))]
+            if stmt.like:
+                from ..expr.lower_strings import like_to_regex
+                rx = like_to_regex(stmt.like.lower())
+                rows = [r for r in rows if rx.match(r[0].lower())]
+            return ResultSet(["Variable_name", "Value"], rows)
         raise PlanError(f"unsupported SHOW {stmt.kind}")
 
     def _exec_show_stats(self, kind: str) -> ResultSet:

@@ -128,6 +128,8 @@ from ..copr.join import check_join_rows
 from ..device import get_devices
 from ..faults import plan as _faults
 from ..faults.breaker import LaunchQuarantinedError
+from ..obs.trace import flag as _obs_flag
+from ..obs.trace import span as _obs_span
 from ..parallel.shuffle import ShardedShuffleJoinProgram, ShuffleCaps
 from ..parallel.spmd import get_sharded_program
 from ..parallel.window import ShardedWindowProgram
@@ -315,7 +317,17 @@ class CopClient:
                 _faults.check("dispatch")   # faultline store-dispatch seam
                 with self._stat_mu:
                     self.last_retries = retries
-                return fn()
+                try:
+                    res = fn()
+                except BaseException:
+                    # a failed attempt's launches: the drain's ring
+                    # settles them at its next pickup
+                    self._local.launches = []
+                    raise
+                # the result is on the host: every launch this thread
+                # waited on has completed, so its device time is ready
+                self._settle_launches()
+                return res
             except RegionError as e:
                 bo.backoff(e.kind, e)
                 if snap is not None and snap.placement is not None:
@@ -347,6 +359,7 @@ class CopClient:
         except LaunchQuarantinedError as err:
             # OPEN breaker: the device program keeps failing — degrade
             # to the host oracle where the plan shape allows it
+            _obs_flag("quarantined")
             res = self._degraded_agg(agg, snap, key_meta, aux_cols, err)
         except Exception as err:
             # OOM recovery: a launch that exhausted device memory
@@ -372,6 +385,7 @@ class CopClient:
         bit-identical to the uncontended run on every rung.  Otherwise,
         or for a plan with neither shape, the OOM propagates.  The rung
         taken is ``timings["oom_rung"]`` ("stream" or "host")."""
+        _obs_flag("oom")
         if not aux_cols:
             # device-forced: the resident placement of the run that
             # failed still holds device memory; release it (and the
@@ -426,6 +440,7 @@ class CopClient:
                     res = CopResult(agg_cols, key_cols)
         if res is None:
             raise err
+        _obs_flag("degraded")
         with self._stat_mu:
             self.degraded += 1
         from ..utils.metrics import global_registry
@@ -569,7 +584,8 @@ class CopClient:
             recs.append(rec)
             del cols, counts     # free the batch once its program consumed it
         t1 = time.perf_counter()
-        states = [_to_numpy(o) for o in outs]
+        with _obs_span("cop.transfer", batches=len(outs)):
+            states = [_to_numpy(o) for o in outs]
         t["stream"] = t1 - t0
         t["transfer"] = time.perf_counter() - t1
         t["batches"] = self._batch_times(recs)
@@ -668,10 +684,39 @@ class CopClient:
         return {"enabled": self.sched_enable, "started": True,
                 "client": client, **cc, **self._sched_obj.stats()}
 
-    @staticmethod
-    def _note_sched(task) -> None:
+    def _transfer_attrs(self) -> dict:
+        """Per-link attrs for the NEXT transfer span on this statement
+        thread (stashed by _note_sched from the served task's calibrated
+        LaunchCost — the typed-link split)."""
+        bd = getattr(self._local, "breakdown", None)
+        self._local.breakdown = None
+        if not bd or not (bd[0] or bd[1] or bd[2]):
+            return {}
+        return {"intra_bytes": bd[0], "ici_bytes": bd[1],
+                "dci_bytes": bd[2]}
+
+    def _settle_launches(self) -> None:
+        """Read the device time of the launches this thread waited on
+        (their CUDA events, sched/scheduler ``LaunchTiming``), once the
+        results are on the host; what is still pending the drain reads
+        at its next pickup."""
+        pending = getattr(self._local, "launches", None)
+        if pending:
+            self._local.launches = []
+            for timing in pending:
+                timing.settle()
+
+    def _note_sched(self, task) -> None:
         """The served task's queue wait, coalescing, RUs and build time,
-        onto the statement's QueryHandle."""
+        onto the statement's QueryHandle; its link split for the next
+        transfer span and its device-time record for the settle."""
+        if task.cost is not None:
+            self._local.breakdown = task.cost.transfer_breakdown
+        if task.timing is not None:
+            pending = getattr(self._local, "launches", None)
+            if pending is None:
+                pending = self._local.launches = []
+            pending.append(task.timing)
         from ..copr.coordinator import QUERY_HANDLE
         h = QUERY_HANDLE.get()
         if h is not None:
@@ -696,13 +741,17 @@ class CopClient:
         if cols:
             s, c = cols[0][0].shape[:2]
             est = s * c
-        t = sched.submit(CopTask.structured(
-            dag, self.devices, row_capacity, cols, counts, tuple(aux_cols),
-            est_rows=est))
-        try:
-            return t.wait()
-        finally:
-            self._note_sched(t)
+        # the dispatch span is the parent every scheduler-thread span
+        # (queue/compile/launch/retry) stitches under — the CopTask
+        # captures the child TraceCtx at construction
+        with _obs_span("cop.dispatch"):
+            t = sched.submit(CopTask.structured(
+                dag, self.devices, row_capacity, cols, counts,
+                tuple(aux_cols), est_rows=est))
+            try:
+                return t.wait()
+            finally:
+                self._note_sched(t)
 
     def _launch_opaque(self, fn, est_rows: int = 0):
         """Admission-controlled launch of a program with another
@@ -712,11 +761,13 @@ class CopClient:
         if sched is None:
             return fn()
         from ..sched import CopTask
-        t = sched.submit(CopTask.opaque(fn, self.devices, est_rows=est_rows))
-        try:
-            return t.wait()
-        finally:
-            self._note_sched(t)
+        with _obs_span("cop.dispatch", opaque=True):
+            t = sched.submit(CopTask.opaque(fn, self.devices,
+                                            est_rows=est_rows))
+            try:
+                return t.wait()
+            finally:
+                self._note_sched(t)
 
     def _warm_cap(self, dag, needed: int) -> int:
         """The regrow and paging re-entry seam: prefer a capacity the
@@ -772,12 +823,14 @@ class CopClient:
         else:
             raise RuntimeError("join-capacity regrow did not converge")
         t1 = time.perf_counter()
-        states = _to_numpy(out)
+        with _obs_span("cop.transfer", **self._transfer_attrs()):
+            states = _to_numpy(out)
         # faultline transfer/host-merge seam, keyed by the digest
         _faults.check("transfer", D.dag_digest(agg))
         t2 = time.perf_counter()
-        merged = merge_states([states])
-        key_cols, agg_cols = finalize(agg, merged, key_meta)
+        with _obs_span("cop.host_merge", kind="root"):
+            merged = merge_states([states])
+            key_cols, agg_cols = finalize(agg, merged, key_meta)
         t["transfer"] = t2 - t1
         t["merge"] = time.perf_counter() - t2
         return CopResult(agg_cols, key_cols)
@@ -832,7 +885,8 @@ class CopClient:
                 t["device"] += t1 - t0
                 agg = grown
                 continue
-            per_dev = self._split_devices(out)
+            with _obs_span("cop.transfer", **self._transfer_attrs()):
+                per_dev = self._split_devices(out)
             t["device"] += t1 - t0
             t["transfer"] += time.perf_counter() - t1
             true_ng = max(int(st["__ngroups__"]) for st in per_dev)
@@ -842,8 +896,9 @@ class CopClient:
         else:
             raise RuntimeError("group-capacity regrow did not converge")
         t0 = time.perf_counter()
-        merged = merge_sorted_states(sized, per_dev)
-        key_cols, agg_cols = finalize_sorted(sized, merged, key_meta)
+        with _obs_span("cop.host_merge", kind="sorted"):
+            merged = merge_sorted_states(sized, per_dev)
+            key_cols, agg_cols = finalize_sorted(sized, merged, key_meta)
         t["merge"] = time.perf_counter() - t0
         return CopResult(agg_cols, key_cols)
 
