@@ -52,7 +52,10 @@ script exits non-zero without printing a result:
    kernel, plain, library-yardstick (``index_add_``,
    ``scatter_reduce_``) and memory-bound times; then the lane sets of
    the paths, each one launch (``group_reduce_lanes``): Q1's nine lanes
-   (G = 12, its sources at their placed dtypes), Q6's three (SCALAR),
+   (G = 12, its sources at their placed dtypes), "Q1 narrow"'s seven
+   (the same rows, the two plain column SUMs one ``sum`` word each, as
+   valueflow proves them over the analyzed SF=10 lineitem), Q6's three
+   (SCALAR),
    SORT's and SEGMENT's three (8,388,608 rows, 6,000,000 live, G = 2^22
    and 2^23, int64 gids in segment order and in a random order), each
    exactly against ``group_reduce_lanes_plain``, with kernel, plain,
@@ -192,8 +195,9 @@ script exits non-zero without printing a result:
    passes ``stable_argsort`` planned and ``group_reduce`` runs once a
    device a program run of a window with aggregates and twice a column
    an ANALYZE.  Each statement prints its first and warm ms and the
-   client's split, the window statements their exchange capacities and
-   peak ``max_memory_allocated``;
+   client's split (a GROUP BY slower than ``HIGH_NDV_ONCE_S`` runs
+   once), the window statements their exchange capacities and peak
+   ``max_memory_allocated``;
 14. the server, over 13a's ``Domain`` (the SF=10 lineitem placed on the
    card, with orders from ``gen_orders_mini(1,500,000)`` registered
    beside it), the port's ``MySQLServer`` on 127.0.0.1, port 0, reached
@@ -265,9 +269,11 @@ script exits non-zero without printing a result:
    batched program's ms beside the two solo programs', each slot's
    states equal to its solo run's and the batched K·G reduction equal
    to ``group_reduce_lanes_plain`` on the card; (c) Q1 and Q6 over the
-   SF=10 scan at once: one fused launch (``fused_launches``), the fused
-   program's ms beside the solo sum, each member's result equal to its
-   solo run's; (d) queue depth 2, two statements queued: the third gets
+   analyzed SF=10 scan at once: they prove different SUM slots narrow,
+   so the fusion contract launches them apart (the JAX package's rule);
+   then Q6 with the corpus's Q6 (one narrow class): one fused launch
+   (``fused_launches``), the fused program's ms beside the solo sum,
+   each member's result equal to its solo run's; (d) queue depth 2, two statements queued: the third gets
    MySQL error 9003 in process and over the wire; (e) phase 14's
    4 x 20 Q6 over the wire with the scheduler on: statements/s at one
    and four connections and the coalesced launches.  Every result
@@ -297,7 +303,26 @@ script exits non-zero without printing a result:
    with ``tidb_tpu_trace`` on and off, interleaved; (g) ``SHOW
    SLOW_QUERIES`` at a zero threshold, its trace id found in the
    flight recorder;
-18. the ``kernels`` JSON line, then the last line
+18. the plan-time gates and buffer lifetime, on 13a's Domain: (a) the
+   statements of ROADMAP.md Queue 3 item 1 over two small analyzed
+   tables, first with ``tidb_tpu_verify_plan`` off (a session variable:
+   each runs on the card and returns the wrapped digits its device lane
+   computes), then on: each refused with the JAX session's
+   ``PlanContractError`` rule before any launch; (b) Q1 and Q6 at
+   ``--main-sf`` over the analyzed lineitem: the plans' ``narrow_sums``
+   (Q1's column SUMs are proven narrow), each launch's distinct lanes
+   equal to ``expected_lanes``, the results equal to numpy bit for bit,
+   the warm wall, the plan ms on a plan cache miss (the gates run) and
+   on a hit, and the launch's CUDA-event device ms; (d) watermark
+   drift: a row written past an analyzed column's watermark, a new
+   ANALYZE, and the cached plan's old proof counted in ``/sched``'s
+   ``value_drifts`` with the exact result, a fresh plan quiet; (e)
+   EXPLAIN of Q1 and Q6 with ``contract: ok``, the ``est. device
+   bytes`` footer and Q1's strategy line; (f) 15a's streamed Q1 with
+   its ``DonationPlan``: donating, not donating, donating again, the
+   donated launches and the peak ``max_memory_allocated`` above the
+   run's start.  (c) is phase 4's "Q1 narrow" lane set;
+19. the ``kernels`` JSON line, then the last line
    ``{"ok": true, "device": {...}}``.  A ``phase ...: s=`` line after
    each phase gives its seconds.
 
@@ -965,29 +990,53 @@ def q1_lane_inputs(torch, dev, n: int, dist: str = "Q1"):
     return gid, mask, qty, price, dp, ch
 
 
-def limb_lanes(gr, mask, srcs):
-    """The lanes of a state table of COUNT(*) and one (hi, lo) limb SUM a
-    source, over one mask: ``__rows__`` and each SUM's count are one lane
-    (the mask is the selection), then hi and lo a source."""
+def limb_lanes(gr, mask, srcs, narrow=()):
+    """The lanes of a state table of COUNT(*) and one SUM a source, over
+    one mask: ``__rows__`` and each SUM's count are one lane (the mask is
+    the selection), then hi and lo a source, or one ``sum`` word for a
+    source in ``narrow`` (a proven-narrow SUM, read at its stored
+    width)."""
     lanes = [gr.Lane("count", None, mask)]
-    for s in srcs:
-        lanes += [gr.Lane("sum_hi32", s, mask), gr.Lane("sum_lo32", s, mask)]
+    for i, s in enumerate(srcs):
+        if i in narrow:
+            lanes.append(gr.Lane("sum", s, mask))
+        else:
+            lanes += [gr.Lane("sum_hi32", s, mask),
+                      gr.Lane("sum_lo32", s, mask)]
     return lanes
 
 
-def per_lane_states(torch, gr, mask, srcs, gids, G):
+def per_lane_states(torch, gr, mask, srcs, gids, G, narrow=()):
     """The same states as one-lane launches, as the callers made them
     before the lane sets: one launch a state field, each after its eager
     transform (``__rows__``, then a SUM's cnt from ``mask.to(int64)``,
-    its widening and its ``>> 32`` and ``& 0xFFFFFFFF`` passes)."""
+    its widening, and its ``>> 32`` and ``& 0xFFFFFFFF`` passes or, for
+    a narrow SUM, the widened word)."""
     out = [gr.group_reduce(mask.to(torch.int64), mask, gids, G, "sum")]
-    for s in srcs:
+    for i, s in enumerate(srcs):
         out.append(gr.group_reduce(mask.to(torch.int64), mask, gids, G,
                                    "sum"))
         v = s.to(torch.int64)
-        out.append(gr.group_reduce(v >> 32, mask, gids, G, "sum"))
-        out.append(gr.group_reduce(v & 0xFFFFFFFF, mask, gids, G, "sum"))
+        if i in narrow:
+            out.append(gr.group_reduce(v, mask, gids, G, "sum"))
+        else:
+            out.append(gr.group_reduce(v >> 32, mask, gids, G, "sum"))
+            out.append(gr.group_reduce(v & 0xFFFFFFFF, mask, gids, G,
+                                       "sum"))
     return out
+
+
+def lanes_of_states(old, srcs, narrow=()):
+    """``per_lane_states``' tables in the order of ``limb_lanes``' lanes,
+    and the indexes of the SUMs' count tables (each equal to the rows
+    lane)."""
+    tables, cnts, k = [old[0]], [], 1
+    for i in range(len(srcs)):
+        cnts.append(k)
+        w = 1 if i in narrow else 2
+        tables += old[k + 1:k + 1 + w]
+        k += 1 + w
+    return tables, cnts
 
 
 def lane_sets(torch, dev):
@@ -1001,13 +1050,17 @@ def lane_sets(torch, dev):
     gen = torch.Generator(device=dev)
     gen.manual_seed(5)
     gid, mask, qty, price, dp, ch = q1_lane_inputs(torch, dev, MAIN_ROWS)
-    yield "Q1", gid, 12, mask, [qty, price, dp, ch], "main"
+    yield "Q1", gid, 12, mask, [qty, price, dp, ch], "main", ()
+    # valueflow over the analyzed SF=10 lineitem proves Q1's two column
+    # SUMs narrow (60M rows x 1024 headroom x their magnitudes < 2^62)
+    # and keeps the two products in limbs (phase 18b prints the slots)
+    yield "Q1 narrow", gid, 12, mask, [qty, price, dp, ch], "gates", (0, 1)
     del gid, mask, qty, dp, ch
     sel = torch.rand(MAIN_ROWS, generator=gen, device=dev) < Q6_LIVE
     rev = price.to(torch.int64) * torch.randint(
         0, 11, (MAIN_ROWS,), generator=gen, device=dev)
     del price
-    yield "Q6", None, 1, sel, [rev], "main"
+    yield "Q6", None, 1, sel, [rev], "main", ()
     del sel, rev
     for (G, groups), what, dt in zip(GR_HIGH, ("SORT", "SEGMENT"),
                                      (torch.int32, torch.int8)):
@@ -1017,7 +1070,7 @@ def lane_sets(torch, dev):
         for order in ("sorted", "random"):
             mask, gids = gr_high_inputs(torch, dev, G, groups, order)
             yield f"{what} G=2^{G.bit_length() - 1} {order}", gids, G, mask, \
-                [src], "slice4"
+                [src], "slice4", ()
             del mask, gids
 
 
@@ -1032,8 +1085,8 @@ def group_reduce_lanes_phase(torch, gr, dev) -> dict:
     name."""
     flush = torch.empty(64 << 20, dtype=torch.int32, device=dev)  # 256 MiB
     out = {}
-    for name, gids, G, mask, srcs, path in lane_sets(torch, dev):
-        lanes = limb_lanes(gr, mask, srcs)
+    for name, gids, G, mask, srcs, path, narrow in lane_sets(torch, dev):
+        lanes = limb_lanes(gr, mask, srcs, narrow)
         n = mask.shape[0]
         before = gr.LAUNCHES["group_reduce"]
         got = gr.group_reduce_lanes(gids, G, lanes)
@@ -1044,14 +1097,25 @@ def group_reduce_lanes_phase(torch, gr, dev) -> dict:
         for ln, g, w in zip(lanes, got, want):
             check(torch.equal(g, w), f"lane set {name}: {ln.kind} lane != "
                                      "plain")
-        old = per_lane_states(torch, gr, mask, srcs, gids, G)
-        # the old states (rows, then cnt, hi, lo a source) hold the same
-        # tables: cnt is the rows lane
-        check(all(torch.equal(old[k], got[0])
-                  for k in [0] + [1 + 3 * i for i in range(len(srcs))])
-              and all(torch.equal(old[2 + 3 * i + j], got[1 + 2 * i + j])
-                      for i in range(len(srcs)) for j in (0, 1)),
+        old = per_lane_states(torch, gr, mask, srcs, gids, G, narrow)
+        # the old states (rows, then cnt and hi, lo or the word a source)
+        # hold the same tables: cnt is the rows lane
+        tables, cnts = lanes_of_states(old, srcs, narrow)
+        check(all(torch.equal(old[k], got[0]) for k in cnts)
+              and all(torch.equal(t, g) for t, g in zip(tables, got)),
               f"lane set {name}: per-lane states != lane set")
+        if narrow:
+            # the narrow word equals its limb pair recombined, bit for bit
+            limbs = gr.group_reduce_lanes(gids, G, limb_lanes(gr, mask,
+                                                              srcs))
+            pos = 1
+            for i in range(len(srcs)):
+                if i in narrow:
+                    word = limbs[1 + 2 * i] * (1 << 32) + limbs[2 + 2 * i]
+                    check(torch.equal(got[pos], word),
+                          f"lane set {name}: narrow sum {i} != limbs")
+                pos += 1 if i in narrow else 2
+            del limbs
         # the library yardstick: the stacked lane matrix, dead rows in the
         # sink slot G
         gsink = torch.where(mask, torch.zeros((), dtype=torch.int64,
@@ -1066,11 +1130,13 @@ def group_reduce_lanes_phase(torch, gr, dev) -> dict:
               f"lane set {name}: index_add_ != lanes")
         ms = cuda_ms(torch, lambda: gr.group_reduce_lanes(gids, G, lanes),
                      flush=flush)
+        # the plain version is the yardstick, 0.3 s a call at Q1's shape:
+        # fewer samples
         plain_ms = cuda_ms(torch, lambda: gr.group_reduce_lanes_plain(
-            gids, G, lanes), flush=flush)
+            gids, G, lanes), reps=5, flush=flush)
         lib_ms = cuda_ms(torch, lib, flush=flush)
         per_lane_ms = cuda_ms(torch, lambda: per_lane_states(
-            torch, gr, mask, srcs, gids, G), flush=flush)
+            torch, gr, mask, srcs, gids, G, narrow), flush=flush)
         del mat, gsink
         nbytes = n + sum(s.element_size() for s in srcs) * n \
             + (0 if gids is None else gids.element_size() * n) \
@@ -1110,17 +1176,21 @@ def expected_lanes(agg) -> int:
     """Distinct lanes of ``agg``'s state table when no aggregate's
     argument is nullable: ``__rows__`` (COUNT(*) and every COUNT reuse
     it), two for a (hi, lo) limb SUM, one for MIN, MAX and a float or
-    proven-narrow SUM.  One-lane launches took one reduction a lane, and
-    one more for the count of each SUM, MIN and MAX."""
+    proven-narrow SUM, each once an argument (an AVG's SUM of a column
+    that a SUM also sums is the same lanes: ``unique_lanes``).  One-lane
+    launches took one reduction a lane, and one more for the count of
+    each SUM, MIN and MAX."""
     from tidb_tpu_torch.copr import dag as D
-    n = 1
+    lanes = set()
     for i, a in enumerate(agg.aggs):
+        if a.func == D.AggFunc.COUNT:
+            continue
         if a.func == D.AggFunc.SUM and not a.arg.dtype.is_float \
                 and i not in agg.narrow_sums:
-            n += 2
-        elif a.func != D.AggFunc.COUNT:
-            n += 1
-    return n
+            lanes |= {(a.arg, "sum_hi32"), (a.arg, "sum_lo32")}
+        else:
+            lanes.add((a.arg, a.func.value))
+    return 1 + len(lanes)
 
 
 # --------------------------------------------------------------------- #
@@ -1852,9 +1922,26 @@ def sql_key_order(cols: list, n_keys: int) -> list:
     return [np.asarray(c, dtype=np.int64)[order] for c in cols]
 
 
+Q1_ORACLE: dict = {}     # q1_groups by the identity of its columns
+
+
 def q1_groups(c: dict, names) -> dict:
     """{(flag, status): (sum_qty, sum_price, sum_disc, sum_disc_price,
-    sum_charge, count)} over the rows shipped by 1998-09-02, exact."""
+    sum_charge, count)} over the rows shipped by 1998-09-02, exact.
+    Computed once a set of columns: the phases check Q1 over the same
+    lineitem many times, and the columns live for the whole run."""
+    arrays = tuple(c[n].data for n in Q1_ORACLE_COLS)
+    key = tuple(map(id, arrays))
+    if key not in Q1_ORACLE:     # the entry holds the arrays: ids stay
+        Q1_ORACLE[key] = (arrays, _q1_groups(c))
+    return Q1_ORACLE[key][1]
+
+
+Q1_ORACLE_COLS = ("l_shipdate", "l_quantity", "l_extendedprice",
+                  "l_discount", "l_tax", "l_returnflag", "l_linestatus")
+
+
+def _q1_groups(c: dict) -> dict:
     ship = c["l_shipdate"].data
     keep = ship <= 10471                     # 1998-09-02
     qty, price = c["l_quantity"].data, c["l_extendedprice"].data
@@ -3319,6 +3406,8 @@ WINDOW_SQL = [
 # the statements whose window items hold an aggregate: one group_reduce
 # launch a device a program run
 WINDOW_AGG = ("aggregates a mode",)
+HIGH_NDV_ONCE_S = 5.0    # 13c: a group-by slower than this runs once (its
+                         # host merge is its wall, warm or not)
 HIGH_NDV_SQL = [
     ("orders by custkey", "select count(*), sum(s) from (select o_custkey, "
      "sum(o_totalprice) s from orders group by o_custkey) t", "orders",
@@ -3601,7 +3690,9 @@ def window_stats_phase(torch, gr, os1, S, main_sess, main_data, s4_data
             want = (len(np.unique(k)), exact_sum(data[val].data))
             got = select_cells(rs)
             check(got == [want], f"13c {name}: {got} != numpy {want}")
-            _rs, warm, acc = timer.run(sess, sql)
+            warm = first
+            if first < HIGH_NDV_ONCE_S:
+                _rs, warm, acc = timer.run(sess, sql)
             ndv_est = sess.domain.stats.get(sess.domain.catalog.get_table(
                 "test", "orders" if where == "orders" else "lineitem")
             ).col(key).ndv
@@ -4666,34 +4757,59 @@ def admission_phase(torch, gr, main_sess, main_data, s4_data) -> int:
           f"{ms_b1:.3f} solo_sum_ms={ms_a1 + ms_b1:.3f} "
           f"plain_max_abs_err={err_b} states_equal_solo=True exact=True")
 
-    # -- c: fusion of Q1 and Q6 over one scan -------------------------- #
+    # -- c: fusion over one scan --------------------------------------- #
+    # over the analyzed lineitem (13c) Q1 and Q6 prove different SUM
+    # slots narrow, and a narrow chain fuses only with chains proving the
+    # same slots (contracts.fusion_signature, the JAX package's rule): Q1
+    # and Q6 launch apart; Q6 fuses with the corpus's Q6, a chain of its
+    # class over the same scan
+    from tidb_tpu_torch.analysis.contracts import fusion_signature
+    t1, t6 = tasks1[0], tasks6[0]
+    fs1, fs6 = fusion_signature(t1.dag), fusion_signature(t6.dag)
     f0, n0 = sched.fused_launches, launches()
     outs, _wall = run_queued(sched, [
         lambda: Session(dom).execute(q1).rows,
         lambda: Session(dom).execute(q6).rows])
     driven += launches() - n0
     check(outs == [want1, want6], "16c: != the solo Q1, Q6")
-    check(sched.fused_launches == f0 + 1,
-          f"16c: fused_launches +{sched.fused_launches - f0}")
-    t1, t6 = tasks1[0], tasks6[0]
-    check(t1.input_token == t6.input_token, "16c: Q1 and Q6 scans differ")
-    fprog = spmd.get_fused_program(D.FusedDag((t1.dag, t6.dag)),
+    check(sched.fused_launches == f0 + (fs1 == fs6),
+          f"16c: Q1, Q6 fused_launches +{sched.fused_launches - f0} "
+          f"(signatures {fs1}, {fs6})")
+    q6c = tpch.SQL_QUERIES["Q6 corpus"]
+    wantc, _w, tasksc = solo(q6c, "Q6 corpus", main_data)
+    tc = tasksc[0]
+    check(len(tasksc) == 1 and tc.dag != t6.dag
+          and fusion_signature(tc.dag) == fs6 is not None,
+          f"16c: Q6 corpus {fusion_signature(tc.dag)} against Q6 {fs6}")
+    f1, n0 = sched.fused_launches, launches()
+    outs, _wall = run_queued(sched, [
+        lambda: Session(dom).execute(q6).rows,
+        lambda: Session(dom).execute(q6c).rows])
+    driven += launches() - n0
+    check(outs == [want6, wantc], "16c: != the solo Q6, Q6 corpus")
+    check(sched.fused_launches == f1 + 1,
+          f"16c: fused_launches +{sched.fused_launches - f1}")
+    check(t6.input_token == tc.input_token, "16c: the Q6 scans differ")
+    fprog = spmd.get_fused_program(D.FusedDag((t6.dag, tc.dag)),
                                    client.devices)
-    p1 = spmd.get_sharded_program(t1.dag, client.devices)
     p6 = spmd.get_sharded_program(t6.dag, client.devices)
-    fused = fprog(t1.cols, t1.counts)
-    states_equal(fused[0], p1(t1.cols, t1.counts))
-    states_equal(fused[1], p6(t6.cols, t6.counts))
-    ms_f = cuda_ms(torch, lambda: fprog(t1.cols, t1.counts),
-                   reps=ADMISSION_REPS)
-    ms_1 = cuda_ms(torch, lambda: p1(t1.cols, t1.counts),
+    pc = spmd.get_sharded_program(tc.dag, client.devices)
+    fused = fprog(t6.cols, t6.counts)
+    states_equal(fused[0], p6(t6.cols, t6.counts))
+    states_equal(fused[1], pc(tc.cols, tc.counts))
+    ms_f = cuda_ms(torch, lambda: fprog(t6.cols, t6.counts),
                    reps=ADMISSION_REPS)
     ms_6 = cuda_ms(torch, lambda: p6(t6.cols, t6.counts),
                    reps=ADMISSION_REPS)
-    print(f"16c fusion: members=Q1,Q6 rows={len(main_data[1][0])} "
-          f"fused_launches={sched.fused_launches - f0} fused_ms={ms_f:.3f} "
-          f"q1_ms={ms_1:.3f} q6_ms={ms_6:.3f} solo_sum_ms={ms_1 + ms_6:.3f} "
-          f"states_equal_solo=True exact=True")
+    ms_c = cuda_ms(torch, lambda: pc(tc.cols, tc.counts),
+                   reps=ADMISSION_REPS)
+    print(f"16c fusion: Q1 {fs1} and Q6 {fs6} fused_launches="
+          f"{int(fs1 == fs6)}; members=Q6,Q6 corpus "
+          f"rows={len(main_data[1][0])} fused_launches="
+          f"{sched.fused_launches - f1} fused_ms={ms_f:.3f} "
+          f"q6_ms={ms_6:.3f} q6_corpus_ms={ms_c:.3f} "
+          f"solo_sum_ms={ms_6 + ms_c:.3f} states_equal_solo=True "
+          "exact=True")
 
     # -- d, e: admission and the server -------------------------------- #
     rev = main_oracle("Q6", names, main_data[1])[0][0]
@@ -5108,6 +5224,257 @@ def observability_phase(torch, gr, os1, main_sess, main_data,
     return driven
 
 
+# --------------------------------------------------------------------- #
+# phase 18: the plan-time gates and buffer lifetime
+# --------------------------------------------------------------------- #
+
+# ROADMAP.md Queue 3 item 1: statements whose device lane would wrap
+# over an analyzed table, with the rule the JAX session refuses them by
+# (written here: the script imports nothing of the JAX package), and
+# what the port's lanes return with the gate off (the wrapped digits the
+# JAX device lanes return too)
+GATES_SETUP = [
+    "create table g18t (d decimal(18,2), a bigint)",
+    f"insert into g18t values (999999999999.99, {2 ** 62}), (1.50, 3)",
+    "analyze table g18t",
+    "create table g18u (a bigint)",
+    f"insert into g18u values ({2 ** 61}), (5)",
+    "analyze table g18u",
+]
+GATES_WRAPS = {
+    "select d / 2.5 from g18t": "NUM-DIV-PRESCALE",
+    "select sum(d / 2.5) from g18t": "NUM-DIV-PRESCALE",
+    "select a + a from g18t": "NUM-OVERFLOW-DEVICE",
+    "select sum(a + a) from g18t": "NUM-OVERFLOW-DEVICE",
+    "select a * 16 from g18u where a > 100": "NUM-OVERFLOW-DEVICE",
+}
+GATES_WRAPPED = {
+    "select d / 2.5 from g18t": ["-337869762948.386065", "0.600000"],
+    "select sum(d / 2.5) from g18t": ["-337869762947.786065"],
+    "select a + a from g18t": [str(-2 ** 63), "6"],
+    "select sum(a + a) from g18t": [str(-2 ** 63 + 6)],
+    "select a * 16 from g18u where a > 100": ["0"],
+}
+GATES_DRIFT_ROWS = 64            # 18d's table: 1..64, then one far row
+GATES_DRIFT_FAR = 100_000
+
+
+def gates_phase(torch, gr, main_sess, main_data) -> int:
+    """Phase 18 (see the module docstring): returns the group_reduce
+    launches of 18b's narrow Q1 and Q6 statements."""
+    from tidb_tpu_torch.analysis import valueflow
+    from tidb_tpu_torch.analysis.contracts import PlanContractError
+    from tidb_tpu_torch.copr import dag as D
+    from tidb_tpu_torch.copr import exec as cexec
+    from tidb_tpu_torch.session import Session
+    from tidb_tpu_torch.testing import tpch
+    dom = main_sess.domain
+    on_card = dom.client.devices[0].type == "cuda"
+    sched = dom.client._scheduler()
+    sess = Session(dom)
+    sess.execute("set global tidb_tpu_result_cache_entries = 0")
+    sess.execute("set global tidb_tpu_trace_sample = 1")
+    c, names = dict(zip(*main_data)), main_data[0]
+
+    # -- a: the wrapping statements, refused by the gate ---------------- #
+    t0 = time.perf_counter()
+    for sql in GATES_SETUP:
+        sess.execute(sql)
+    sess.execute("set tidb_enable_plan_cache = 0")   # each plan afresh
+    sess.vars["tidb_tpu_verify_plan"] = 0   # off first: nothing refused
+    for sql, want in GATES_WRAPPED.items():
+        n0 = gr.LAUNCHES["group_reduce"]
+        rows = sess.execute(sql).rows
+        got = sorted(str(r[0]) for r in rows)
+        check(got == sorted(want), f"18a gate off {sql!r}: {got}")
+        print(f"18a gate off: {sql!r} rows={got} "
+              f"group_reduce_launches={gr.LAUNCHES['group_reduce'] - n0}")
+    sess.vars.pop("tidb_tpu_verify_plan")
+    for sql, rule in GATES_WRAPS.items():
+        n0 = gr.LAUNCHES["group_reduce"]
+        try:
+            sess.execute(sql)
+            got = "ran"
+        except PlanContractError as e:
+            got = e.rule
+        check(got == rule and gr.LAUNCHES["group_reduce"] == n0,
+              f"18a {sql!r}: {got}, want {rule} before any launch")
+        print(f"18a gate on: {sql!r} PlanContractError rule={got} "
+              "launches=0")
+    sess.execute("set tidb_enable_plan_cache = 1")
+    print(f"18a: s={time.perf_counter() - t0:.1f}")
+
+    # -- b: Q1 and Q6 at the main scale over the analyzed lineitem ------ #
+    t0 = time.perf_counter()
+    seen: list = []
+    real_lanes = cexec.group_reduce_lanes
+
+    def lanes_spy(gids, num_groups, lanes):
+        seen.append(len(gr.unique_lanes(lanes)))
+        return real_lanes(gids, num_groups, lanes)
+    driven = 0
+    cexec.group_reduce_lanes = lanes_spy
+    try:
+        for name in ("Q1", "Q6"):
+            sql = tpch.SQL_QUERIES[name]
+            # the plan phases 14-17 ran: the plan cache's, if it holds one
+            n0 = gr.LAUNCHES["group_reduce"]
+            with task_spy() as spy:
+                sess.execute(sql)
+            driven += gr.LAUNCHES["group_reduce"] - n0
+            print(f"18b {name} as planned for phases 14-17: narrow_sums="
+                  f"{[list(t.dag.narrow_sums) for t in spy.tasks]}")
+            sess.execute("set tidb_enable_plan_cache = 0")
+            n0 = gr.LAUNCHES["group_reduce"]
+            with task_spy() as spy:
+                sess.execute(sql)           # a plan cache miss: the gates
+            miss_ms = sess.timings["plan"] * 1e3
+            aggs = [t.dag for t in spy.tasks
+                    if isinstance(t.dag, D.Aggregation)]
+            # Q1's column SUMs narrow at SF=10; Q6's product may not
+            check(len(aggs) == 1 and (name != "Q1" or aggs[0].narrow_sums),
+                  f"18b {name}: narrow slots "
+                  f"{[a.narrow_sums for a in aggs]}")
+            agg = aggs[0]
+            sess.execute("set tidb_enable_plan_cache = 1")
+            dom.plan_cache._lru.clear()     # a narrow plan, cached
+            seen.clear()
+            sess.execute(sql)
+            check(seen and all(n == expected_lanes(agg) for n in seen),
+                  f"18b {name}: launch lanes {seen}, want "
+                  f"{expected_lanes(agg)}")
+            lanes = seen[0]
+            t1 = time.perf_counter()
+            rs = sess.execute(sql)          # warm, a plan cache hit
+            wall_ms = (time.perf_counter() - t1) * 1e3
+            hit_ms = sess.timings["plan"] * 1e3
+            sql_check(name, rs, c, names, None)
+            tree = newest_trace(dom, sql)
+            dev_ms = sum(sp.attrs.get("device_ms", 0.0)
+                         for sp in launch_spans(tree)) if tree else 0.0
+            launched = gr.LAUNCHES["group_reduce"] - n0
+            driven += launched
+            limbs = sum(1 for i, a in enumerate(agg.aggs)
+                        if a.func == D.AggFunc.SUM
+                        and not a.arg.dtype.is_float
+                        and i not in agg.narrow_sums)
+            print(f"18b {name}: narrow_sums={list(agg.narrow_sums)} "
+                  f"limb_sums={limbs} launch_lanes={lanes} "
+                  f"expected_lanes={expected_lanes(agg)} "
+                  f"rows={len(rs.rows)} warm_wall_ms={wall_ms:.3f} "
+                  f"plan_ms_miss={miss_ms:.3f} plan_ms_hit={hit_ms:.3f} "
+                  f"launch_device_ms={dev_ms:.3f} "
+                  f"group_reduce_launches={launched} exact=True")
+    finally:
+        cexec.group_reduce_lanes = real_lanes
+    print(f"18b: s={time.perf_counter() - t0:.1f}")
+
+    # -- d: watermark drift ------------------------------------------------ #
+    t0 = time.perf_counter()
+    sql = "select sum(a) from g18m"
+    sess.execute("create table g18m (a bigint)")
+    sess.execute("insert into g18m values " + ",".join(
+        f"({i})" for i in range(1, GATES_DRIFT_ROWS + 1)))
+    sess.execute("analyze table g18m")
+    sess.execute(f"insert into g18m values ({GATES_DRIFT_FAR})")
+    want = GATES_DRIFT_ROWS * (GATES_DRIFT_ROWS + 1) // 2 + GATES_DRIFT_FAR
+    rows0 = sess.execute(sql).rows     # planned on the old statistics
+    d0 = sched.stats()["value_drifts"]
+    sess.execute("analyze table g18m")  # the far row's watermark
+    rows1 = sess.execute(sql).rows     # the cached plan's old proof
+    d1 = sched.stats()["value_drifts"]
+    sess.execute("set tidb_enable_plan_cache = 0")
+    rows2 = sess.execute(sql).rows     # a fresh proof after the ANALYZE
+    d2 = sched.stats()["value_drifts"]
+    sess.execute("set tidb_enable_plan_cache = 1")
+    check(all(r == [(want,)] for r in (rows0, rows1, rows2)),
+          f"18d: {rows0} {rows1} {rows2}, want {want}")
+    check(d1 == d0 + 1 and d2 == d1,
+          f"18d: value_drifts {d0} -> {d1} -> {d2}")
+    print(f"18d drift: value_drifts {d0} -> {d1} (cached plan after the "
+          f"ANALYZE) -> {d2} (re-planned) result={want} exact=True "
+          f"registry_drifts={valueflow.drift_count()} "
+          f"s={time.perf_counter() - t0:.1f}")
+
+    # -- e: EXPLAIN's footers ------------------------------------------ #
+    for name in ("Q1", "Q6"):
+        lines = [r[0] for r in sess.execute(
+            "explain " + tpch.SQL_QUERIES[name]).rows]
+        foot = lines[lines.index("contract: ok"):] \
+            if "contract: ok" in lines else []
+        check(foot and any(ln.startswith("est. device bytes: ")
+                           for ln in foot)
+              and (name != "Q1" or any(ln.startswith("agg strategy: dense")
+                                       for ln in foot)),
+              f"18e {name}: footers {foot}")
+        for ln in foot:
+            print(f"18e EXPLAIN {name}: {ln}")
+
+    # -- f: the streamed Q1 with its DonationPlan ---------------------- #
+    t0 = time.perf_counter()
+    client = dom.client
+    snap = dom.catalog.get_table("test", "lineitem").snapshot()
+    cap = snap.device_bytes() // STREAM_PARTS
+    planned = len(snap.row_batches(cap) or ())
+    sql = tpch.SQL_QUERIES["Q1"]
+    real_launch = type(client)._launch
+
+    def undonated(self, dag, cols, counts, aux, row_capacity=0,
+                  donate=False):
+        return real_launch(self, dag, cols, counts, aux, row_capacity,
+                           donate=False)
+    out = {}
+    sess.execute(f"set global tidb_tpu_device_mem_cap = {cap}")
+    try:
+        for label in ("donated", "undonated", "donated again"):
+            if label == "undonated":
+                client._launch = undonated.__get__(client)
+            if on_card:
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                base = torch.cuda.memory_allocated()
+            s0 = sched.stats()
+            t1 = time.perf_counter()
+            rs = sess.execute(sql)
+            wall_ms = (time.perf_counter() - t1) * 1e3
+            if on_card:
+                torch.cuda.synchronize()
+            _wait_until(lambda s0=s0: sched.stats()["tasks_done"]
+                        >= s0["tasks_done"] + planned,
+                        "18f: the drain's bookkeeping")
+            s1 = sched.stats()
+            client.__dict__.pop("_launch", None)
+            if not out:
+                sql_check("Q1", rs, c, names, None)
+                first = rs.rows
+            check(rs.rows == first, f"18f [{label}]: rows != the first run")
+            peak = torch.cuda.max_memory_allocated() - base if on_card \
+                else 0
+            out[label] = dict(
+                launches=s1["donated_launches"] - s0["donated_launches"],
+                tasks=s1["donated_tasks"] - s0["donated_tasks"],
+                priced=s1["donated_bytes"] - s0["donated_bytes"],
+                peak=peak, wall_ms=wall_ms)
+            print(f"18f streamed Q1 [{label}]: batches={planned} "
+                  f"cap_bytes={cap} donated_launches="
+                  f"{out[label]['launches']} donated_tasks="
+                  f"{out[label]['tasks']} donated_bytes_priced="
+                  f"{out[label]['priced']} peak_above_start_bytes={peak} "
+                  f"wall_ms={wall_ms:.1f} exact=True")
+    finally:
+        client.__dict__.pop("_launch", None)
+        sess.execute("set global tidb_tpu_device_mem_cap = 0")
+    check(out["donated"]["launches"] == planned
+          and out["donated again"]["launches"] == planned
+          and out["undonated"]["launches"] == 0,
+          f"18f: donated launches {out}")
+    print(f"18f: peak_donated_bytes={out['donated']['peak']} "
+          f"peak_undonated_bytes={out['undonated']['peak']} "
+          f"peak_donated_again_bytes={out['donated again']['peak']} "
+          f"s={time.perf_counter() - t0:.1f}")
+    return driven
+
+
 def build_phase(*modules) -> None:
     """The kernel libraries of ``modules`` from the checkout's sources,
     one nvcc each, started together."""
@@ -5215,6 +5582,10 @@ def main() -> int:
         torch, gr, os1, S, main_data, args.main_sf, args.tpch_sf)
     lap("12 select surface")
     window_stats_phase(torch, gr, os1, S, main_sess, main_data, s4_data)
+    # 13c's ANALYZE does not invalidate cached plans (in either package):
+    # from here on every statement plans over the statistics, its SUMs
+    # proven narrow where valueflow proves them
+    main_sess.domain.plan_cache._lru.clear()
     lap("13 windows and statistics")
     server_phase(torch, gr, os1, S, main_sess, main_data, main_res)
     lap("14 server")
@@ -5225,8 +5596,12 @@ def main() -> int:
     lap("16 admission")
     counts["group_reduce"] += observability_phase(torch, gr, os1, main_sess,
                                                   main_data, s4_data)
-    del main_sess
     lap("17 observability")
+    counts["group_reduce_gates"] = 0
+    counts["group_reduce_gates"] += gates_phase(torch, gr, main_sess,
+                                                main_data)
+    del main_sess
+    lap("18 gates")
 
     cu = "tidb_tpu_torch/copr/cuda/"
     sources = {"radix_hist": cu + "radix_kernel.cu",
@@ -5254,11 +5629,12 @@ def main() -> int:
                                     "key's passes)",
                 "radix_onesweep64": f"{sort_sites} (a pass)"}
     # a lane set's launches are those of its path's run (main: Q1, Q6 and
-    # Q19; slice4: SORT and SEGMENT)
+    # Q19; slice4: SORT and SEGMENT; gates: phase 18b's narrow Q1 and Q6)
+    paths = {"main": "group_reduce", "slice4": "group_reduce_slice4",
+             "gates": "group_reduce_gates"}
     for name, r in kern.items():
         if name.startswith("group_reduce"):
-            counts[name] = counts["group_reduce" if r["path"] == "main"
-                                  else "group_reduce_slice4"]
+            counts[name] = counts[paths[r["path"]]]
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda",
          "source": sources[name.split("[")[0]],

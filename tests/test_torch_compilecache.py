@@ -56,7 +56,15 @@ def test_digests_equal_jax_and_the_key_anatomy():
     assert stable_digest(q1) == jck.stable_digest(jq1)
     assert family_digest(q1) == jck.family_digest(jq1)
     key = variant_key(q1, CPU8, "solo")
-    assert key.digest == stable_digest(q1) and key.donation_sig == "none"
+    assert key.digest == stable_digest(q1)
+    # the donation signature is the JAX package's, from the DonationPlan
+    assert key.donation_sig == jck.variant_key(
+        jq1, None, "solo", n_devices=8).donation_sig
+    don = variant_key(q1, CPU8, "solo", donate_argnums=(0, 1, 2))
+    assert don.donation_sig == jck.variant_key(
+        jq1, None, "solo", n_devices=8,
+        donate_argnums=(0, 1, 2)).donation_sig
+    assert don.entry_hex() != key.entry_hex()
     assert key.backend_fp == backend_fingerprint(CPU8)
     assert torch.__version__ in key.backend_fp
     assert variant_key(q1, CPU8[:1], "solo").entry_hex() != key.entry_hex()

@@ -45,9 +45,12 @@ def jax_session(domain):
     return s
 
 
-def pair(**kw):
-    """A fresh (JAX session, port session) pair, each on its own domain."""
-    return jax_session(jax_domain(**kw)), Session(Domain("cpu", **kw))
+def pair(n_devices: int = 1, **kw):
+    """A fresh (JAX session, port session) pair, each on its own domain;
+    ``n_devices`` logical devices for the port's (8 match the JAX mesh,
+    for a test that compares EXPLAIN's device-byte footers)."""
+    return (jax_session(jax_domain(**kw)),
+            Session(Domain("cpu", n_devices=n_devices, **kw)))
 
 
 def _run(sess, sql):

@@ -154,10 +154,32 @@ OBS_MODULES = ["tidb_tpu_torch/obs/__init__.py",
                "tidb_tpu_torch/session/session.py"]
 
 
+# the plan-time gates and buffer lifetime: the analysis passes, the
+# declared host view, and the modules they grow
+GATES_MODULES = ["tidb_tpu_torch/analysis/__init__.py",
+                 "tidb_tpu_torch/analysis/shardflow.py",
+                 "tidb_tpu_torch/analysis/valueflow.py",
+                 "tidb_tpu_torch/analysis/lifetime.py",
+                 "tidb_tpu_torch/analysis/lint.py",
+                 "tidb_tpu_torch/analysis/contracts.py",
+                 "tidb_tpu_torch/analysis/copcost.py",
+                 "tidb_tpu_torch/analysis/compilekey.py",
+                 "tidb_tpu_torch/parallel/topology.py",
+                 "tidb_tpu_torch/parallel/spmd.py",
+                 "tidb_tpu_torch/executor/plan.py",
+                 "tidb_tpu_torch/stats/handle.py",
+                 "tidb_tpu_torch/sched/task.py",
+                 "tidb_tpu_torch/sched/scheduler.py",
+                 "tidb_tpu_torch/store/columnar.py",
+                 "tidb_tpu_torch/store/client.py",
+                 "tidb_tpu_torch/obs/hbm.py",
+                 "tidb_tpu_torch/session/session.py"]
+
+
 @pytest.mark.parametrize("path", JOIN_MODULES + STORE_MODULES
                          + SELECT_MODULES + WINDOW_STATS_MODULES
                          + SERVER_MODULES + RESILIENCE_MODULES
-                         + SCHED_MODULES + OBS_MODULES)
+                         + SCHED_MODULES + OBS_MODULES + GATES_MODULES)
 def test_join_modules_are_checked(path):
     assert path in SOURCES
 
@@ -258,6 +280,13 @@ def test_obs_modules_load_no_jax():
     """The observability slice's modules, imported one by one in a fresh
     interpreter, each leave jax and tidb_tpu out of sys.modules."""
     _modules_load_no_jax(OBS_MODULES)
+
+
+def test_gates_modules_load_no_jax():
+    """The plan-time gates' and buffer lifetime's modules, imported one
+    by one in a fresh interpreter, each leave jax and tidb_tpu out of
+    sys.modules."""
+    _modules_load_no_jax(GATES_MODULES)
 
 
 def test_import_loads_no_jax_module():

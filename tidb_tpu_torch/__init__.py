@@ -71,7 +71,13 @@ its device time from CUDA events against the card's datasheet peaks;
 ``/hbm`` and ``/profile`` (``torch.profiler``), ``EXPLAIN ANALYZE``,
 ``TRACE``, ``PLAN REPLAYER DUMP``, the statement summary and slow log
 (``SHOW STATEMENTS_SUMMARY``, ``SHOW SLOW_QUERIES``, ``SHOW STATUS``),
-the opt-in telemetry report and the JSON functions (``utils/``).  What
+the opt-in telemetry report and the JSON functions (``utils/``).  Every
+SELECT's plan passes the plan-time gates before any launch
+(``analysis/contracts.verify_plan``, ``shardflow`` and ``valueflow``,
+behind ``tidb_tpu_verify_plan``): a plan whose device lanes would wrap
+is refused with ``PlanContractError``, an analyzed table's provably
+narrow SUMs run as one int64 word, and a launch over a streamed batch
+releases its inputs at the launch (``analysis/lifetime``).  What
 the port does not run yet raises ``NotImplementedError`` naming its
 ROADMAP.md item (below).
 """
@@ -80,7 +86,8 @@ ROADMAP.md item (below).
 # NotImplementedError each raises
 PLANNER = "Queue 1 item 1, sub-step 7: the cascades planner"
 EXCHANGE = "Queue 1 item 4: several physical GPUs"
-ANALYSIS = "Queue 1 item 7: slice 11, the analysis gates"
+ANALYSIS = ("Queue 1 item 7: slice 11, the rest of the analysis gates "
+            "(concurrency, lint and analysis/__main__)")
 CONTROL = "Queue 1 item 8: slice 12, the control plane"
 HOST_SURFACE = "Queue 1 item 9: slice 13, the rest of the host surface"
 

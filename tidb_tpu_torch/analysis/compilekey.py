@@ -21,10 +21,10 @@ program objects under it and persists its parts in the warm manifest):
                     of logical devices: sched/task), hashed
 - ``capacity_sig``  program shape class: builder kind, row capacity,
                     batch slot count, program knobs outside the dag
-- ``donation_sig``  ``"none"``: the port donates no buffers (the JAX
-                    package bakes XLA input aliasing into executables;
-                    its lifetime analysis comes with ROADMAP.md, Queue 1
-                    entry 11)
+- ``donation_sig``  DonationPlan slot classes + the donate_argnums the
+                    program applies (analysis/lifetime), so a donating
+                    and a non-donating program of one plan never share
+                    a key
 - ``backend_fp``    torch version + device type and CUDA capability +
                     logical device count + a hash of the kernel sources
                     under ``copr/cuda/`` (a kernel edit invalidates every
@@ -164,7 +164,7 @@ class CompileKey:
     family: str          # capacity-stripped digest (warm-capacity index)
     mesh_fp: str
     capacity_sig: str    # program kind / row capacity / slot count
-    donation_sig: str    # "none": the port donates no buffers
+    donation_sig: str    # DonationPlan classes + applied donate_argnums
     backend_fp: str
     capacity: int = 0    # regrow knob value (family capacity index)
 
@@ -192,10 +192,17 @@ class CompileKey:
 
 def variant_key(dag: D.CopNode, devices, program: str,
                 row_capacity: int = 0, n_slots: int = 0,
+                donate_argnums: Tuple[int, ...] = (),
                 extra: Tuple = ()) -> CompileKey:
-    """The persistent variant key of one spmd program kind.  ``extra``
-    carries program knobs outside the dag (fused-rows member
+    """The persistent variant key of one spmd program kind.  The
+    donation signature comes from the DAG's own DonationPlan — callers
+    cannot omit it, so the donating variant keys apart by construction.
+    ``extra`` carries program knobs outside the dag (fused-rows member
     capacities)."""
+    from .lifetime import donation_plan
+    plan = donation_plan(dag, program)
+    donation_sig = (f"{plan.describe()}|argnums="
+                    f"{tuple(int(a) for a in donate_argnums)}")
     if isinstance(dag, D.Aggregation):
         capacity = dag.state_capacity or 0
     elif isinstance(dag, D.FusedDag):
@@ -206,7 +213,7 @@ def variant_key(dag: D.CopNode, devices, program: str,
                f"/x={tuple(extra)}")
     return CompileKey(digest=stable_digest(dag), family=family_digest(dag),
                       mesh_fp=mesh_fingerprint_hex(devices),
-                      capacity_sig=cap_sig, donation_sig="none",
+                      capacity_sig=cap_sig, donation_sig=donation_sig,
                       backend_fp=backend_fingerprint(devices),
                       capacity=capacity)
 

@@ -2,9 +2,13 @@
 """Plan-contract verification: typed-IR checks BEFORE a launch.
 
 Reference analog: the typed IR verification compiler-first query engines
-run between planning and codegen.  The port holds the parts the device
-scheduler (sched/) reaches:
+run between planning and codegen.  The port holds the whole module:
 
+- ``verify_plan``: a built physical plan walked edge by edge, every
+  operator's declared contract against its children's (column
+  references, dtype families, arities, exchange boundaries), run by the
+  session's ``_plan_select`` with shardflow's and valueflow's plan
+  passes (``tidb_tpu_verify_plan``, on by default);
 - ``verify_dag``: a pushed cop DAG checked bottom-up (column references
   in range and dtype-consistent with the child's declared schema, only
   device-whitelisted ops, no host-object columns or unlowered strings
@@ -13,15 +17,14 @@ scheduler (sched/) reaches:
 - ``verify_task`` (sched admission): a structured CopTask's stacked
   inputs must match its key's capacity signature and divide over its
   devices — the precondition for in-flight dedup and batch-slot
-  coalescing to be shape-safe;
+  coalescing to be shape-safe — then the sharding-flow, value-range and
+  donation handshakes (analysis/shardflow, valueflow, lifetime);
 - ``fusion_signature`` and ``verify_fusion_group``: the contract class
   of a DAG that may join a cross-query fusion group, and the pre-launch
   check of a group.
 
 Each raises a structured ``PlanContractError`` (a PlanError, so the
-session surfaces it like any planner rejection).  ``verify_plan`` over a
-whole physical plan and the analysis gates come with ROADMAP.md, Queue 1
-entry 11.
+session surfaces it like any planner rejection).
 """
 
 from __future__ import annotations
@@ -363,6 +366,141 @@ def _walk_refs(e: Expr):
             yield from _walk_refs(a)
 
 
+# physical-plan verification
+# --------------------------------------------------------------------- #
+
+def verify_plan(plan) -> int:
+    """Walk a built physical plan and check every operator's declared
+    contract against its children's.  Returns the number of operators
+    checked; raises PlanContractError on the first violation.  Called
+    from the session plan path (before any execute or launch) and from
+    the analysis gate over the TPC-H plan corpus."""
+    from ..executor import physical as X
+    return _verify_op(plan, (), X)
+
+
+def _schema_of(op) -> Tuple[dt.DataType, ...]:
+    return tuple(op.out_dtypes)
+
+
+def _verify_op(op, path, X) -> int:
+    c = op.contract() if hasattr(op, "contract") else {}
+    p = path + (c.get("op", type(op).__name__),)
+    n = 1
+    for child in getattr(op, "children", []) or []:
+        if child is not None:
+            n += _verify_op(child, p, X)
+
+    out = tuple(c.get("out_dtypes", ()))
+    names = tuple(c.get("out_names", ()))
+    if names and out and len(names) != len(out):
+        _fail("arity", p,
+              f"{len(names)} output names vs {len(out)} output dtypes")
+
+    if isinstance(op, X.CopTaskExec):
+        verify_dag(op.dag)
+        if isinstance(op.dag, D.Aggregation):
+            want = len(op.key_meta) + len(op.dag.aggs)
+            if names and len(names) != want:
+                _fail("arity", p,
+                      f"aggregation produces {want} columns "
+                      f"({len(op.key_meta)} keys + {len(op.dag.aggs)} "
+                      f"aggs) but the contract declares {len(names)}")
+        else:
+            dag_out = D.output_dtypes(op.dag)
+            if out and len(out) != len(dag_out):
+                _fail("arity", p,
+                      f"DAG emits {len(dag_out)} columns but the "
+                      f"contract declares {len(out)}")
+            for i, (a, b) in enumerate(zip(out, dag_out)):
+                if not _compatible(a, b):
+                    _fail("dtype-mismatch", p,
+                          f"output column {i}: contract declares {a}, "
+                          f"DAG produces {b}")
+    elif isinstance(op, X.CopJoinTaskExec):
+        verify_dag(op.dag)
+        builds = (op.builds if op.builds
+                  else [{"exec": op.build_exec,
+                         "key_index": op.build_key_index}])
+        for b in builds:
+            bx = b["exec"]
+            if bx is None:
+                _fail("arity", p, "broadcast join without a build plan")
+            ki = b.get("key_index", 0)
+            if not (0 <= ki < len(bx.out_dtypes)):
+                _fail("column-ref", p,
+                      f"build key index {ki} out of range for the "
+                      f"{len(bx.out_dtypes)}-column build side")
+        if op.fallback is not None:
+            n += _verify_op(op.fallback, p, X)
+    elif isinstance(op, X.CopShuffleJoinExec):
+        n += _verify_shuffle_spec(op.spec, p)
+    elif isinstance(op, X.HostSelection):
+        schema = _schema_of(op.child)
+        for cond in op.conditions:
+            _check_expr(cond, schema, p)
+    elif isinstance(op, X.HostProjection):
+        schema = _schema_of(op.child)
+        for e in op.exprs:
+            _check_expr(e, schema, p)
+    elif isinstance(op, (X.HostSort, X.HostTopN)):
+        schema = _schema_of(op.child)
+        for e, _desc in op.keys:
+            _check_expr(e, schema, p)
+    elif isinstance(op, X.HostHashJoin):   # + merge/index-lookup subclasses
+        ls, rs = _schema_of(op.left), _schema_of(op.right)
+        for lk, rk in op.eq_keys:
+            if not (0 <= lk < len(ls)):
+                _fail("column-ref", p, f"left join key {lk} out of range")
+            if not (0 <= rk < len(rs)):
+                _fail("column-ref", p, f"right join key {rk} out of range")
+            lf, rf = _family(ls[lk]), _family(rs[rk])
+            if lf != rf and "?" not in (lf, rf) \
+                    and ls[lk].kind != K.NULL and rs[rk].kind != K.NULL:
+                _fail("dtype-mismatch", p,
+                      f"join keys disagree on representation family: "
+                      f"{ls[lk]} vs {rs[rk]}")
+        if out:
+            if op.kind in ("semi", "anti"):
+                want = len(ls)
+            elif op.kind in ("inner", "left", "right", "cross"):
+                want = len(ls) + len(rs)
+            else:
+                want = len(out)
+            if len(out) != want:
+                _fail("arity", p,
+                      f"{op.kind} join of {len(ls)}+{len(rs)} columns "
+                      f"declares {len(out)} outputs (expected {want})")
+    elif isinstance(op, X.HostSetOp):
+        kids = [k for k in op.children if k is not None]
+        widths = {len(k.out_dtypes) for k in kids}
+        if len(widths) > 1:
+            _fail("arity", p,
+                  f"set-operation children disagree on column count: "
+                  f"{sorted(widths)}")
+    return n
+
+
+def _verify_shuffle_spec(spec: D.ShuffleJoinSpec, path) -> int:
+    """Exchange-boundary agreement: both sides' chains, their declared
+    schemas, the key exprs, and the post-exchange `top` chain must all
+    describe the same columns — the mesh handshake of an MPP shuffle.
+    The schema/boundary half lives in analysis/shardflow (the single
+    source both this pass and the sharding-flow pass consume — thin
+    delegation so the two passes report the same rule and never
+    drift)."""
+    p = path + ("ShuffleJoinSpec",)
+    verify_dag(spec.left)
+    verify_dag(spec.right)
+    ls, rs = D.output_dtypes(spec.left), D.output_dtypes(spec.right)
+    from .shardflow import verify_shuffle_boundary
+    verify_shuffle_boundary(spec, path)
+    _check_expr(spec.left_key, ls, p, device=True)
+    _check_expr(spec.right_key, rs, p, device=True)
+    verify_dag(spec.top)
+    return 1
+
+
 # --------------------------------------------------------------------- #
 # sched admission verification (capacity-shape handshake)
 # --------------------------------------------------------------------- #
@@ -403,9 +541,24 @@ def verify_task(task) -> None:
             _fail("capacity-shape", p,
                   f"{s} shards do not divide over {n_dev} devices on the "
                   "shard axis")
-    # the JAX package's sharding-flow, value-range and donation
-    # handshakes (analysis/shardflow, valueflow, lifetime) come with the
-    # analysis gates (ROADMAP.md, Queue 1 entry 11)
+    # sharding-flow handshake (analysis/shardflow): the task's mesh must
+    # carry the exchange axis and its DAG must flow clean against the
+    # mesh's typed-link topology (implicit reshards, merge routing,
+    # psum limb-fence bound) — still before any launch, still memoized
+    from .shardflow import verify_task_sharding
+    verify_task_sharding(task)
+    # value-range handshake (analysis/valueflow): the task's DAG must
+    # flow finite, int64-safe intervals — a digest the session proved at
+    # plan time is a registry hit; an unknown digest re-flows from type
+    # domains.  Still before any launch, still memoized.
+    from .valueflow import verify_task_values
+    verify_task_values(task)
+    if getattr(task, "donate", False):
+        # donation-safety handshake (analysis/lifetime): a donating
+        # task must be in an EPHEMERAL program class and its inputs
+        # must not be live snapshot-cache residents
+        from .lifetime import verify_task_donation
+        verify_task_donation(task)
 
 
 # --------------------------------------------------------------------- #
@@ -535,5 +688,5 @@ def verify_fusion_group(tasks: Sequence) -> None:
                   "fuse across queries")
 
 
-__all__ = ["PlanContractError", "verify_dag", "verify_task",
+__all__ = ["PlanContractError", "verify_plan", "verify_dag", "verify_task",
            "fusion_signature", "verify_fusion_group"]

@@ -49,7 +49,6 @@ from typing import Optional, Sequence, Tuple
 
 import numpy as np
 
-from .. import ANALYSIS, unported
 from ..copr import dag as D
 from ..expr.ir import Expr, Func
 from ..types import dtypes as dt
@@ -601,8 +600,13 @@ def dag_cost(dag: D.CopNode, layout: Layout,
     aux_total = int(aux_bytes) * d
     donated = 0
     if donation is not None and donation.donate_argnums:
-        # a DonationPlan comes from analysis/lifetime, not ported yet
-        raise unported("buffer donation (analysis/lifetime)", ANALYSIS)
+        from .lifetime import ARG_AUX, ARG_COLS
+        donatable = 0
+        if ARG_COLS in donation.donate_argnums:
+            donatable += int(input_bytes)         # cols + counts upload
+        if ARG_AUX in donation.donate_argnums:
+            donatable += aux_total
+        donated = min(donatable, int(out_bytes))
     coll = _collective_breakdown(dag, layout, widths, topo, merge_route)
     transfer = int(input_bytes) + aux_total + int(out_bytes)
     return LaunchCost(
@@ -660,11 +664,21 @@ def task_cost(task) -> Optional[LaunchCost]:
     # live rows are a device-resident count; the padded extent is the
     # honest static bound (waste reads 1.0x at admission by design)
     layout = Layout(s or 1, c or 1, n_dev, (s or 1) * (c or 1))
+    donation = None
+    if getattr(task, "donate", False):
+        # donating task: the lifetime plan's release tightens the
+        # admission bound (verify_task_donation already vetted safety)
+        from .lifetime import donation_plan
+        donation = donation_plan(task.dag, "solo")
+    # typed-link classification of the merge collectives: the declared
+    # host view (tidb_tpu_topology_hosts) splits ici/dci here, making
+    # RU pricing and the HBM/fusion caps topology-aware at admission
     from ..parallel.topology import topology_for
     topo = topology_for(task.mesh) if task.mesh is not None else None
     return dag_cost(task.dag, layout, tuple(widths),
                     input_bytes=input_bytes, aux_bytes=aux_bytes,
-                    row_capacity=task.row_capacity, topology=topo)
+                    row_capacity=task.row_capacity, donation=donation,
+                    topology=topo)
 
 
 def mesh_hbm_budget(devices) -> int:

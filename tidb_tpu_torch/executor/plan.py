@@ -1159,12 +1159,24 @@ def _chain_output_dicts(plan: LogicalPlan) -> dict:
 
 
 def _maybe_narrow(agg_node: D.Aggregation, ds) -> D.Aggregation:
-    """The aggregation unchanged.  The JAX package stamps valueflow-proven
-    single-word SUM slots here, which needs ANALYZEd column intervals
-    (slice 9) and the valueflow pass (slice 11); without a stats handle
-    its own planner leaves the aggregation as it is, and so does the
-    port's, which has none."""
-    return agg_node
+    """Stamp valueflow-proven single-word SUM slots onto a bound
+    SCALAR/DENSE aggregation.  The proof needs attained (ANALYZEd)
+    column intervals, so it only fires when the planning pass has a
+    stats handle and the scanned table is analyzed; the stamp changes
+    the frozen DAG's digest, so narrow and limb programs key, cache,
+    price and fuse apart automatically."""
+    if ds is None or agg_node is None or not agg_node.aggs:
+        return agg_node
+    handle = STATS_HANDLE.get()
+    table = getattr(ds, "table", None)
+    if handle is None or table is None:
+        return agg_node
+    from ..analysis import valueflow
+    ns = valueflow.prove_narrow_sums(agg_node, table, handle)
+    if not ns:
+        return agg_node
+    import dataclasses
+    return dataclasses.replace(agg_node, narrow_sums=ns)
 
 
 def _bind_agg(agg: LogicalAggregate, child: D.CopNode, dicts,

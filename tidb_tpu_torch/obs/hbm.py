@@ -5,8 +5,13 @@ card's own memory counters, and the on-demand profiler capture.
 Reference analog: the executor memory tracker tree of the reference
 engine (util/memory Tracker feeding quota actions, PAPER.md) — per-query
 memory is TRACKED while it is resident, not predicted once and
-forgotten.  The per-device ledger (``ledger_for``) is credited by the
-scheduler's drain at launch admission (``launch_begin``), debited at
+forgotten.  The per-device ledger (``ledger_for``) is credited with each
+snapshot's resident tensors when they enter the snapshot cache
+(``add_resident``, through ``analysis/lifetime.register_resident``, and
+debited by the weakref's death callback), by the scheduler's drain at
+launch admission (``launch_begin``: what the launch adds over its
+resident inputs; a donating launch's priced peak already leaves out
+its released inputs, so they are credited at dispatch), debited at
 finish (``launch_end``) and fed each launch's measured peak
 (``note_measured``: ``torch.cuda.max_memory_allocated`` around it, taken
 by the scheduler).  ``reconcile`` compares the ledger with the card's
@@ -16,10 +21,6 @@ device memory poll of the port (``torch.cuda.memory_stats`` and
 ``mem_get_info``); the admission budget (analysis/copcost
 ``mesh_hbm_budget``) derives from its ``bytes_limit``.  The CPU reports
 none, and the ledger runs alone there.
-
-The JAX package's ledger also tracks the snapshot residents through the
-lifetime analysis's weakref registry (ROADMAP.md, Queue 1 entry 11); the
-port's accounts the launches in flight and the measured peaks.
 
 The module also owns the ``/profile?ms=N`` capture gate (sysvar
 ``tidb_tpu_profile``): one ``torch.profiler`` capture at a time, CPU and
@@ -32,6 +33,7 @@ from __future__ import annotations
 import os
 import threading
 import time
+import weakref
 from collections import deque
 from typing import Optional
 
@@ -71,26 +73,33 @@ def device_memory_stats(devices) -> Optional[dict]:
 
 class HbmLedger:
     """Live device-memory account of ONE device tuple (keyed by its
-    fingerprint, like the scheduler registry): the bytes of the launches
-    in flight (``launch_begin``/``launch_end``, the drain's static
-    estimate of what a launch adds over its resident inputs) and the
-    measured launch peaks (``note_measured``).  All mutation takes the
-    leaf lock ``_mu``; balances are clamped at zero with a
-    ``negative_events`` counter — bookkeeping drift surfaces as a
-    diagnostic, never as a wedged account.  The JAX package's ledger
-    also tracks the snapshot residents through the lifetime analysis's
-    weakref registry (ROADMAP.md, Queue 1 entry 11) and reconciles with
-    the device's stats for ``/hbm`` (entry 12)."""
+    fingerprint, like the scheduler registry): the snapshot residents
+    (``add_resident``, debited by a weakref death callback), the bytes
+    of the launches in flight (``launch_begin``/``launch_end``, the
+    drain's static estimate of what a launch adds over its resident
+    inputs) and the measured launch peaks (``note_measured``).  All
+    mutation takes the leaf lock ``_mu``; the weakref death callback
+    runs under it too.  Balances are clamped at zero with a ``negative_events``
+    counter — bookkeeping drift surfaces as a diagnostic, never as a
+    wedged account."""
 
     def __init__(self, fingerprint=None):
         self.fingerprint = fingerprint
         self._mu = threading.Lock()
+        # id(weakref) -> (weakref, nbytes); the ref's death callback
+        # debits the account.  Keyed by the REF's id, not the referent:
+        # a weakref hashes through its referent, and a ref id can never
+        # be recycled while the entry holds the ref alive.
+        self._residents: dict = {}
+        self.persistent_bytes = 0      # live snapshot-cache residents
         self.inflight_bytes = 0        # launches currently holding HBM
-        self.watermark_bytes = 0       # high-water of in-flight + measured
+        self.watermark_bytes = 0       # high-water of resident + measured
         self.max_measured_bytes = 0    # largest per-launch measured peak
         self.last_measured_bytes = 0
         self.launches = 0              # launch_begin events (lifetime)
         self.measured_launches = 0     # launches with a measured peak
+        self.registered = 0            # resident registrations (lifetime)
+        self.unregistered = 0          # weakref deaths debited
         self.negative_events = 0       # clamped would-be-negative balances
         self._measured_ring: deque = deque(maxlen=MEASURED_RING)
         self._recon_ts = 0.0
@@ -99,18 +108,57 @@ class HbmLedger:
         reg = global_registry()
         self._m_resident = reg.gauge(
             "tidb_tpu_hbm_resident_bytes",
-            "ledger-tracked device bytes of the launches in flight")
+            "ledger-tracked live device bytes (persistent residents "
+            "+ in-flight launch footprints)")
         self._m_watermark = reg.gauge(
             "tidb_tpu_hbm_watermark_bytes",
-            "high-water of the ledger and the measured launch peaks")
+            "high-water of ledger residency and measured launch peaks")
+
+    # ---- persistent residents (the lifetime registry's events) ------ #
+
+    def add_resident(self, token, nbytes: int) -> None:
+        """One snapshot's device-resident tensors entered the cache:
+        credit ``nbytes`` against a weakref on ``token`` (the counts
+        tensor — the same registry token lifetime.register_resident
+        uses) whose death callback debits the account."""
+        if token is None or nbytes <= 0:
+            return
+        with self._mu:
+            for r, _n in self._residents.values():
+                if r() is token:
+                    return          # same live object re-registered
+            try:
+                ref = weakref.ref(token, self._resident_dead)
+            except TypeError:
+                return
+            self._residents[id(ref)] = (ref, int(nbytes))
+            self.persistent_bytes += int(nbytes)
+            self.registered += 1
+            self._bump_watermark_locked()
+        self._publish()
+
+    def _resident_dead(self, ref) -> None:
+        """Weakref death callback: the resident tensors were collected —
+        the unregister half of the registry contract."""
+        with self._mu:
+            ent = self._residents.pop(id(ref), None)
+            if ent is None:
+                return
+            self.persistent_bytes -= ent[1]
+            self.unregistered += 1
+            if self.persistent_bytes < 0:
+                self.negative_events += 1
+                self.persistent_bytes = 0
+        self._publish()
+
+    # ---- launch-scoped bytes (admission enter, finish leave) -------- #
 
     def launch_begin(self, nbytes: int) -> None:
         with self._mu:
             self.launches += 1
             if nbytes > 0:
                 self.inflight_bytes += int(nbytes)
-            if self.inflight_bytes > self.watermark_bytes:
-                self.watermark_bytes = self.inflight_bytes
+            self._bump_watermark_locked()
         self._publish()
 
     def launch_end(self, nbytes: int) -> None:
@@ -137,8 +185,13 @@ class HbmLedger:
                 self.watermark_bytes = int(nbytes)
         self._publish()
 
+    def _bump_watermark_locked(self) -> None:
+        live = self.persistent_bytes + self.inflight_bytes
+        if live > self.watermark_bytes:
+            self.watermark_bytes = live
+
     def _publish(self) -> None:
-        self._m_resident.set(self.inflight_bytes)
+        self._m_resident.set(self.persistent_bytes + self.inflight_bytes)
         self._m_watermark.set(self.watermark_bytes)
 
     # ---- reconciliation (bounded poll, never the launch path) ------- #
@@ -160,10 +213,11 @@ class HbmLedger:
                 n_dev = len({(d.type, d.index) for d in mesh})
                 in_use = stats["bytes_in_use"] * n_dev
                 with self._mu:
+                    live = self.persistent_bytes + self.inflight_bytes
                     self._recon = {
                         "device_bytes_in_use": in_use,
-                        "ledger_bytes": self.inflight_bytes,
-                        "drift_bytes": in_use - self.inflight_bytes,
+                        "ledger_bytes": live,
+                        "drift_bytes": in_use - live,
                         "peak_bytes_in_use":
                             stats["peak_bytes_in_use"] * n_dev,
                         "bytes_limit": stats["bytes_limit"] * n_dev,
@@ -174,13 +228,25 @@ class HbmLedger:
     @property
     def resident_bytes(self) -> int:
         with self._mu:
-            return self.inflight_bytes
+            return self.persistent_bytes + self.inflight_bytes
+
+    def residents(self) -> list:
+        """[(nbytes, alive)] of tracked resident entries (diagnostics;
+        dead entries cannot appear — the callback removed them)."""
+        with self._mu:
+            return [(n, r() is not None)
+                    for r, n in self._residents.values()]
 
     def stats(self) -> dict:
         with self._mu:
             return {
+                "persistent_bytes": self.persistent_bytes,
                 "inflight_bytes": self.inflight_bytes,
-                "resident_bytes": self.inflight_bytes,
+                "resident_bytes": self.persistent_bytes
+                + self.inflight_bytes,
+                "residents": len(self._residents),
+                "registered": self.registered,
+                "unregistered": self.unregistered,
                 "watermark_bytes": self.watermark_bytes,
                 "max_measured_bytes": self.max_measured_bytes,
                 "last_measured_bytes": self.last_measured_bytes,

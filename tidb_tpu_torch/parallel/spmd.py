@@ -59,6 +59,19 @@ key.  The device scheduler (sched/) launches three more program kinds:
   XLA common-subexpression elimination of the shared scan and
   predicates across members has no eager counterpart: each member
   evaluates its own chain.
+
+Every program kind carries the DAG's ``DonationPlan``
+(analysis/lifetime, ``self.donation``) and derives its
+``_donate_argnums`` from it, as the JAX package's programs derive
+``donate_argnums``: a solo or fused program donates only when it is
+built for launch-unique inputs (``donate=True``, the client's streamed
+batches), the batched kinds always donate their fresh slot stacks, and
+an explicit override is re-verified (``verify_donation`` raises
+``DonationError`` before any launch).  Where XLA aliases a donated input
+into an output, a donating port program hands the input's device memory
+back to the caching allocator once its kernels are queued
+(``release_donated``, after ``record_stream`` on the kernels' stream),
+instead of at the end of the caller's batch.
 """
 
 from __future__ import annotations
@@ -67,6 +80,8 @@ from typing import Sequence
 
 import torch
 
+from ..analysis.lifetime import (ARG_AUX, ARG_COLS, ARG_COUNTS,
+                                 donation_plan, verify_donation)
 from ..copr import dag as D
 from ..copr.aggregate import _MERGE
 from ..copr import exec as _exec
@@ -119,6 +134,54 @@ def _stack(trees: list):
     return torch.stack(trees)
 
 
+def _donation_argnums(dag, program: str, donate: bool,
+                      override) -> tuple:
+    """The program-side donation seam: ``donate_argnums`` comes ONLY
+    from the DAG's DonationPlan (analysis/lifetime), and any explicit
+    override is re-verified before any launch, so a seeded unsafe plan
+    raises DonationError before a launch could release an input."""
+    if override is not None:
+        argnums = tuple(override)
+        verify_donation(dag, argnums, program)
+        return argnums
+    if not donate:
+        return ()
+    return donation_plan(dag, program).donate_argnums
+
+
+def release_donated(argnums: tuple, cols, counts, aux=()) -> int:
+    """Give the donated inputs of a launch whose kernels are queued back
+    to the caching allocator: each tensor is recorded on the current
+    (the kernels') stream, so no later allocation reuses its block
+    before those kernels end, then its storage shrinks to nothing.  Only
+    storage torch owns is released (on the CPU a batch's stacks may be
+    numpy's).  Returns the bytes released."""
+    tensors = []
+    if ARG_COLS in argnums:
+        for v, m in cols:
+            tensors += [v, m]
+    if ARG_COUNTS in argnums:
+        tensors.append(counts)
+    if ARG_AUX in argnums:
+        for grp in aux:
+            for v, m in grp:
+                tensors += [v, m]
+    freed = 0
+    seen: set = set()
+    for t in tensors:
+        if not isinstance(t, torch.Tensor):
+            continue
+        st = t.untyped_storage()
+        if st.data_ptr() in seen or not st.resizable() or st.nbytes() == 0:
+            continue
+        seen.add(st.data_ptr())
+        if t.is_cuda:
+            t.record_stream(torch.cuda.current_stream(t.device))
+        freed += st.nbytes()
+        st.resize_(0)
+    return freed
+
+
 class ShardedCopProgram:
     """The program over the devices: ``__call__(stacked_cols, counts,
     aux_cols)`` -> the merged partial states (``merge_kind == "psum"``),
@@ -128,7 +191,8 @@ class ShardedCopProgram:
     ``has_extras``, ``(that, extras)``, each extra stacked a device."""
 
     def __init__(self, dag_root: D.CopNode, devices: Sequence[torch.device],
-                 row_capacity: int = 0):
+                 row_capacity: int = 0, donate: bool = False,
+                 donate_argnums=None):
         self.root = dag_root
         self.row_capacity = row_capacity
         self.agg = dag_root if isinstance(dag_root, D.Aggregation) else None
@@ -150,6 +214,13 @@ class ShardedCopProgram:
         # a program with an expanding join also returns the devices'
         # extras (the true join output size) for the client's regrow
         self.has_extras = D.find_expand_join(dag_root) is not None
+        # buffer donation (analysis/lifetime): the donating variant is
+        # built for launch-unique inputs (the streamed path) only, and
+        # the plan forbids donation outright for loop-carried regrow
+        # programs (rows paging, SORT/SEGMENT regrow, expanding joins)
+        self.donation = donation_plan(dag_root, "solo")
+        self._donate_argnums = _donation_argnums(
+            dag_root, "solo", donate, donate_argnums)
 
     def _device_fn(self, cols, counts, device, aux):
         """The device's outputs as ``[(out, extras)]``: one entry, or one
@@ -203,6 +274,9 @@ class ShardedCopProgram:
         outs = [out for out, _ in runs]
         out = _stack(outs) if self.agg is None or self.host_merge \
             else _collective_merge(outs)
+        if self._donate_argnums:
+            release_donated(self._donate_argnums, stacked_cols, counts,
+                            aux_cols)
         if self.has_extras:
             return out, {k: torch.stack([torch.as_tensor(ex[k])
                                          for _, ex in runs])
@@ -221,23 +295,28 @@ def _limb_fence(s: int, c: int) -> None:
 
 
 def _resolve(dag, devices, program: str, build, row_capacity: int = 0,
-             n_slots: int = 0, extra: tuple = ()):
-    """The program of (dag, devices, kind) through the program cache."""
+             n_slots: int = 0, extra: tuple = (), donate: bool = False):
+    """The program of (dag, devices, kind) through the program cache; a
+    donating variant keys apart by its plan's ``donate_argnums``."""
     from ..analysis.compilekey import variant_key
     from ..compilecache import compile_cache
+    argnums = _donation_argnums(dag, program, donate, None)
     key = variant_key(dag, devices, program, row_capacity=row_capacity,
-                      n_slots=n_slots, extra=extra)
+                      n_slots=n_slots, donate_argnums=argnums, extra=extra)
     return compile_cache().resolve(key, build)
 
 
 def get_sharded_program(dag_root: D.CopNode, devices,
-                        row_capacity: int = 0) -> ShardedCopProgram:
-    """The shared ``ShardedCopProgram`` of (dag, devices, row capacity)."""
+                        row_capacity: int = 0,
+                        donate: bool = False) -> ShardedCopProgram:
+    """The shared ``ShardedCopProgram`` of (dag, devices, row capacity);
+    the donating variant (launch-unique inputs) caches apart."""
     devices = tuple(devices)
+    donate = True if donate else False
     return _resolve(dag_root, devices, "solo",
                     lambda: ShardedCopProgram(dag_root, devices,
-                                              row_capacity),
-                    row_capacity=row_capacity)
+                                              row_capacity, donate),
+                    row_capacity=row_capacity, donate=donate)
 
 
 # --------------------------------------------------------------------- #
@@ -252,13 +331,20 @@ class FusedCopProgram:
     member).  Members qualify when they are extras-free aggregations (an
     expanding join's regrow loop re-runs programs per task)."""
 
-    def __init__(self, fused: D.FusedDag, devices):
+    def __init__(self, fused: D.FusedDag, devices, donate: bool = False,
+                 donate_argnums=None):
         if len(fused.members) < 2:
             raise ValueError("fusion needs at least two member chains")
         self.fused = fused
         self.devices = tuple(devices)
         self.members = tuple(get_sharded_program(m, self.devices)
                              for m in fused.members)
+        # donation over the FUSED dag: the plan re-derives from every
+        # member (one loop-carried member makes the shared scan
+        # loop-carried; a shared aux slot is persistent)
+        self.donation = donation_plan(fused, "fused")
+        self._donate_argnums = _donation_argnums(
+            fused, "fused", donate, donate_argnums)
         for p in self.members:
             if p.kind != "agg" or p.has_extras:
                 raise ValueError(
@@ -268,14 +354,21 @@ class FusedCopProgram:
 
     def __call__(self, stacked_cols: Sequence, counts: torch.Tensor,
                  aux_cols: Sequence = ()) -> tuple:
-        return tuple(p(stacked_cols, counts, aux_cols)
+        outs = tuple(p(stacked_cols, counts, aux_cols)
                      for p in self.members)
+        if self._donate_argnums:
+            release_donated(self._donate_argnums, stacked_cols, counts,
+                            aux_cols)
+        return outs
 
 
-def get_fused_program(fused: D.FusedDag, devices) -> FusedCopProgram:
+def get_fused_program(fused: D.FusedDag, devices,
+                      donate: bool = False) -> FusedCopProgram:
     devices = tuple(devices)
+    donate = True if donate else False
     return _resolve(fused, devices, "fused",
-                    lambda: FusedCopProgram(fused, devices))
+                    lambda: FusedCopProgram(fused, devices, donate),
+                    donate=donate)
 
 
 class FusedRowsProgram:
@@ -284,11 +377,17 @@ class FusedRowsProgram:
     buffer and live count, so every waiter's paging loop still sees its
     own counts.  Only extras-free chains qualify."""
 
-    def __init__(self, fused: D.FusedDag, devices, row_capacities: tuple):
+    def __init__(self, fused: D.FusedDag, devices, row_capacities: tuple,
+                 donate_argnums=None):
         if len(fused.members) < 2:
             raise ValueError("fusion needs at least two member chains")
         if len(row_capacities) != len(fused.members):
             raise ValueError("one row capacity per member chain")
+        # per-member paging loops re-feed the shared scan: the plan is
+        # loop-carried, so only a (verified) override could donate
+        self.donation = donation_plan(fused, "fused-rows")
+        self._donate_argnums = _donation_argnums(
+            fused, "fused-rows", False, donate_argnums)
         self.fused = fused
         self.devices = tuple(devices)
         self.members = tuple(
@@ -410,10 +509,17 @@ class BatchedCopProgram:
     (the module docstring gives the design: one ``group_reduce_lanes``
     call a logical device over K·G groups)."""
 
-    def __init__(self, dag_root: D.CopNode, devices, n_slots: int):
+    def __init__(self, dag_root: D.CopNode, devices, n_slots: int,
+                 donate: bool = True):
         self.base = get_sharded_program(dag_root, devices)
         if self.base.kind != "agg" or not batchable(self.base):
             raise ValueError("only row-wise SCALAR/DENSE agg plans batch")
+        # the (S, K, C) slot stacks are fresh copies built per launch: the
+        # lifetime plan donates them unconditionally, K tasks' worth of
+        # stacked inputs released at the launch
+        self.donation = donation_plan(dag_root, "batched")
+        self._donate_argnums = _donation_argnums(
+            dag_root, "batched", donate, None)
         self.agg = self.base.agg
         self.devices = self.base.devices
         self.n_slots = n_slots
@@ -434,6 +540,8 @@ class BatchedCopProgram:
                                     Evaluator(device), (), slots=slots)
             outs.append(st)
         merged = _collective_merge(outs)
+        if self._donate_argnums:
+            release_donated(self._donate_argnums, stacked, counts)
         K, G = self.n_slots, self.groups
         if self.agg.strategy == D.GroupStrategy.SCALAR:
             return [_tree_map(lambda t, i=i: t.view(K)[i], merged)
@@ -448,7 +556,7 @@ def get_batched_program(dag_root: D.CopNode, devices,
     n_slots = _pow2_slots(n_slots)
     return _resolve(dag_root, devices, "batched",
                     lambda: BatchedCopProgram(dag_root, devices, n_slots),
-                    n_slots=n_slots)
+                    n_slots=n_slots, donate=True)   # donates the stacks
 
 
 def _compact_slots(batch, capacity: int, s: int, k: int, c: int):
@@ -492,10 +600,15 @@ class BatchedRowsProgram:
     ``ShardedCopProgram`` returns it, each slot compacted on its own."""
 
     def __init__(self, dag_root: D.CopNode, devices, row_capacity: int,
-                 n_slots: int):
+                 n_slots: int, donate: bool = True):
         self.base = get_sharded_program(dag_root, devices, row_capacity)
         if self.base.kind != "rows" or not batchable(self.base):
             raise ValueError("only extras-free row-wise row plans batch")
+        # each paging re-entry re-stacks its own members: the stacks die
+        # with the launch, never re-read
+        self.donation = donation_plan(dag_root, "batched-rows")
+        self._donate_argnums = _donation_argnums(
+            dag_root, "batched-rows", donate, None)
         self.root = dag_root
         self.devices = self.base.devices
         self.row_capacity = row_capacity
@@ -513,6 +626,8 @@ class BatchedRowsProgram:
                                Evaluator(device), ())
             outs.append(_compact_slots(batch, self.row_capacity,
                                        s_loc, kk, c))
+        if self._donate_argnums:
+            release_donated(self._donate_argnums, stacked, counts)
         out_cols, out_counts = _stack(outs)     # (D, K, cap) / (D, K)
         return [([(v[:, i], m[:, i]) for v, m in out_cols],
                  out_counts[:, i]) for i in range(k)]
@@ -526,11 +641,12 @@ def get_batched_rows_program(dag_root: D.CopNode, devices,
     return _resolve(dag_root, devices, "batched-rows",
                     lambda: BatchedRowsProgram(dag_root, devices,
                                                row_capacity, n_slots),
-                    row_capacity=row_capacity, n_slots=n_slots)
+                    row_capacity=row_capacity, n_slots=n_slots, donate=True)
 
 
 __all__ = ["ShardedCopProgram", "get_sharded_program", "batchable",
            "BatchedCopProgram", "get_batched_program",
            "BatchedRowsProgram", "get_batched_rows_program",
            "FusedCopProgram", "get_fused_program",
-           "FusedRowsProgram", "get_fused_rows_program"]
+           "FusedRowsProgram", "get_fused_rows_program",
+           "release_donated"]

@@ -1,9 +1,11 @@
 # ported from tidb_tpu/parallel/topology.py @ 6298005
 """Mesh topology as typed links: intra-chip, same-host ICI, cross-host DCI.
 
-In the port only the byte counts by link class copcost reaches are
-copied (``TransferBreakdown``, ``MeshTopology``, ``topology_for``,
-``single_host``); there are no rates here.  For the port the classes
+In the port the byte counts by link class that copcost and shardflow
+reach are copied (``TransferBreakdown``, ``MeshTopology``,
+``topology_for``, ``single_host``) with the declared host view
+(``set_host_view``, ``host_view``: the ``tidb_tpu_topology_hosts``
+sysvar); there are no rates here.  For the port the classes
 mean: ``intra`` the bytes that stay on one card (its logical devices
 share it, so an exchange between them is a copy in its memory) or cross
 PCIe between host and card; ``ici`` the bytes between cards of one host
@@ -43,6 +45,7 @@ DCI is identically zero.
 
 from __future__ import annotations
 
+import threading
 from dataclasses import dataclass
 from typing import Optional, Tuple
 
@@ -233,20 +236,58 @@ class MeshTopology:
 # topology derivation: mesh metadata + the declared host view
 # --------------------------------------------------------------------- #
 
+# declared host factorization (sysvar tidb_tpu_topology_hosts): lets a
+# single-host device list present a multi-host view for analysis — the
+# tier-1 seam for the DCI tier.  None = derive from the devices.
+_HOST_VIEW: Optional[int] = None
+_VIEW_MU = threading.Lock()
+
+
+def set_host_view(n_hosts: Optional[int]) -> None:
+    """Declare the host factorization analysis should assume; None (or
+    a non-positive count) reverts to deriving it from the devices."""
+    global _HOST_VIEW
+    with _VIEW_MU:
+        _HOST_VIEW = _as_int(n_hosts) \
+            if n_hosts and _as_int(n_hosts) > 0 else None
+
+
+def host_view() -> Optional[int]:
+    with _VIEW_MU:
+        return _HOST_VIEW
+
+
+def _mesh_hosts(_mesh) -> int:
+    """Distinct host count of a device list.  The port runs in one
+    process, so every ``torch.device`` of it lives on this host (the JAX
+    package reads each device's ``process_index``)."""
+    return 1
+
+
 def topology_for(mesh=None, *, n_devices: Optional[int] = None,
                  n_hosts: Optional[int] = None,
                  axis_names: Optional[Tuple[str, ...]] = None
                  ) -> MeshTopology:
-    """MeshTopology of a device list (or of explicit metadata): the
-    explicit ``n_hosts``, else one host (the port declares no host view
-    and runs in one process)."""
+    """MeshTopology of a device list (or of explicit metadata when no
+    device list is at hand — the gate analyzes topologies this process
+    does not own).
+
+    Precedence for the host count: explicit ``n_hosts`` argument, then
+    the declared host view (``tidb_tpu_topology_hosts``), then the
+    device list's hosts, else 1.  A declared view that does not divide
+    the device count falls back to single-host rather than poisoning
+    every analysis with a structural error."""
     if mesh is not None and n_devices is None:
         n_devices = len(mesh)
     if axis_names is None:
         axis_names = (SHARD_AXIS,)
     if n_devices is None or n_devices <= 0:
         n_devices = 1
-    if n_hosts is None or n_hosts <= 0 or n_devices % n_hosts != 0:
+    if n_hosts is None:
+        n_hosts = host_view()
+    if n_hosts is None:
+        n_hosts = _mesh_hosts(mesh) if mesh is not None else 1
+    if n_hosts <= 0 or n_devices % n_hosts != 0:
         n_hosts = 1
     return MeshTopology(tuple(axis_names), _as_int(n_devices),
                         _as_int(n_hosts))
@@ -262,4 +303,4 @@ def single_host(n_devices: int,
 __all__ = ["SHARD_AXIS", "HOST_AXIS", "LINK_INTRA", "LINK_ICI", "LINK_DCI",
            "LINK_CLASSES", "MERGE_PER_HOST", "MERGE_COORDINATOR",
            "TransferBreakdown", "MeshTopology", "topology_for",
-           "single_host"]
+           "single_host", "set_host_view", "host_view"]

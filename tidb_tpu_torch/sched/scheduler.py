@@ -304,8 +304,15 @@ class DeviceScheduler:
         self.budget_rejects = 0           # solo programs over budget (CostError)
         self.budget_deferrals = 0         # riders left queued by footprint cap
         self.last_launch_bytes = 0        # footprint of the last served batch
+        # per-link transfer attribution (shardflow, parallel/topology):
+        # statically-priced collective bytes of served tasks, split by
+        # link class under the declared host view
         self.transfer_ici_bytes = 0
         self.transfer_dci_bytes = 0
+        # buffer-donation accounting (analysis/lifetime DonationPlan)
+        self.donated_launches = 0         # launches with donated inputs
+        self.donated_tasks = 0            # tasks that requested donation
+        self.donated_bytes = 0            # priced input bytes released
         self.compile_ns_total = 0         # summed per-launch program builds
         self.retried_launches = 0         # serve attempts re-run after a
                                           # transient launch failure
@@ -313,6 +320,10 @@ class DeviceScheduler:
         self.bisected_launches = 0        # failed group launches demuxed
         self.quarantined = 0              # submits failed fast by an OPEN
                                           # breaker (LaunchQuarantinedError)
+        self.value_drifts = 0             # admitted tasks whose observed
+                                          # column watermarks escaped the
+                                          # plan's declared value interval
+                                          # (valueflow stats drift)
         self.rc_throttled = 0             # drain passes that skipped a group
         self.rc_exhausted = 0             # waiters failed at the deadline
         self.rc_debited_ru = 0.0          # priced RUs debited pre-launch
@@ -501,6 +512,14 @@ class DeviceScheduler:
         mk = (task.key, tuple(_shape_sig(grp, None) for grp in task.aux))
         hit = self._admit_memo.get(mk)
         if hit is not None and (hit[0] is task.dag or hit[0] == task.dag):
+            # what a repeat does not repeat: the proof registry's verdict
+            # and the watermarks (valueflow) move with ANALYZE, and the
+            # donation guard reads this task's own tensors (lifetime)
+            from ..analysis.lifetime import verify_task_donation
+            from ..analysis.valueflow import verify_task_values
+            verify_task_values(task)
+            if task.donate:
+                verify_task_donation(task)
             return hit[1]
         verify_task(task)
         cost = task_cost(task)
@@ -614,6 +633,13 @@ class DeviceScheduler:
         the submitting thread, before the drain would launch anything."""
         if task.key is not None and _verify_enabled():
             self._admit_cost(task, self._verified_cost(task))
+            if task.value_drift:
+                # valueflow watermark drift: the plan's declared value
+                # interval no longer contains the observed ANALYZE
+                # watermark — never wrong (proofs carry append
+                # headroom), but the operator should re-ANALYZE
+                with self._mu:
+                    self.value_drifts += task.value_drift
         if task.key is not None:
             # circuit breaker: a digest whose launches keep failing is
             # quarantined HERE — fail fast with the structured error the
@@ -1111,7 +1137,13 @@ class DeviceScheduler:
         lead = batch[0]
         if lead.cost is None:
             return 0
-        n = lead.cost.peak_hbm_bytes - lead.cost.input_bytes
+        n = lead.cost.peak_hbm_bytes
+        from ..analysis.lifetime import is_resident
+        if is_resident(lead.counts):
+            # live snapshot-cache inputs are already on the ledger's
+            # persistent side; donated bytes are credited at dispatch
+            # by construction (``peak_hbm_bytes`` subtracts them)
+            n -= lead.cost.input_bytes
         n += sum(self._marginal_bytes(t, lead) for t in batch[1:])
         return max(n, 0)
 
@@ -1237,6 +1269,10 @@ class DeviceScheduler:
                 attrs["hbm_predicted"] = t.hbm_predicted
             if t.hbm_measured:
                 attrs["hbm_measured"] = t.hbm_measured
+            if t.value_drift:
+                # valueflow: declared interval no longer contains the
+                # observed watermark (stats drift, not a wrong result)
+                attrs["value_drift"] = t.value_drift
             strat = self._strategy_of(t.dag)
             if strat is not None:
                 attrs["strategy"] = strat
@@ -1541,7 +1577,8 @@ class DeviceScheduler:
         t_l0 = time.perf_counter_ns()
         fused = D.FusedDag(tuple(t.dag for t in members))
         if isinstance(lead.dag, D.Aggregation):
-            fprog = get_fused_program(fused, lead.mesh)
+            fprog = get_fused_program(fused, lead.mesh,
+                                      donate=lead.donate)
         else:
             fprog = get_fused_rows_program(
                 fused, lead.mesh, tuple(t.row_capacity for t in members))
@@ -1563,6 +1600,8 @@ class DeviceScheduler:
         self._finish(all_tasks, lambda t: out_of[id(t)], t_l0, before,
                      "fused", start, fused=len(programs))
         self.launches += 1
+        if fprog._donate_argnums:
+            self.donated_launches += 1
         self.fused_launches += 1
         self.fused_tasks += total
         self._m_launch.inc(mode="fused")
@@ -1581,7 +1620,8 @@ class DeviceScheduler:
         cc0 = self._cc_mark()
         t_l0 = time.perf_counter_ns()
         _faults.check("build", digest)
-        prog = get_sharded_program(lead.dag, lead.mesh, lead.row_capacity)
+        prog = get_sharded_program(lead.dag, lead.mesh, lead.row_capacity,
+                                   donate=lead.donate)
         _faults.check("launch", digest)
         # group riders by input identity: same-token tasks share ONE
         # program call (in-flight dedup)
@@ -1616,6 +1656,11 @@ class DeviceScheduler:
             self._finish(batch, lambda t: out_of[id(t)], t_l0, before,
                          "batched", start)
             self.launches += 1
+            if bprog._donate_argnums:
+                # the per-launch stacked copies were donated (the
+                # lifetime plan's batched class), whatever the member
+                # tensors' own lifetime
+                self.donated_launches += 1
             self.batched_launches += 1
             if prog.kind == "rows":
                 self.batched_rows_launches += 1
@@ -1637,6 +1682,8 @@ class DeviceScheduler:
             self._finish(s, lambda _t, out=out: (prog, out), t_s0, before,
                          "coalesced" if len(s) > 1 else "single", start)
             self.launches += 1
+            if prog._donate_argnums:
+                self.donated_launches += 1
             self._m_launch.inc(
                 mode="coalesced" if len(s) > 1 else "single")
 
@@ -1736,6 +1783,10 @@ class DeviceScheduler:
                 if t.cost is not None:
                     self.transfer_ici_bytes += t.cost.ici_bytes
                     self.transfer_dci_bytes += t.cost.dci_bytes
+                if t.donate:
+                    self.donated_tasks += 1
+                    if t.cost is not None:
+                        self.donated_bytes += t.cost.donated_bytes
                 g = self._groups.get(t.group)
                 if g is not None:
                     g.wait_ns += t.wait_ns
@@ -1802,11 +1853,15 @@ class DeviceScheduler:
                 "last_launch_bytes": self.last_launch_bytes,
                 "transfer_ici_bytes": self.transfer_ici_bytes,
                 "transfer_dci_bytes": self.transfer_dci_bytes,
+                "donated_launches": self.donated_launches,
+                "donated_tasks": self.donated_tasks,
+                "donated_bytes": self.donated_bytes,
                 "compile_ms_total": round(self.compile_ns_total / 1e6, 3),
                 "retried_launches": self.retried_launches,
                 "retried_tasks": self.retried_tasks,
                 "bisected_launches": self.bisected_launches,
                 "quarantined": self.quarantined,
+                "value_drifts": self.value_drifts,
                 "breaker": self.breaker.snapshot(),
                 "faults": _faults.stats(),   # None when unarmed
                 "rc_enable": self.rc_enable,

@@ -149,7 +149,7 @@ class CopTask:
                  "rus_charged", "device_ns", "deadline_ns", "svc_ns",
                  "retries", "compile_ns", "compile_miss",
                  "hbm_predicted", "hbm_measured", "trace", "stream",
-                 "ready", "launched", "timing")
+                 "ready", "launched", "timing", "donate", "value_drift")
 
     def __init__(self, *, key=None, dag=None, devices=None,
                  row_capacity=0, cols=None, counts=None, aux=(),
@@ -157,7 +157,7 @@ class CopTask:
                  fn: Optional[Callable[[], Any]] = None,
                  group: Optional[str] = None,
                  weight: Optional[float] = None, est_rows: int = 0,
-                 rc_group=None):
+                 rc_group=None, donate: bool = False):
         if group is None:
             group, gw, rcg = current_group()
             if weight is None:
@@ -177,6 +177,7 @@ class CopTask:
         self.group = group
         self.weight = float(weight or DEFAULT_WEIGHT)
         self.est_rows = est_rows
+        self.donate = bool(donate)  # launch-unique inputs: donate them
         self.submit_ns = time.perf_counter_ns()
         self.start_ns = 0
         self.wait_ns = 0
@@ -201,6 +202,9 @@ class CopTask:
                                   # calibrated peak the budget enforced)
         self.hbm_measured = 0     # measured launch peak bytes, set by
                                   # the drain BEFORE finish (0 = none)
+        self.value_drift = 0      # columns whose observed ANALYZE
+                                  # watermark escaped the plan's declared
+                                  # value interval (valueflow, admission)
         # copscope trace propagation (obs/): the submitting statement's
         # TraceCtx rides the task like SCHED_GROUP does, so the drain
         # thread records queue/compile/launch/retry spans under the
@@ -223,11 +227,14 @@ class CopTask:
 
     @classmethod
     def structured(cls, dag, devices, row_capacity, cols, counts, aux,
-                   est_rows: int = 0) -> "CopTask":
+                   est_rows: int = 0, donate: bool = False) -> "CopTask":
         from ..copr.dag import dag_digest
         fp = mesh_fingerprint(devices)
         sig = _shape_sig(cols, counts)
-        key = (dag_digest(dag), fp, int(row_capacity), sig)
+        # a donating launch releases its inputs (analysis/lifetime), so
+        # the donating variant keys (and fuses) apart — a donating and a
+        # non-donating task must never dedup together
+        key = (dag_digest(dag), fp, int(row_capacity), sig, bool(donate))
         # input identity for in-flight dedup: the snapshot's resident
         # device cache returns the SAME tensor objects per epoch, so two
         # sessions over one snapshot share ids; the task pins the refs.
@@ -244,11 +251,11 @@ class CopTask:
             from ..analysis.contracts import fusion_signature
             fsig = fusion_signature(dag)
             if fsig is not None:
-                fusion_key = (token, fp, sig, fsig)
+                fusion_key = (token, fp, sig, fsig, bool(donate))
         return cls(key=key, dag=dag, devices=devices,
                    row_capacity=row_capacity, cols=cols, counts=counts,
                    aux=aux, input_token=token, fusion_key=fusion_key,
-                   est_rows=est_rows)
+                   est_rows=est_rows, donate=donate)
 
     @classmethod
     def opaque(cls, fn: Callable[[], Any], devices=None,

@@ -108,8 +108,9 @@ def _knob(merged: dict, name: str):
 
 def _apply_sched_knobs(client, merged: dict) -> None:
     """The device scheduler's, resource control's, calibration's, memory
-    ledger's and program cache's sysvars onto the client, as the JAX
-    package's session applies them (-1 = keep the engine default)."""
+    ledger's, topology view's and program cache's sysvars onto the
+    client, as the JAX package's session applies them (-1 = keep the
+    engine default)."""
     v = _knob(merged, "tidb_tpu_sched_queue_depth")
     if v is not None and int(v) >= 0:
         client.sched_queue_depth = int(v)       # 0 bypasses admission
@@ -137,6 +138,13 @@ def _apply_sched_knobs(client, merged: dict) -> None:
     v = _knob(merged, "tidb_tpu_hbm_ledger")
     if v is not None:
         client.hbm_ledger = bool(int(v))
+    # shardflow topology view (parallel/topology): declared host
+    # factorization for per-link transfer classification; -1/unset
+    # derives it from the devices
+    v = _knob(merged, "tidb_tpu_topology_hosts")
+    if v is not None:
+        from ..parallel.topology import set_host_view
+        set_host_view(None if int(v) <= 0 else int(v))
     from ..compilecache import configure as cc_configure
     from ..compilecache import maybe_warm_start
     v11 = _knob(merged, "tidb_tpu_compile_cache")
@@ -1050,10 +1058,17 @@ class Session:
 
     def _plan_select(self, stmt, cache_sql: Optional[str] = None):
         """Build, optimize and bind the physical plan of a SELECT: the
-        JAX package's ``_plan_select`` without the background stats load
-        and the analysis gates.  With ``cache_sql`` (a text statement's
-        own SELECT) and ``tidb_enable_plan_cache`` on, the plan comes
-        from, or goes to, the domain's plan cache."""
+        JAX package's ``_plan_select`` without the background stats load.
+        Behind ``tidb_tpu_verify_plan`` (on by default) the plan passes
+        the three plan-time gates before any launch: the operator
+        contracts (``contracts.verify_plan``), the sharding flow against
+        the devices' topology under the declared host view
+        (``shardflow.verify_plan_sharding``) and the value ranges over
+        the analyzed statistics (``valueflow.verify_plan_values``); a
+        violation raises ``PlanContractError``.  With ``cache_sql`` (a
+        text statement's own SELECT) and ``tidb_enable_plan_cache`` on,
+        the plan comes from, or goes to, the domain's plan cache (a hit
+        skips the gates, as it skips planning)."""
         from ..planner.plan_cache import PlanCacheEntry, table_fingerprint
         t0 = time.perf_counter()
         cache = self.domain.plan_cache
@@ -1091,6 +1106,29 @@ class Session:
             self._last_plan_text = phys.explain()
         except Exception:
             pass
+        # static plan-contract gate (analysis/contracts): reject a plan
+        # whose operator contracts disagree BEFORE any launch.
+        # PlanContractError is a PlanError, so it surfaces like any
+        # planner rejection.  tidb_tpu_verify_plan=0 opts out.
+        if _flag_on(merged, "tidb_tpu_verify_plan", default=True):
+            from ..analysis.contracts import verify_plan
+            verify_plan(phys)
+            # sharding-flow pass (analysis/shardflow): layouts and
+            # collectives of every device program flowed against the
+            # devices' typed-link topology (declared host view included)
+            # — implicit reshards, unknown axes, coordinator-routed
+            # merges, and DCI blow-ups reject HERE, before any launch
+            from ..analysis.shardflow import verify_plan_sharding
+            verify_plan_sharding(phys, self._topology(merged))
+            # value-range pass (analysis/valueflow): every device lane
+            # flowed over stats-seeded integer intervals — silent int64
+            # wraps, unprovable SUM fences, f32 precision cliffs and
+            # div pre-scale escapes reject HERE, before any launch; each
+            # verified digest lands in the proof registry the sched
+            # admission seam replays
+            from ..analysis.valueflow import verify_plan_values
+            verify_plan_values(phys, self.domain.stats)
+            phys._contract_ok = True
         use_cache = use_cache and not ran_subquery
         if use_cache and _plan_cacheable(phys):
             keys = {}
@@ -1272,7 +1310,156 @@ class Session:
             return ResultSet(["operator", "actRows", "time", "loops"],
                              explain_analyze_text(phys, coll))
         rows = [(line,) for line in phys.explain().split("\n")]
+        if getattr(phys, "_contract_ok", False):
+            # the plan-time gates verified this plan (analysis/
+            # contracts, shardflow, valueflow) — surfaced like the
+            # reference's EXPLAIN diagnostics footer
+            rows.append(("contract: ok",))
+            footer = self._cost_footer(phys)
+            if footer is not None:
+                rows.append((footer,))
+                transfer = self._transfer_footer(phys)
+                if transfer is not None:
+                    rows.append((transfer,))
+                calib = self._calibration_footer(phys)
+                if calib is not None:
+                    rows.append((calib,))
+            strat = self._agg_strategy_footer(phys)
+            if strat is not None:
+                rows.append((strat,))
         return ResultSet(["plan"], rows)
+
+    def _cost_footer(self, phys) -> Optional[str]:
+        """EXPLAIN cost footer from the static shape/memory model
+        (analysis/copcost): estimated peak device bytes, host<->device
+        transfer, and the padded/live ratio of the scan inputs, with the
+        buffer-lifetime verdict (analysis/lifetime) of the streamed
+        path.  None for host-only plans or shapes the model cannot walk
+        — the footer must never break EXPLAIN."""
+        try:
+            from ..analysis.copcost import format_bytes, plan_cost
+            n_dev = len(self.domain.client.devices)
+            cost = plan_cost(phys, n_dev)
+            if not cost.transfer_bytes:
+                return None
+            footer = (f"est. device bytes: "
+                      f"{format_bytes(cost.peak_hbm_bytes)} peak / "
+                      f"{format_bytes(cost.transfer_bytes)} transfer, "
+                      f"padding {cost.padding_waste:.1f}x")
+            # buffer-lifetime verdict (analysis/lifetime): how many
+            # input buffers / bytes a donation-eligible launch releases
+            # on the streamed (launch-unique) path
+            from ..analysis.lifetime import plan_donation
+            bufs, saved = plan_donation(phys, n_dev)
+            if bufs:
+                footer += (f", donate: {bufs} bufs / "
+                           f"{format_bytes(saved)}")
+            return footer
+        except (AttributeError, TypeError, KeyError, ValueError,
+                ImportError):
+            return None
+
+    def _topology(self, merged=None):
+        """The devices' typed-link topology under the declared host view
+        (tidb_tpu_topology_hosts) — the analysis seam the plan-path
+        shardflow verification and the EXPLAIN transfer footer share.
+        Never launches."""
+        from ..parallel.topology import set_host_view, topology_for
+        if merged is None:
+            merged = {**self.domain.sysvars, **self.vars}
+        v = merged.get("tidb_tpu_topology_hosts")
+        if v is not None and v != "":
+            set_host_view(None if int(v) <= 0 else int(v))
+        devices = self.domain.client.devices
+        return topology_for(devices, n_devices=len(devices))
+
+    def _transfer_footer(self, phys) -> Optional[str]:
+        """EXPLAIN per-link transfer footer (analysis/shardflow):
+        ``transfer: X ici / Y dci`` — the plan's statically-classified
+        collective bytes under the declared host view
+        (tidb_tpu_topology_hosts).  None for plans without collective
+        traffic; must never break EXPLAIN."""
+        try:
+            from ..analysis.copcost import format_bytes
+            from ..analysis.shardflow import plan_transfer
+            bd = plan_transfer(phys, self._topology())
+            if not bd.collective:
+                return None
+            return (f"transfer: {format_bytes(bd.ici)} ici / "
+                    f"{format_bytes(bd.dci)} dci")
+        except (AttributeError, TypeError, KeyError, ValueError,
+                ImportError):
+            return None
+
+    def _calibration_footer(self, phys) -> Optional[str]:
+        """EXPLAIN ``cost:`` verdict (analysis/calibrate): ``cost:
+        calibrated (err N%)`` when the plan's device program has
+        measured corrections, ``cost: static`` otherwise (or when
+        tidb_tpu_cost_calibration is off).  None for plans without a
+        device dag; must never break EXPLAIN."""
+        try:
+            from ..copr import dag as Dg
+            dag = None
+            stack = [phys]
+            while stack and dag is None:
+                op = stack.pop()
+                d = getattr(op, "dag", None)
+                if isinstance(d, Dg.CopNode):
+                    dag = d
+                    break
+                for c in getattr(op, "children", []) or []:
+                    if c is not None:
+                        stack.append(c)
+            if dag is None:
+                return None
+            merged = {**self.domain.sysvars, **self.vars}
+            v = merged.get("tidb_tpu_cost_calibration")
+            enabled = True if v is None or v == "" else bool(int(v))
+            if not enabled:
+                return "cost: static"
+            from ..analysis.calibrate import correction_store
+            from ..analysis.compilekey import stable_digest
+            ent = correction_store().get(stable_digest(dag))
+            if ent is None or not ent.samples:
+                return "cost: static"
+            return f"cost: calibrated (err {ent.err * 100:.0f}%)"
+        except (AttributeError, TypeError, ValueError, ImportError):
+            return None
+
+    def _agg_strategy_footer(self, phys) -> Optional[str]:
+        """EXPLAIN ``agg strategy:`` tag: which device group-by strategy
+        the pushed aggregation takes, with its capacity knob — dense
+        (domain product), sort (regrow capacity), or segment (radix
+        bucket space).  None for scalar/host-only plans; must never
+        break EXPLAIN."""
+        try:
+            from ..copr import dag as Dg
+            stack = [phys]
+            while stack:
+                op = stack.pop()
+                dag = getattr(op, "dag", None)
+                if dag is None:
+                    dag = getattr(getattr(op, "spec", None), "top", None)
+                if isinstance(dag, Dg.Aggregation) and dag.group_by:
+                    if dag.strategy is Dg.GroupStrategy.SCATTER:
+                        return (f"agg strategy: scatter "
+                                f"({dag.num_buckets} buckets, "
+                                f"{Dg.radix_passes(dag.num_buckets)} "
+                                "passes)")
+                    if dag.strategy is Dg.GroupStrategy.SEGMENT:
+                        return (f"agg strategy: segment "
+                                f"({dag.num_buckets} buckets)")
+                    if dag.strategy is Dg.GroupStrategy.SORT:
+                        return (f"agg strategy: sort (capacity "
+                                f"{dag.group_capacity or 'auto'})")
+                    return (f"agg strategy: dense "
+                            f"({dag.num_groups} groups)")
+                for c in getattr(op, "children", []) or []:
+                    if c is not None:
+                        stack.append(c)
+        except (AttributeError, TypeError):
+            return None
+        return None
 
     def _exec_plan_replayer(self, stmt: A.PlanReplayerDump) -> ResultSet:
         """PLAN REPLAYER DUMP EXPLAIN <sql> (executor/plan_replayer.go):

@@ -208,9 +208,12 @@ class StatsHandle:
                 ts.cols[name.lower()] = cs
         with self._lock:
             self._cache[ts.table_id] = ts
-        # (the JAX package stamps this ANALYZE's min/max watermarks for
-        # its valueflow pass here, which only surfaces drift: ROADMAP.md,
-        # Queue 1 entry 11)
+        # valueflow runtime half: stamp this ANALYZE's observed per-column
+        # min/max watermarks so every subsequent launch can check its
+        # plan's declared value intervals still contain reality (drift is
+        # surfaced on /sched, never a wrong result)
+        from ..analysis import valueflow
+        valueflow.stamp_watermarks(ts)
         return ts
 
     def _analyze_column(self, name: str, col: Column, n_buckets: int,

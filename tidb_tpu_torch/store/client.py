@@ -578,7 +578,10 @@ class CopClient:
         for b in batches:
             check_killed()   # cancellation between streamed batches
             cols, counts, rec = self._put_batch(b)
-            out, _grown = self._launch(agg, cols, counts, ())
+            # uncached batch, launched exactly once: EPHEMERAL in the
+            # lifetime taxonomy — the donating program releases the
+            # batch to the caching allocator at its launch
+            out, _grown = self._launch(agg, cols, counts, (), donate=True)
             self._end_batch(rec)
             outs.append(out)
             recs.append(rec)
@@ -727,14 +730,20 @@ class CopClient:
                          hbm_predicted=task.hbm_predicted,
                          hbm_measured=task.hbm_measured)
 
-    def _submit(self, dag, cols, counts, aux_cols, row_capacity: int = 0):
+    def _submit(self, dag, cols, counts, aux_cols, row_capacity: int = 0,
+                donate: bool = False):
         """One run of ``dag``'s program over the devices through the
         admission queue: ``(program, out)``.  The scheduler resolves the
         program (so concurrent identical tasks share ONE call) and may
-        coalesce, batch or fuse the task with other sessions' tasks."""
+        coalesce, batch or fuse the task with other sessions' tasks.
+        ``donate=True`` marks the inputs launch-unique (streamed
+        batches): the DonationPlan-derived program releases them at the
+        launch (analysis/lifetime) — never set it for snapshot residents
+        or regrow-loop inputs."""
         sched = self._scheduler()
         if sched is None:
-            prog = get_sharded_program(dag, self.devices, row_capacity)
+            prog = get_sharded_program(dag, self.devices, row_capacity,
+                                       donate=donate)
             return prog, prog(cols, counts, aux_cols)
         from ..sched import CopTask
         est = 0
@@ -747,7 +756,7 @@ class CopClient:
         with _obs_span("cop.dispatch"):
             t = sched.submit(CopTask.structured(
                 dag, self.devices, row_capacity, cols, counts,
-                tuple(aux_cols), est_rows=est))
+                tuple(aux_cols), est_rows=est, donate=donate))
             try:
                 return t.wait()
             finally:
@@ -779,12 +788,14 @@ class CopClient:
             family_digest(dag), needed, backend_fingerprint(self.devices))
         return warm if warm is not None else needed
 
-    def _launch(self, dag, cols, counts, aux_cols, row_capacity: int = 0):
+    def _launch(self, dag, cols, counts, aux_cols, row_capacity: int = 0,
+                donate: bool = False):
         """One run of ``dag``'s program over the devices: ``(out, grown)``,
         ``grown`` the DAG at a larger join capacity when an expanding
         join's output overflowed its capacity (``out`` is then stale),
-        else None."""
-        prog, out = self._submit(dag, cols, counts, aux_cols, row_capacity)
+        else None.  ``donate`` is for streamed batches only (``_submit``)."""
+        prog, out = self._submit(dag, cols, counts, aux_cols, row_capacity,
+                                 donate=donate)
         if not prog.has_extras:
             return out, None
         out, extras = out

@@ -38,6 +38,10 @@ def _pow2_at_least(n: int) -> int:
     return c
 
 
+def _nbytes(t: torch.Tensor) -> int:
+    return int(t.numel()) * int(t.element_size())
+
+
 @dataclass
 class ColumnarSnapshot:
     """Immutable columnar snapshot of one table at an epoch."""
@@ -156,6 +160,19 @@ class ColumnarSnapshot:
                torch.from_numpy(counts).to(dev))
         self._device_cache.clear()     # one placement resident at a time
         self._device_cache[key] = put
+        # lifetime contract (analysis/lifetime): these tensors are
+        # PERSISTENT — reused across queries and pages — so a donating
+        # launch over them is rejected at sched admission before any
+        # launch.  The registration also credits the live memory ledger
+        # (obs/hbm) with the resident footprint — tensor METADATA only,
+        # never a device sync — and the ledger's weakref death callback
+        # debits it when the cache entry is collected.
+        from ..analysis.lifetime import register_resident
+        from ..sched.task import mesh_fingerprint
+        nbytes = sum(_nbytes(d) + (_nbytes(v) if v is not None else 0)
+                     for d, v in put[0]) + _nbytes(put[1])
+        register_resident(put[1], nbytes=nbytes,
+                          fingerprint=mesh_fingerprint(devices))
         return put
 
     def device_put_uncached(self, devices: Sequence[torch.device],
