@@ -322,7 +322,41 @@ script exits non-zero without printing a result:
    its ``DonationPlan``: donating, not donating, donating again, the
    donated launches and the peak ``max_memory_allocated`` above the
    run's start.  (c) is phase 4's "Q1 narrow" lane set;
-19. the ``kernels`` JSON line, then the last line
+19. the coordination plane and the background workers: (a) 13a's
+   Domain (A) and a second Domain (B) over an analyzed SF=0.1 lineitem
+   on the same card, joined with ``tidb_tpu_pd = 1`` on the in-process
+   backend: the warm Q6 median of ``PD_Q6_REPS`` calls with pd off and
+   on and their launches (equal), ``/pd`` listing both members and the
+   leased shares of one limited group summing to its RU budget, a
+   correction of A's warm Q1 reaching B's own correction store after a
+   forced tick, a launch breaker tripped in A (a ``launch:poison``
+   fault) whose tombstone purges B's entry of that digest from B's own
+   program cache (present after A's trip, gone after B's tick), the
+   median claim + release round trip, Q1 and Q6 on both equal to
+   numpy, and the ``group_reduce`` launches of those Q1 and Q6 calls;
+   (b) two ``python -m tidb_tpu_torch serve`` processes with one
+   ``tidb_tpu_pd_dir`` (a ``--config`` file), each loading an
+   SF=``SERVE_PD_SF`` lineitem by LOAD DATA (``SERVE_PD_SF_CUT`` when
+   the script reaches phase 19 past ``SERVE_PD_LATE_S``, the cut
+   printed): Q6 over the wire equal to
+   numpy in each, server 0's warm Q6 for ``PD_WIRE_S`` a leg with pd
+   on, off and on again over the file backend (median, mean, max and
+   the ticks its statements paid), each ``/pd`` listing both leases
+   live, then one
+   killed: the survivor's ``/pd`` shows the lease lost within
+   ``PD_LEASE_TTL_S`` plus one sync while its Q6 keeps answering
+   exactly; (c) A's background workers (``start_background``, the
+   timers' first round): the TTL sweep of a ``TTL_ROWS``-row DATETIME
+   table (``trigger("ttl")``) and an aggregate over the kept rows equal
+   to numpy, the auto-analyze timer (``tidb_enable_auto_analyze`` on
+   for its trigger) rebuilding lineitem's statistics while four
+   threads send Q6 (every Q6 exact, the statistics equal to
+   13c's), a DXF ``analyze`` task over two tables and
+   ``information_schema.dist_tasks``, ``ADMIN RECOMMEND INDEX`` after
+   point lookups, then ``Domain.close`` stopping the timer thread; the
+   ``radix_hist_all64``, ``radix_onesweep64`` and ``group_reduce``
+   launches of 19c, counted from 0;
+20. the ``kernels`` JSON line, then the last line
    ``{"ok": true, "device": {...}}``.  A ``phase ...: s=`` line after
    each phase gives its seconds.
 
@@ -349,6 +383,8 @@ import sys
 import time
 
 import numpy as np
+
+T_START = time.perf_counter()      # the script's start, for phase 19's guard
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3, NVIDIA data sheet
 CUDA_CORE_OPS_PER_S = 67e12      # H100 SXM non-tensor fp32 rate, per op
@@ -5475,6 +5511,589 @@ def gates_phase(torch, gr, main_sess, main_data) -> int:
     return driven
 
 
+# --------------------------------------------------------------------- #
+# phase 19: the coordination plane and the background workers
+# --------------------------------------------------------------------- #
+
+PD_B_SF = 0.1             # 19a's second Domain: its own SF=0.1 lineitem
+PD_Q6_REPS = 20           # 19a's warm Q6 calls with pd off, then on
+PD_GROUP = "pd19"         # 19a's limited resource group, in both Domains
+PD_RU_BUDGET = 1_000_000  # its declared RU_PER_SEC, split by the plane
+PD_VICTIM = "select sum(l_tax) from lineitem where l_quantity < 2"
+PD_POISON_TRIES = 8       # poisoned runs of the victim, at most
+PD_CLAIM_REPS = 200       # claim + release round trips timed
+SERVE_PD_SF = 0.1         # 19b: each server process's lineitem, by LOAD DATA
+SERVE_PD_SF_CUT = 0.01    # 19b's scale when the script is late (below)
+SERVE_PD_LATE_S = 950.0   # the script's seconds at phase 19 past which 19b
+                          # is cut: at SF=0.1 it takes ~105 s on the H100's
+                          # host (two LOAD DATA of 600,000 rows ~57 s, two
+                          # first Q6 ~21 s), and the script has 1200 s
+SERVE_PD_LOAD_S = 300.0   # 19b: the wire client's timeout over LOAD DATA and a first Q6
+PD_WIRE_S = 2.0           # 19b: seconds of warm Q6 over the wire a leg (pd on/off/on)
+SERVE_PD_COLS = ("l_quantity", "l_extendedprice", "l_discount",
+                 "l_shipdate")
+TTL_ROWS = 20_000         # 19c's TTL table
+TTL_DAYS = 2              # its TTL: created + INTERVAL 2 DAY
+TTL_THREADS = 4           # 19c's Q6 senders during the auto-analyze
+TIMER_FIRST_S = 60.0      # 19c: the timers' first round, at most
+
+
+def _pd_status(port: int) -> dict:
+    import urllib.request
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}/pd",
+                                timeout=30) as r:
+        return json.load(r)
+
+
+def pd_two_domains(gr, main_sess, main_data) -> int:
+    """Phase 19a: ``main_sess``'s Domain (A) and a second Domain (B)
+    over the SF=0.1 lineitem on the same card, joined on the in-process
+    pd backend.  Returns the group_reduce launches of its Q1 and Q6
+    statements on both Domains, counted around those calls alone (not
+    B's ANALYZE, nor the breaker's victim)."""
+    import os
+    import shutil
+    import tempfile
+
+    from tidb_tpu_torch import faults, pd
+    from tidb_tpu_torch.analysis.calibrate import CorrectionStore
+    from tidb_tpu_torch.analysis.compilekey import stable_digest
+    from tidb_tpu_torch.compilecache import compile_cache
+    from tidb_tpu_torch.compilecache.cache import CompileCache
+    from tidb_tpu_torch.compilecache.manifest import WarmManifest
+    from tidb_tpu_torch.server.status import StatusServer
+    from tidb_tpu_torch.session import Session
+    from tidb_tpu_torch.testing import tpch
+    t0 = time.perf_counter()
+    steps, t_step = {}, [t0]
+
+    def step(name):
+        """The seconds since the last step, under ``name``."""
+        now = time.perf_counter()
+        steps[name] = now - t_step[0]
+        t_step[0] = now
+
+    dom_a = main_sess.domain
+    sa = Session(dom_a)
+    b_data = tpch.gen_lineitem(PD_B_SF, seed=19, columns=Q_COLS)
+    sb = tpch.sql_session({"lineitem": b_data},
+                          device=dom_a.client.devices[0].type)
+    dom_b = sb.domain
+    ca, cb = dict(zip(*main_data)), dict(zip(*b_data))
+    q1, q6 = tpch.SQL_QUERIES["Q1"], tpch.SQL_QUERIES["Q6"]
+    launched = [0]       # group_reduce launches of the Q1 and Q6 calls
+
+    def run(s, sql):
+        """One Q1 or Q6 statement, its launches counted."""
+        n0 = gr.LAUNCHES["group_reduce"]
+        rs = s.execute(sql)
+        launched[0] += gr.LAUNCHES["group_reduce"] - n0
+        return rs
+
+    for s in (sa, sb):
+        s.execute("set global tidb_tpu_result_cache_entries = 0")
+    # analyzed as A's is: the two Domains plan one statement to one DAG
+    # (the proven-narrow SUMs included), so one digest names it in both
+    sb.execute("analyze table lineitem")
+    sql_check("Q6", run(sb, q6), cb, b_data[0], None)  # B's placement
+    print(f"19a B: lineitem sf={PD_B_SF} rows={len(b_data[1][0])} placed "
+          f"and analyzed s={time.perf_counter() - t0:.1f}")
+    step("b")
+
+    want_a = q6_params_oracle(ca, SERVER_Q6_PARAMS[0])   # TPC-H Q6's
+
+    def q6_median():
+        walls, got = [], []
+        n0 = launched[0]
+        for _ in range(PD_Q6_REPS):
+            t1 = time.perf_counter()
+            rs = run(sa, q6)
+            walls.append((time.perf_counter() - t1) * 1e3)
+            got.append(_scaled(str(rs.rows[0][0]), 4))
+        check(set(got) == {want_a}, f"19a Q6 {set(got)} != numpy {want_a}")
+        return statistics.median(walls), launched[0] - n0
+
+    run(sa, q6)
+    off_ms, off_n = q6_median()
+    step("off")
+    for d in (dom_a, dom_b):
+        d.resource_groups.create(PD_GROUP, PD_RU_BUDGET, if_not_exists=True)
+    for s in (sa, sb):
+        s.execute("set global tidb_tpu_pd = 1")
+    run(sa, q6)           # A attaches first: the process-wide hooks (the
+    run(sb, q6)           # breaker's tombstone, the claim) speak for A
+    on_ms, on_n = q6_median()
+    check(on_n == off_n > 0, f"19a Q6 launches pd on {on_n} != off {off_n}")
+    step("on")
+    coord_a, coord_b = dom_a.pd, dom_b.pd
+    check(coord_a is not None and coord_b is not None
+          and coord_a.store.backend is coord_b.store.backend,
+          "19a: the Domains are not on one in-process backend")
+    for c in (coord_a, coord_b, coord_a):
+        c.tick(force=True)
+    srv = StatusServer(dom_a)
+    port = srv.start()
+    try:
+        body = _pd_status(port)
+    finally:
+        srv.close()
+    leases = body["status"]["store"]["leases"]
+    shares = {c.member.member_id: c.quota.shares.get(PD_GROUP, 0.0)
+              for c in (coord_a, coord_b)}
+    check(len(body["status"]["members"]) == 2 and len(leases) == 2
+          and set(leases) == set(shares),
+          f"19a /pd: members {body['status']['members']} leases {leases}")
+    check(abs(sum(shares.values()) - PD_RU_BUDGET) <= 1e-6 * PD_RU_BUDGET,
+          f"19a quota shares {shares} do not sum to {PD_RU_BUDGET}")
+    print(f"19a /pd: members={len(body['status']['members'])} "
+          f"leases={sorted(leases)} shares={shares} "
+          f"budget={PD_RU_BUDGET}")
+    step("pd")
+
+    # a correction A learned from its warm Q1 launches reaches B, whose
+    # coordinator merges into a store of its own (as a second process's)
+    with task_spy() as spy:
+        for _ in range(3):
+            sql_check("Q1", run(sa, q1), ca, main_data[0], None)
+    q1_digest = stable_digest(spy.tasks[0].dag)
+    calib_b = CorrectionStore()
+    coord_b._calib = calib_b
+    coord_a.tick(force=True)
+    coord_b.tick(force=True)
+    shared = coord_a.store.get("calib")[0] or {}
+    pub, got = shared.get(q1_digest), calib_b.get(q1_digest)
+    check(pub is not None and pub.get("samples", 0) > 0 and got is not None
+          and abs(got.time_factor - pub["time_factor"]) <= 1e-9,
+          f"19a: Q1's correction {pub} did not reach B ({got})")
+    print(f"19a calibration: Q1 digest={q1_digest[:16]} "
+          f"samples={pub['samples']} time_factor A={pub['time_factor']} "
+          f"B={got.time_factor} b_merged={coord_b.calib_merged}")
+    step("calib")
+
+    # a breaker tripped in A leaves a tombstone that purges B's entry.
+    # B's coordinator keeps a program cache of its own (as a second
+    # process's), over the directory B's victim was recorded in; A's
+    # statements record into another, which A's breaker purges itself
+    t1 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="phase19_cc_")
+    dir_a, dir_b = os.path.join(tmp, "a"), os.path.join(tmp, "b")
+    cache = compile_cache()
+    old_dir = cache.cache_dir
+
+    def cache_dir(path):
+        for s in (sa, sb):
+            s.execute(f"set global tidb_tpu_compile_cache_dir = '{path}'")
+
+    try:
+        cache_dir(dir_b)
+        with task_spy() as spy:
+            sb.execute(PD_VICTIM)                  # B's program, recorded
+        victim = stable_digest(spy.tasks[0].dag)
+        cache_b = CompileCache()
+        cache_b.configure(cache_dir=dir_b)
+        man = cache_b.manifest
+        check(man is not None and man.has_program(victim),
+              "19a: the victim's program is not in B's manifest")
+        coord_b._cache = cache_b
+        cache_dir(dir_a)
+        faults.install(faults.FaultPlan.parse("launch:poison"))
+        tries = answered = 0
+        try:
+            while tries < PD_POISON_TRIES and \
+                    not coord_a.store.read_prefix("quarantine/"):
+                tries += 1
+                try:
+                    sa.execute(PD_VICTIM)
+                    answered += 1
+                except Exception:   # noqa: BLE001 - poisoned, as it must
+                    pass
+        finally:
+            faults.clear()
+        check(answered == 0, f"19a: {answered} poisoned launches answered")
+        tombs = coord_a.store.read_prefix("quarantine/")
+        check(list(tombs) == ["quarantine/" + victim],
+              f"19a: tombstones {list(tombs)}, want the victim {victim}")
+        kept = man.has_program(victim)
+        check(kept, "19a: B's entry went before B read the tombstone")
+        coord_b.tick(force=True)
+        check(coord_b.registry.quarantine_purged == 1
+              and not man.has_program(victim)
+              and not WarmManifest(dir_b).has_program(victim),
+              "19a: B did not purge the victim's manifest entry")
+        print(f"19a breaker: victim={victim[:16]} poisoned_runs={tries} "
+              f"tombstone_by={tombs['quarantine/' + victim][0]['by']} "
+              f"b_entry_after_trip={kept} "
+              f"b_purged={coord_b.registry.quarantine_purged} "
+              f"b_entry_after_tick={man.has_program(victim)} "
+              f"s={time.perf_counter() - t1:.1f}")
+    finally:
+        coord_b._cache = None
+        cache_dir("")
+        cache.configure(cache_dir=old_dir)
+        shutil.rmtree(tmp, ignore_errors=True)
+    step("breaker")
+
+    # what a build claim costs a statement that misses (a warm one
+    # resolves from the pool and claims nothing)
+    hx = "19" * 16
+    ns = []
+    for _ in range(PD_CLAIM_REPS):
+        t1 = time.perf_counter_ns()
+        pd.try_compile_claim(hx)
+        pd.release_compile_claim(hx)
+        ns.append(time.perf_counter_ns() - t1)
+    claim_us = statistics.median(ns) / 1e3
+    step("claim")
+    for name, s, c, names in (("A", sa, ca, main_data[0]),
+                              ("B", sb, cb, b_data[0])):
+        sql_check("Q1", run(s, q1), c, names, None)
+        got = _scaled(str(run(s, q6).rows[0][0]), 4)
+        check(got == q6_params_oracle(c, SERVER_Q6_PARAMS[0]),
+              f"19a {name} Q6: {got}")
+        print(f"19a {name}: Q1, Q6 exact")
+    for s in (sa, sb):
+        s.execute("set global tidb_tpu_pd = 0")
+    for d in (dom_a, dom_b):
+        pd.configure_domain(d, False)
+    step("exact")
+    print("19a steps: " + " ".join(f"{k}_s={v:.2f}" for k, v in steps.items()))
+    print(f"19a Q6 warm median of {PD_Q6_REPS}: pd_off_ms={off_ms:.3f} "
+          f"pd_on_ms={on_ms:.3f} launches_off={off_n} launches_on={on_n} "
+          f"claim_release_us={claim_us:.1f} q1_q6_group_reduce_launches="
+          f"{launched[0]} s={time.perf_counter() - t0:.1f}")
+    return launched[0]
+
+
+def pd_two_servers(dev_type: str, sf: float) -> None:
+    """Phase 19b: two ``python -m tidb_tpu_torch serve`` processes on the
+    card with one ``tidb_tpu_pd_dir``, each over its own SF lineitem by
+    LOAD DATA; Q6 over the wire, the warm Q6 with pd on, off and on
+    again over the file backend, ``/pd``, one killed, the lease loss."""
+    import os
+    import re
+    import signal
+    import tempfile
+    import threading
+
+    from tidb_tpu_torch.pd import PD_SYNC_S
+    from tidb_tpu_torch.pd.store import PD_LEASE_TTL_S
+    from tidb_tpu_torch.server.client import Client
+    from tidb_tpu_torch.testing import tpch
+    t0 = time.perf_counter()
+    names, cols = tpch.gen_lineitem(sf, seed=192,
+                                    columns=list(SERVE_PD_COLS))
+    c = dict(zip(names, cols))
+    want = q6_params_oracle(c, SERVER_Q6_PARAMS[0])
+    q6 = tpch.SQL_QUERIES["Q6"]
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [os.path.dirname(os.path.abspath(__file__))]
+        + [p for p in [env.get("PYTHONPATH")] if p])
+    with tempfile.TemporaryDirectory(prefix="phase19b_") as tmp:
+        src = os.path.join(tmp, "lineitem.csv")
+        qty, price, disc = (c[n].data.tolist() for n in SERVE_PD_COLS[:3])
+        ship = (np.datetime64("1970-01-01") + c["l_shipdate"].data.astype(
+            "timedelta64[D]")).astype(str).tolist()
+        with open(src, "w") as f:
+            for q, p, d, s in zip(qty, price, disc, ship):
+                f.write(f"{q // 100}.{q % 100:02d},{p // 100}.{p % 100:02d},"
+                        f"{d // 100}.{d % 100:02d},{s}\n")
+        cfg = os.path.join(tmp, "pd.toml")
+        with open(cfg, "w") as f:
+            f.write(f'[variables]\ntidb_tpu_pd = 1\n'
+                    f'tidb_tpu_pd_dir = "{os.path.join(tmp, "pd")}"\n')
+        procs = [subprocess.Popen(
+            [sys.executable, "-m", "tidb_tpu_torch", "serve", "--device",
+             dev_type, "--port", "0", "--status-port", "0", "--config",
+             cfg], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True, env=env) for _ in range(2)]
+        try:
+            ports = []
+            for p in procs:
+                line = p.stdout.readline()
+                m = re.search(r"listening on [\d.]+:(\d+) \(status :(\d+)\)",
+                              line)
+                check(m is not None, f"19b serve: {line!r}")
+                ports.append((int(m.group(1)), int(m.group(2))))
+            start_s = time.perf_counter() - t0
+            clients = [Client("127.0.0.1", port) for port, _s in ports]
+            for cl in clients:
+                cl.sock.settimeout(SERVE_PD_LOAD_S)
+
+            def both(fn):
+                """``fn(0)`` and ``fn(1)`` at once, one thread a server;
+                the seconds of each."""
+                secs, errs = [0.0, 0.0], []
+
+                def one(i):
+                    t1 = time.perf_counter()
+                    try:
+                        fn(i)
+                    except Exception as e:   # noqa: BLE001 - failed below
+                        errs.append(f"server {i}: {e!r}")
+                    secs[i] = time.perf_counter() - t1
+                ths = [threading.Thread(target=one, args=(i,))
+                       for i in (0, 1)]
+                for th in ths:
+                    th.start()
+                for th in ths:
+                    th.join()
+                check(not errs, f"19b: {errs}")
+                return secs
+
+            def load(i):
+                clients[i].execute(
+                    "create table lineitem (l_quantity decimal(15,2), "
+                    "l_extendedprice decimal(15,2), l_discount "
+                    "decimal(15,2), l_shipdate date)")
+                clients[i].execute(f"load data infile '{src}' into table "
+                                   "lineitem fields terminated by ','")
+
+            def first_q6(i):
+                got = clients[i].query(q6)[0][0]
+                check(_scaled(got, 4) == want,
+                      f"19b Q6 over the wire {got} != numpy {want}")
+            load_s = both(load)
+            firsts = [x * 1e3 for x in both(first_q6)]
+            # what the file backend costs a warm statement: server 0's
+            # Q6 with pd on, off, on; a statement due a tick (every
+            # PD_SYNC_S) pays the quota sync, the calibration merge, the
+            # manifest gossip and the tombstone read on its own thread
+            legs = {}
+            for leg, on in (("on", 1), ("off", 0), ("on_again", 1)):
+                clients[0].execute(f"set global tidb_tpu_pd = {on}")
+                clients[0].query(q6)     # attaches or detaches, untimed
+                sync0 = _pd_status(ports[0][1])["this_domain"].get(
+                    "sync_total", 0)
+                walls, t_leg = [], time.perf_counter()
+                while time.perf_counter() - t_leg < PD_WIRE_S:
+                    t1 = time.perf_counter()
+                    got = clients[0].query(q6)[0][0]
+                    walls.append((time.perf_counter() - t1) * 1e3)
+                    check(_scaled(got, 4) == want, f"19b Q6 pd {leg}: {got}")
+                legs[leg] = (walls, _pd_status(ports[0][1])["this_domain"].get(
+                    "sync_total", 0) - sync0)
+            check(legs["off"][1] == 0 and legs["on"][1] > 0
+                  and legs["on_again"][1] > 0,
+                  f"19b ticks a leg: {[(k, v[1]) for k, v in legs.items()]}")
+            # a warm Q6 on each renews its lease (a first Q6 columnarizes
+            # the rows and may outlast the other's lease), then /pd
+            for cl in clients:
+                check(_scaled(cl.query(q6)[0][0], 4) == want,
+                      "19b warm Q6 over the wire")
+            bodies = [_pd_status(sport) for _p, sport in ports]
+            ids = [b["this_domain"]["member"]["member_id"] for b in bodies]
+            for b in bodies:
+                live = {m for m, lease in b["status"]["store"]["leases"].items()
+                        if lease["ttl_left_s"] > 0}
+                check(live == set(ids), f"19b /pd leases {live} != {ids}")
+            procs[1].kill()
+            procs[1].wait()
+            t_kill = time.perf_counter()
+            lost_s, answered = None, 0
+            while time.perf_counter() - t_kill < PD_LEASE_TTL_S + 5.0:
+                got = clients[0].query(q6)[0][0]
+                check(_scaled(got, 4) == want,
+                      f"19b survivor Q6 {got} != numpy {want}")
+                answered += 1
+                lease = _pd_status(ports[0][1])["status"]["store"][
+                    "leases"].get(ids[1])
+                if lease is None or lease["ttl_left_s"] <= 0:
+                    lost_s = time.perf_counter() - t_kill
+                    break
+                time.sleep(0.05)
+            check(lost_s is not None and lost_s <= PD_LEASE_TTL_S + PD_SYNC_S,
+                  f"19b: the killed server's lease lost after {lost_s} s")
+            got = clients[0].query(q6)[0][0]
+            check(_scaled(got, 4) == want, "19b survivor after the loss")
+            for cl in clients:
+                cl.close()
+            procs[0].send_signal(signal.SIGINT)
+            procs[0].communicate(timeout=SERVER_STOP_S)
+            check(procs[0].returncode == 0,
+                  f"19b serve exit code {procs[0].returncode}")
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.communicate()
+    for leg, (walls, syncs) in legs.items():
+        print(f"19b warm Q6 over the wire pd_{leg}: reps={len(walls)} "
+              f"median_ms={statistics.median(walls):.3f} "
+              f"mean_ms={statistics.fmean(walls):.3f} "
+              f"max_ms={max(walls):.3f} ticks={syncs}")
+    print(f"19b two servers: sf={sf} rows={len(qty)} start_s={start_s:.2f} "
+          f"load_s={load_s[0]:.2f},{load_s[1]:.2f} q6_first_ms="
+          f"{firsts[0]:.1f},{firsts[1]:.1f} members={len(ids)} "
+          f"lease_lost_s={lost_s:.3f} (ttl {PD_LEASE_TTL_S}) "
+          f"survivor_q6_exact={answered + 1} s={time.perf_counter() - t0:.1f}")
+
+
+def background_workers(gr, os1, main_sess, main_data) -> None:
+    """Phase 19c: the background workers on ``main_sess``'s Domain: the
+    TTL sweep, the auto-analyze timer under four Q6 senders, a DXF
+    analyze task over two tables, and ADMIN RECOMMEND INDEX."""
+    import threading
+
+    from tidb_tpu_torch.session import Session
+    from tidb_tpu_torch.testing import tpch
+    t0 = time.perf_counter()
+    dom = main_sess.domain
+    sess = Session(dom)
+    c = dict(zip(*main_data))
+    q6 = tpch.SQL_QUERIES["Q6"]
+    counters = (gr.LAUNCHES, os1.LAUNCHES)
+    reset(counters)
+    timers = dom.start_background()
+    deadline = time.perf_counter() + TIMER_FIRST_S
+    while time.perf_counter() < deadline and \
+            not all(t.fire_count for t in timers.timers()):
+        time.sleep(0.05)
+    check(all(t.fire_count and not t.last_error for t in timers.timers()),
+          "19c: the first round of timers: " + ", ".join(
+              f"{t.name}:{t.fire_count}:{t.last_error}"
+              for t in timers.timers()))
+    first_s = time.perf_counter() - t0
+
+    # TTL: a 20,000-row table, its DATETIME column spread over 4 days
+    rng = np.random.default_rng(193)
+    now = time.time()
+    age = rng.integers(0, 2 * TTL_DAYS * 86400, TTL_ROWS)
+    age[np.abs(age - TTL_DAYS * 86400) < 60] += 120   # none at the cutoff
+    price = rng.integers(1, 10_000, TTL_ROWS)
+    sess.execute("create table ttl19 (id bigint, price bigint, "
+                 f"created datetime) TTL = created + INTERVAL {TTL_DAYS} DAY")
+    stamps = [time.strftime("%Y-%m-%d %H:%M:%S", time.gmtime(int(now - a)))
+              for a in age]
+    sess.execute("insert into ttl19 values " + ",".join(
+        f"({i}, {p}, '{s}')" for i, (p, s) in enumerate(zip(price.tolist(),
+                                                           stamps))))
+    keep = age < TTL_DAYS * 86400
+    before = sess.execute("select count(*) from ttl19").rows[0][0]
+    t1 = time.perf_counter()
+    timers.trigger("ttl")
+    ttl_ms = (time.perf_counter() - t1) * 1e3
+    got = sess.execute("select count(*), sum(price) from ttl19").rows
+    check(before == TTL_ROWS
+          and got == [(int(keep.sum()), exact_sum(price[keep]))],
+          f"19c TTL: {got}, want numpy {int(keep.sum())} rows")
+    print(f"19c ttl: rows={TTL_ROWS} deleted={TTL_ROWS - int(keep.sum())} "
+          f"kept={int(keep.sum())} sweep_ms={ttl_ms:.1f} "
+          f"aggregate_exact=True")
+
+    # auto-analyze under four Q6 senders: lineitem's statistics dropped,
+    # the timer's sweep rebuilds them while Q6 runs
+    tbl = dom.catalog.get_table("test", "lineitem")
+    old = dom.stats.get(tbl)
+    check(old is not None, "19c: lineitem has no statistics from 13c")
+    dom.stats._cache.pop(dom.stats._key(tbl))
+    want_q6 = q6_params_oracle(c, SERVER_Q6_PARAMS[0])
+    errors, sent, done = [], [0], threading.Event()
+
+    def sender():
+        s = Session(dom)
+        # only the timer analyzes: the senders' own inline auto-analyze
+        # and stats load stay off in their sessions
+        s.execute("set tidb_enable_auto_analyze = 0")
+        while not done.is_set():
+            try:
+                got = s.execute(q6).rows[0][0]
+                if _scaled(str(got), 4) != want_q6:
+                    errors.append(got)
+                sent[0] += 1
+            except Exception as e:   # noqa: BLE001 - failed below
+                errors.append(repr(e))
+    ths = [threading.Thread(target=sender) for _ in range(TTL_THREADS)]
+    for th in ths:
+        th.start()
+    t1 = time.perf_counter()
+    try:
+        # the timer's sweep follows the Domain's sysvar (off by default)
+        sess.execute("set global tidb_enable_auto_analyze = 1")
+        timers.trigger("auto-analyze")
+    finally:
+        analyze_ms = (time.perf_counter() - t1) * 1e3
+        sess.execute("set global tidb_enable_auto_analyze = 0")
+        done.set()
+        for th in ths:
+            th.join()
+    auto = [t for t in timers.timers() if t.name == "auto-analyze"][0]
+    check(not errors and not auto.last_error,
+          f"19c auto-analyze under load: {errors[:3]} {auto.last_error}")
+    new = dom.stats.get(tbl)
+    check(new is not None and stats_same(new, old),
+          "19c: auto-analyze's lineitem statistics differ from 13c's")
+    print(f"19c auto-analyze: under {TTL_THREADS} Q6 senders, "
+          f"analyze_ms={analyze_ms:.1f} q6_calls={sent[0]} exact=True "
+          f"stats_equal_13c=True")
+
+    # a DXF analyze task over two tables, then information_schema
+    m = dom.dxf
+    t1 = time.perf_counter()
+    task = m.run(m.submit("analyze", {"db": "test",
+                                      "tables": ["lineitem", "ttl19"]}))
+    dxf_ms = (time.perf_counter() - t1) * 1e3
+    rows = sess.execute("select task_id, type, state, subtasks_done, "
+                        "subtasks_total from information_schema.dist_tasks"
+                        ).rows
+    check(task.state == "succeed"
+          and (task.task_id, "analyze", "succeed", 2, 2) in rows
+          and stats_same(dom.stats.get(tbl), old),
+          f"19c DXF analyze: {task.state} {task.error} {rows}")
+    print(f"19c dxf: task={task.task_id} state={task.state} subtasks=2 "
+          f"ms={dxf_ms:.1f} dist_tasks={rows}")
+
+    # ADMIN RECOMMEND INDEX after a point-lookup workload
+    for i in range(5):
+        rs = sess.execute(f"select price from ttl19 where id = {int(i)}")
+        check(rs.rows == ([(int(price[i]),)] if keep[i] else []),
+              f"19c point lookup id={i}: {rs.rows}")
+    rec = sess.execute("admin recommend index").rows
+    check(any(r[0] == "ttl19" and r[1] == "id" and r[2] >= 5 for r in rec),
+          f"19c ADMIN RECOMMEND INDEX: {rec}")
+    print(f"19c recommend index: {[r[:3] for r in rec]}")
+    dom.close()
+    check(not timers._thread.is_alive(), "19c: the timer thread lives on")
+    launches = {"radix_hist_all64": os1.LAUNCHES["radix_hist_all64"],
+                "radix_onesweep64": os1.LAUNCHES["radix_onesweep64"],
+                "group_reduce": gr.LAUNCHES["group_reduce"]}
+    check(all(launches.values()), f"19c: a kernel never launched "
+          f"{launches}")
+    print(f"19c launches: {' '.join(f'{k}={v}' for k, v in launches.items())}"
+          f" first_timer_round_s={first_s:.1f}"
+          f" s={time.perf_counter() - t0:.1f}")
+
+
+def stats_same(got, want) -> bool:
+    """Two TableStats of one table hold the same column statistics."""
+    if (got.count, sorted(got.cols)) != (want.count, sorted(want.cols)):
+        return False
+    for name, w in want.cols.items():
+        g = got.cols[name]
+        if (g.ndv, g.null_count, g.count) != (w.ndv, w.null_count, w.count):
+            return False
+        if not (np.array_equal(g.hist.bounds, w.hist.bounds)
+                and np.array_equal(g.hist.cum_counts, w.hist.cum_counts)
+                and list(g.topn.values.items()) == list(w.topn.values.items())
+                and np.array_equal(g.cms.table, w.cms.table)):
+            return False
+    return True
+
+
+def pd_phase(gr, os1, main_sess, main_data) -> int:
+    """Phase 19 (see the module docstring): returns the group_reduce
+    launches of 19a's Q1 and Q6."""
+    launched = pd_two_domains(gr, main_sess, main_data)
+    late = time.perf_counter() - T_START
+    sf = SERVE_PD_SF if late <= SERVE_PD_LATE_S else SERVE_PD_SF_CUT
+    if sf != SERVE_PD_SF:
+        print(f"19b cut to sf={sf}: the script at {late:.1f} s, past "
+              f"{SERVE_PD_LATE_S} s")
+    pd_two_servers(main_sess.domain.client.devices[0].type, sf)
+    background_workers(gr, os1, main_sess, main_data)
+    return launched
+
+
 def build_phase(*modules) -> None:
     """The kernel libraries of ``modules`` from the checkout's sources,
     one nvcc each, started together."""
@@ -5600,8 +6219,10 @@ def main() -> int:
     counts["group_reduce_gates"] = 0
     counts["group_reduce_gates"] += gates_phase(torch, gr, main_sess,
                                                 main_data)
-    del main_sess
     lap("18 gates")
+    counts["group_reduce"] += pd_phase(gr, os1, main_sess, main_data)
+    del main_sess
+    lap("19 coordination and background")
 
     cu = "tidb_tpu_torch/copr/cuda/"
     sources = {"radix_hist": cu + "radix_kernel.cu",

@@ -176,10 +176,35 @@ GATES_MODULES = ["tidb_tpu_torch/analysis/__init__.py",
                  "tidb_tpu_torch/session/session.py"]
 
 
+# the coordination plane and the background workers: pd/, the timers,
+# TTL, DXF, the index advisor, the extension points, and the modules
+# they grow
+PD_MODULES = ["tidb_tpu_torch/pd/__init__.py",
+              "tidb_tpu_torch/pd/store.py",
+              "tidb_tpu_torch/pd/lease.py",
+              "tidb_tpu_torch/pd/quota.py",
+              "tidb_tpu_torch/pd/registry.py",
+              "tidb_tpu_torch/pd/coordinator.py",
+              "tidb_tpu_torch/timer/__init__.py",
+              "tidb_tpu_torch/ttl/__init__.py",
+              "tidb_tpu_torch/dxf/__init__.py",
+              "tidb_tpu_torch/dxf/tasks.py",
+              "tidb_tpu_torch/dxf/balancer.py",
+              "tidb_tpu_torch/planner/advisor.py",
+              "tidb_tpu_torch/extension/__init__.py",
+              "tidb_tpu_torch/compilecache/cache.py",
+              "tidb_tpu_torch/compilecache/manifest.py",
+              "tidb_tpu_torch/ddl/owner.py",
+              "tidb_tpu_torch/stats/handle.py",
+              "tidb_tpu_torch/server/status.py",
+              "tidb_tpu_torch/session/session.py"]
+
+
 @pytest.mark.parametrize("path", JOIN_MODULES + STORE_MODULES
                          + SELECT_MODULES + WINDOW_STATS_MODULES
                          + SERVER_MODULES + RESILIENCE_MODULES
-                         + SCHED_MODULES + OBS_MODULES + GATES_MODULES)
+                         + SCHED_MODULES + OBS_MODULES + GATES_MODULES
+                         + PD_MODULES)
 def test_join_modules_are_checked(path):
     assert path in SOURCES
 
@@ -287,6 +312,13 @@ def test_gates_modules_load_no_jax():
     by one in a fresh interpreter, each leave jax and tidb_tpu out of
     sys.modules."""
     _modules_load_no_jax(GATES_MODULES)
+
+
+def test_pd_modules_load_no_jax():
+    """The coordination plane's and the background workers' modules,
+    imported one by one in a fresh interpreter, each leave jax and
+    tidb_tpu out of sys.modules."""
+    _modules_load_no_jax(PD_MODULES)
 
 
 def test_import_loads_no_jax_module():

@@ -514,6 +514,80 @@ def test_shuffle_program_equals_the_reference(stmt, caps, fact_dim_sessions,
     _trees_equal(got, want)
 
 
+def _op_of(phys, name):
+    stack = [phys]
+    while stack:
+        op = stack.pop()
+        if type(op).__name__ == name:
+            return op
+        stack.extend(getattr(op, "children", ()) or ())
+    raise AssertionError(f"no {name} in the plan")
+
+
+def test_broadcast_join_admission_cost_equals_jax_copcost(
+        fact_dim_sessions, monkeypatch):
+    """ROADMAP.md Queue 3 item 3: the admission ``LaunchCost`` of a
+    broadcast join's launch (the probe scan with the build side as aux
+    inputs, 8 devices in both) equals the JAX ``copcost``'s for the same
+    DAG and inputs, every field — the bytes the roofline divides by the
+    device time are the reference's own count."""
+    from tidb_tpu.analysis import copcost as jcc
+    from tidb_tpu.sched.task import CopTask as JTask
+    from tidb_tpu_torch.analysis import copcost as pcc
+    from tidb_tpu_torch.sched.task import CopTask
+    js, ps, _ = fact_dim_sessions
+    sql = SHUFFLE_STMTS["agg"]
+    seen = {}
+
+    def spy(name, real):
+        def launch(dag, cols, counts, aux, *a, **kw):
+            seen[name] = (dag, cols, counts, tuple(aux))
+            return real(dag, cols, counts, aux, *a, **kw)
+        return launch
+    monkeypatch.setattr(js.domain.client, "_launch",
+                        spy("jax", js.domain.client._launch))
+    monkeypatch.setattr(ps.domain.client, "_submit",
+                        spy("port", ps.domain.client._submit))
+    assert ps.execute(sql).rows == js.execute(sql).rows
+    jdag, jcols, jcounts, jaux = seen["jax"]
+    pdag, pcols, pcounts, paux = seen["port"]
+    assert any(isinstance(n, D.LookupJoin) for n in D.iter_nodes(pdag))
+    assert len(paux) == len(jaux) == 1 and len(paux[0]) == len(jaux[0])
+    jc = jcc.task_cost(JTask.structured(jdag, get_mesh(), 0, jcols, jcounts,
+                                        jaux))
+    pc = pcc.task_cost(CopTask.structured(pdag, CPU8, 0, pcols, pcounts,
+                                          paux))
+    assert dataclasses.asdict(pc) == dataclasses.asdict(jc)
+    assert pc.aux_bytes > 0 and pc.input_bytes > 0
+    # the plan-level cost EXPLAIN's footer prints, from the same op
+    jop = _op_of(js._plan_select(j_parse_one(sql))[1], "CopJoinTaskExec")
+    pop = _op_of(ps._plan_select(parse_one(sql))[1], "CopJoinTaskExec")
+    assert dataclasses.asdict(pcc._cop_exec_cost(pop, N_DEV)) == \
+        dataclasses.asdict(jcc._cop_exec_cost(jop, N_DEV))
+
+
+def test_repartition_join_cost_equals_jax_copcost(fact_dim_sessions,
+                                                   shuffle_forced):
+    """A repartition join launches as an opaque task in both packages:
+    admission prices no ``LaunchCost`` for it (so no roofline row), and
+    its plan-level cost — the exchange buckets, the collective bytes
+    by link — equals the JAX ``copcost``'s for every statement."""
+    from tidb_tpu.analysis import copcost as jcc
+    from tidb_tpu.sched.task import CopTask as JTask
+    from tidb_tpu_torch.analysis import copcost as pcc
+    from tidb_tpu_torch.sched.task import CopTask
+    js, ps, _ = fact_dim_sessions
+    for sql in SHUFFLE_STMTS.values():
+        jop = _shuffle_op(js._plan_select(j_parse_one(sql))[1])
+        pop = _shuffle_op(ps._plan_select(parse_one(sql))[1])
+        jc = jcc._shuffle_exec_cost(jop, N_DEV)
+        pc = pcc._shuffle_exec_cost(pop, N_DEV)
+        assert dataclasses.asdict(pc) == dataclasses.asdict(jc), sql
+        assert pc.input_bytes > 0 and pc.inter_bytes > 0, sql
+    assert pcc.task_cost(CopTask.opaque(lambda: None, CPU8)) is None
+    assert jcc.task_cost(JTask.opaque(lambda: None)) is None
+
+
 # ------------------------------------------------------------------ #
 # (e) the join statements through both sessions
 # ------------------------------------------------------------------ #

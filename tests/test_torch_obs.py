@@ -537,9 +537,13 @@ def test_status_routes(pdom, tmp_path):
         assert st["trace"], st
         with open(st["trace"]) as f:
             assert "traceEvents" in json.load(f)
-        for route in ("/resource", "/pd", "/locksan"):
+        for route in ("/resource", "/locksan"):
             code, body = _status(port, route)
             assert code == 501 and "slice 12" in body, (route, body)
+        pd_body = _get(port, "/pd")
+        assert pd_body["this_domain"] == {"enabled": False}, pd_body
+        assert pd_body["status"]["coordinators"] == len(
+            pd_body["status"].get("members", ())), pd_body
     finally:
         s.execute("set global tidb_tpu_profile = 0")
         srv.close()

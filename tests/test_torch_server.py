@@ -323,7 +323,7 @@ def test_denied_statement_and_bad_password_equal_the_jax(servers):
 
 def test_unported_path_is_an_error_packet_and_the_connection_stays(conns):
     _j, p = conns
-    got = p.query("admin recommend index")[0]
+    got = p.query("create resource group rg1 ru_per_sec = 100")[0]
     assert got[0] == 0xFF
     assert struct.unpack_from("<H", got, 1)[0] == 1105
     assert b"ROADMAP.md, Queue 1 item 8" in got
@@ -551,14 +551,19 @@ def test_status_routes_equal_the_jax_server(servers):
         assert sched["enabled"] and "client" in sched \
             and "compile_cache" in sched
         # the observability routes answer since the observability
-        # slice (tests/test_torch_obs.py holds them); the control
-        # plane's still answer 501 naming their item
+        # slice (tests/test_torch_obs.py holds them), /pd since the
+        # coordination slice (tests/test_torch_pd.py); the resource
+        # groups' and the lock sanitizer's still answer 501 naming
+        # their item
         for route in ("/hbm", "/profile", "/trace"):
             assert isinstance(json.loads(_get(pst.port, route)), dict)
         with pytest.raises(urllib.error.HTTPError) as e:
             _get(pst.port, "/trace/abc")
         assert e.value.code == 404
-        for route in ("/resource", "/pd", "/locksan"):
+        assert json.loads(_get(pst.port, "/pd"))["this_domain"] == \
+            json.loads(_get(jst.port, "/pd"))["this_domain"] == \
+            {"enabled": False}
+        for route in ("/resource", "/locksan"):
             with pytest.raises(urllib.error.HTTPError) as e:
                 _get(pst.port, route)
             assert e.value.code == 501

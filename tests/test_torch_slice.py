@@ -498,15 +498,19 @@ _UNPORTED_SQL = {
                              "Queue 1 item 1, sub-step 7"),
     "SQL create resource group": ("create resource group rg1 ru_per_sec = 100",
                                   "Queue 1 item 8: slice 12"),
-    "SQL memtable": ("select count(*) from information_schema.tables",
-                     "Queue 1 item 9: slice 13"),
-    "SQL admin recommend index": ("admin recommend index",
-                                  "Queue 1 item 8: slice 12"),
 }
 
 # the statements that raised in the cases above before the observability
-# slice ported them, each with a check of what it now returns
+# slice (and, for the memtable and the index advisor, the coordination
+# slice) ported them, each with a check of what it now returns
 _PORTED_SQL = {
+    "SQL memtable": (
+        "select count(*) from information_schema.tables",
+        lambda res: res.rows == [(2,)]),
+    "SQL admin recommend index": (
+        "admin recommend index",
+        lambda res: res.names == ["Table", "Columns", "Est_benefit_execs",
+                                  "Sample_sql"]),
     "SQL show statements summary": (
         "show statements_summary",
         lambda res: res.names[:2] == ["Digest_text", "Exec_count"]

@@ -77,9 +77,20 @@ SELECT's plan passes the plan-time gates before any launch
 behind ``tidb_tpu_verify_plan``): a plan whose device lanes would wrap
 is refused with ``PlanContractError``, an analyzed table's provably
 narrow SUMs run as one int64 word, and a launch over a streamed batch
-releases its inputs at the launch (``analysis/lifetime``).  What
-the port does not run yet raises ``NotImplementedError`` naming its
-ROADMAP.md item (below).
+releases its inputs at the launch (``analysis/lifetime``).  Servers
+that share one card coordinate through the coordination plane
+(``pd/``, ``tidb_tpu_pd = 1``; ``tidb_tpu_pd_dir`` for separate
+processes): one RU budget split by debt-weighted shares, program claims
+and quarantine tombstones, and the calibration, over member leases that
+degrade to local operation, never to an error.  A Domain's background
+workers run on the timer framework (``timer/``: GC, TTL of ``ttl/``,
+auto-analyze, the workload repository; ``Domain.start_background``);
+the distributed task framework (``dxf/``) runs ANALYZE and CSV import as
+resumable tasks and spreads ADD INDEX's backfill over store processes;
+the ``information_schema`` memtables, ``ADMIN RECOMMEND INDEX``
+(``planner/advisor.py``) and the extension points (``extension/``)
+answer.  What the port does not run yet raises ``NotImplementedError``
+naming its ROADMAP.md item (below).
 """
 
 # ROADMAP.md items of the paths the port does not run yet, named by the
@@ -88,7 +99,9 @@ PLANNER = "Queue 1 item 1, sub-step 7: the cascades planner"
 EXCHANGE = "Queue 1 item 4: several physical GPUs"
 ANALYSIS = ("Queue 1 item 7: slice 11, the rest of the analysis gates "
             "(concurrency, lint and analysis/__main__)")
+# the resource-group statements, /resource and /locksan
 CONTROL = "Queue 1 item 8: slice 12, the control plane"
+# tools/ and testing/
 HOST_SURFACE = "Queue 1 item 9: slice 13, the rest of the host surface"
 
 

@@ -13,12 +13,13 @@ Dumpling / Lightning binaries (SURVEY.md §2.8) — subcommands of
 ``serve --device`` chooses the device of the server's Domain: ``cuda``
 (the default, one H100) or ``cpu``.  Asking for ``cuda`` where torch
 finds no GPU exits non-zero with the Domain's error before a port is
-bound.  The JAX package's ``serve`` also starts the Domain's background
-workers (``Domain.start_background``: the GC worker's timer, TTL and
-the auto-analyze sweep); the port has none yet (ROADMAP.md, Queue 1
-entry 13), so its ``serve`` starts none.  The JAX package's embedded
-tools (BR-style backup/restore, the direct-ingest import) are not
-ported either.
+bound.  ``serve`` starts the Domain's background workers
+(``Domain.start_background``: the GC worker's timer, TTL, the
+auto-analyze sweep and the workload repository), as the JAX package's
+does; a ``--config`` file's ``[variables]`` with ``tidb_tpu_pd = 1`` and
+one ``tidb_tpu_pd_dir`` joins several ``serve`` processes on one card to
+one coordination plane (pd/).  The JAX package's embedded tools
+(BR-style backup/restore, the direct-ingest import) are not ported.
 """
 
 from __future__ import annotations
@@ -61,6 +62,7 @@ def cmd_serve(args) -> int:
         print(f"tidb-tpu: {e}", file=sys.stderr, flush=True)
         return 1
     apply_to_domain(cfg, dom)
+    dom.start_background()
     srv = MySQLServer(dom, host=args.host, port=args.port)
     port = srv.start()
     st = StatusServer(dom, host=args.host, port=args.status_port)

@@ -25,7 +25,10 @@ their restart-stable ``CompileKey`` (analysis/compilekey):
   capacities back, also after a restart, and ``warm_start``
   (compilecache/warmup.py) replays the manifest;
 - ``quarantine(digest)`` (the launch breaker opened on a program) purges
-  the digest's manifest entries and corrections and refuses new records.
+  the digest's manifest entries and corrections and refuses new records;
+- with ``tidb_tpu_pd`` on and a cache directory, a miss claims its entry
+  on the coordination store first (pd/registry), as the JAX package does
+  before an AOT compile.
 
 Serialized executables and CUDA-graph capture of a program are not part
 of the port (ROADMAP.md, Queue 1 entry 10): a restarted process rebuilds
@@ -159,8 +162,23 @@ class CompileCache:
         if hit is not None:
             self._m_hits.inc()
             return hit[0]
+        # coplace (pd/registry): the cross-process build claim, where the
+        # JAX package claims before its AOT compile — with a cache
+        # directory only.  pd off or degraded => None and nothing
+        # changes; a peer's live claim (False) is counted by the
+        # registry and the port builds anyway: a build compiles nothing,
+        # so waiting on the peer would only cost the statement
+        claim = None
+        if self.cache_dir:
+            from ..pd import try_compile_claim
+            claim = try_compile_claim(entry_hex)
         t0 = time.perf_counter_ns()
-        prog = build()
+        try:
+            prog = build()
+        finally:
+            if claim is True:
+                from ..pd import release_compile_claim
+                release_compile_claim(entry_hex)
         dt_ns = time.perf_counter_ns() - t0
         with self._mu:
             # a concurrent resolve of the same key may have won the race:

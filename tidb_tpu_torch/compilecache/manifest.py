@@ -110,6 +110,14 @@ class WarmManifest:
             self._calib[d] = dict(payload)
         return n
 
+    def refresh(self) -> int:
+        """Fold entries other processes persisted since our last save
+        into the live view WITHOUT writing — the pd sync tick's read
+        channel (peer adoption then sees their regrow capacities, not
+        just entry names)."""
+        with self._mu:
+            return self._merge_disk_locked(self._read_disk())
+
     def _save_locked(self) -> None:
         """Advisory-locked read-merge-write + atomic rename: safe
         against concurrent writers sharing the cache dir (see module

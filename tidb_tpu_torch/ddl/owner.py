@@ -233,9 +233,9 @@ class DDLExecutor:
         todo = [int(h) for h in handles if h > start]
         if not todo:
             return
-        # the JAX package hands the subtasks to a DXF node pool when one
-        # is attached (_backfill_distributed); the port has no DXF yet
-        # (ROADMAP.md, Queue 1 item 9: slice 13), so it backfills locally
+        pool = getattr(self.domain, "dxf_pool", None)
+        if pool is not None and pool.live_nodes():
+            return self._backfill_distributed(job, tbl, ix, todo, pool)
         workers = int(self.domain.sysvars.get(
             "tidb_ddl_reorg_worker_cnt", 4))
         subtasks = [todo[i:i + SUBTASK] for i in range(0, len(todo), SUBTASK)]
@@ -298,6 +298,114 @@ class DDLExecutor:
                 with self._mu:
                     job.reorg_handle = subtasks[k][-1]
                     self.storage.save(job)
+
+    def _backfill_distributed(self, job: DDLJob, tbl, ix, todo, pool):
+        """DXF multi-node backfill: subtask ranges fan out over the store
+        RPC nodes (disttask framework balancer, doc.go:15-80); workers
+        encode the index entries, the owner commits them with the same
+        conflict discipline as the local path.  A node dying mid-reorg
+        rebalances its subtasks onto survivors (dxf/balancer.py)."""
+        from ..store.codec import record_key
+        kv = tbl.kv
+        offs = tbl._index_cols(ix)
+        # more subtasks than nodes so the work-stealing pool balances
+        # (the reference splits by region for the same reason)
+        n_nodes = max(len(pool.live_nodes()), 1)
+        size = max(min(SUBTASK, -(-len(todo) // (4 * n_nodes))), 64)
+        subtasks = [todo[i:i + size] for i in range(0, len(todo), size)]
+        chunk_rows: dict[int, dict] = {}       # subtask idx -> {h: rv0}
+        tagged = list(enumerate(subtasks))
+
+        def read_rows(chunk):
+            txn = kv.begin()
+            try:
+                return [(h, rv) for h in chunk
+                        for rv in (txn.get(record_key(tbl.table_id, h)),)
+                        if rv is not None]
+            finally:
+                txn.rollback()
+
+        def make_msg(st):
+            idx, chunk = st
+            # a writer's prewrite lock makes the read raise until its 2PC
+            # ends: wait it out, as the local path's scan does
+            bo = Backoffer(max_sleep_ms=LOCK_WAIT_MS)
+            while True:
+                try:
+                    rows = read_rows(chunk)
+                    break
+                except KVError as e:
+                    if e.code != ERR_LOCKED:
+                        raise
+                    bo.backoff(TXN_LOCK, e)
+            chunk_rows[idx] = dict(rows)
+            return ("dxf_backfill", tbl.table_id, ix.index_id, ix.unique,
+                    list(offs), list(tbl.col_types), rows)
+
+        completed: set = set()
+
+        def handle_resp(st, resp):
+            idx, _chunk = st
+            if not resp or resp[0] != "entries":
+                raise DDLError(f"dxf worker error: {resp!r}")
+            rv0 = chunk_rows.pop(idx, {})
+            entries = resp[1]
+            for off in range(0, len(entries), BATCH):
+                batch = entries[off:off + BATCH]
+                written = self._commit_entries(tbl, ix, batch, rv0)
+                with self._mu:
+                    job.rows_backfilled += written
+            with self._mu:
+                completed.add(idx)
+                # contiguous-prefix checkpoint (same rule as local path)
+                k = job_ck = 0
+                while k in completed:
+                    job_ck = k
+                    k += 1
+                if k:                  # at least subtask 0 done
+                    job.reorg_handle = subtasks[job_ck][-1]
+                    self.storage.save(job)
+
+        pool.run_subtasks(tagged, make_msg, handle_resp)
+
+    def _commit_entries(self, tbl, ix, batch, rv0) -> int:
+        """Commit one batch of worker-encoded entries; rows that changed
+        since the worker saw them are re-encoded at this txn's snapshot
+        (the backfill-vs-DML race discipline of the local path, with its
+        capped exponential backoff)."""
+        from ..store.codec import decode_row, record_key
+        kv = tbl.kv
+        for attempt in range(12):
+            txn = kv.begin()
+            written = 0
+            try:
+                for h, key, val in batch:
+                    rk = record_key(tbl.table_id, h)
+                    rv = txn.get(rk)
+                    if rv is None:
+                        continue       # row deleted since the scan
+                    if rv != rv0.get(h):
+                        # row mutated since encode: recompute locally
+                        row = decode_row(rv, tbl.col_types)
+                        key, val = tbl._index_entry(ix, tuple(row), h)
+                    txn.put(rk, rv)    # conflict fence vs racing DML
+                    if ix.unique and val and txn.get(key) is not None:
+                        raise DuplicateKeyError(
+                            f"Duplicate entry for key "
+                            f"'{tbl.name}.{ix.name}'")
+                    txn.put(key, val)
+                    written += 1
+                txn.commit()
+                return written
+            except DuplicateKeyError:
+                txn.rollback()
+                raise
+            except KVError:
+                txn.rollback()
+                if attempt == 11:
+                    raise
+                time.sleep(min(0.002 * (2 ** attempt), 0.1))
+        return 0
 
     # ---------------- DROP INDEX ---------------- #
 

@@ -1483,7 +1483,14 @@ class DeviceScheduler:
         for t in live:
             if t.key is not None and t.key[0] == digest \
                     and t.dag is not None:
-                compile_cache().quarantine(stable_digest(t.dag))
+                sd = stable_digest(t.dag)
+                compile_cache().quarantine(sd)
+                # coplace: tombstone the digest for every peer so a
+                # breaker-opened program is not laundered back through
+                # a peer's warm pool (pd/registry); a no-op unless a
+                # Domain of this process has a live coordinator
+                from ..pd import broadcast_quarantine
+                broadcast_quarantine(sd)
                 return
 
     # ------------------------------------------------------------- #
@@ -1813,6 +1820,28 @@ class DeviceScheduler:
         return {"enabled": self.calibration_enable,
                 **correction_store().stats()}
 
+    def _pd_stats(self) -> dict:
+        """coplace: the /sched ``pd`` section — membership + quota
+        shares per attached coordinator (the full store dump lives on
+        /pd).  Pure local state, no store I/O from the stats path."""
+        from ..pd import coordinators
+        coords = coordinators()
+        if not coords:
+            return {"enabled": False}
+        out = {"enabled": True, "members": []}
+        for c in coords:
+            out["members"].append({
+                "member_id": c.member.member_id,
+                "epoch": c.member.epoch,
+                "degraded": c.member.degraded,
+                "degraded_total": c.member.degraded_total,
+                "sync_total": c.sync_total,
+                "quota_shares": dict(sorted(c.quota.shares.items())),
+                "peer_warm": c.registry.peer_warm,
+                "claim_denials": c.registry.claim_denials,
+            })
+        return out
+
     def _hbm_stats(self) -> dict:
         out = {"enabled": self.hbm_enable}
         led = self._ledger_obj
@@ -1871,6 +1900,8 @@ class DeviceScheduler:
                 "rc_debited_ru": round(self.rc_debited_ru, 2),
                 "calibration": self._calibration_stats(),
                 "hbm": self._hbm_stats(),
+                # coplace (pd/): coordination-plane membership
+                "pd": self._pd_stats(),
                 "oom_faults": self.oom_faults,
                 "oom_demuxed": self.oom_demuxed,
                 "shed_rejects": self.shed_rejects,

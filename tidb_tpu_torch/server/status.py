@@ -15,9 +15,11 @@ plane: ``/trace`` (the flight recorder's index) and ``/trace/<id>``
 JSON for ui.perfetto.dev), ``/hbm`` (the memory ledgers reconciled with
 the card, the roofline tables, the calibration's memory counters) and
 ``/profile?ms=N`` (a ``torch.profiler`` capture, gated by
-``tidb_tpu_profile``).  The JAX package's ``/resource``, ``/pd`` and
-``/locksan`` read the control plane, which the port has not yet: each
-answers HTTP 501 naming its ROADMAP.md item.
+``tidb_tpu_profile``), and ``/pd`` (the coordination plane: this
+Domain's membership, every attached coordinator and a bounded dump of
+the shared store).  The JAX package's ``/resource`` and ``/locksan``
+read the resource-group statements and the lock sanitizer, which the
+port has not yet: each answers HTTP 501 naming its ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -33,7 +35,7 @@ from ..session.session import Domain
 # routes over subsystems of later slices, by the ROADMAP.md item that
 # ports them
 _UNPORTED_ROUTES = {
-    "/resource": CONTROL, "/pd": CONTROL, "/locksan": CONTROL,
+    "/resource": CONTROL, "/locksan": CONTROL,
 }
 
 
@@ -146,6 +148,20 @@ class StatusServer:
             # counters
             return json.dumps(self.domain.client.sched_stats(),
                               default=str), "application/json"
+        if path == "/pd":
+            # coplace (pd/): coordination-plane status — this Domain's
+            # membership (lease epoch, degraded state, quota shares,
+            # registry gossip counters) plus the cross-coordinator view
+            # and a bounded dump of the shared store (leases, key
+            # census per family, versions)
+            from ..pd import pd_status
+            out = {"status": pd_status()}
+            coord = getattr(self.domain, "pd", None)
+            if coord is None:
+                out["this_domain"] = {"enabled": False}
+            else:
+                out["this_domain"] = coord.stats()
+            return json.dumps(out), "application/json"
         if path in _UNPORTED_ROUTES:
             raise unported(f"the status route {path}",
                            _UNPORTED_ROUTES[path])

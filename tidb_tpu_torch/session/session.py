@@ -37,9 +37,9 @@ against the privilege manager), ``KILL``, ``PREPARE``/``EXECUTE``/
 cascades and the analysis gates: the inline auto-analyze,
 the join reorder, the index paths and the high-NDV strategy choice read
 the domain's statistics.  The port's ``Domain`` starts with
-``tidb_enable_auto_analyze = 0`` (the JAX package's default is 1) and
-runs no background stats load, so a session that never runs ANALYZE
-plans as the JAX package's does with auto-analyze off.  Every statement
+``tidb_enable_auto_analyze = 0`` (the JAX package's default is 1), and
+its background stats load runs only with it on, so a session that never
+runs ANALYZE plans as the JAX package's does with auto-analyze off.  Every statement
 is observed as the JAX package's is: with ``tidb_tpu_trace`` on (the
 default) ``execute`` roots a span tree at ``session.ExecuteStmt`` and
 binds ``obs.trace.TRACE_CTX`` for it, so the client's and the
@@ -47,10 +47,12 @@ scheduler drain's spans stitch under it; at the statement's end the
 tree is flagged (``degraded``, ``retried``, ``failed``, ``slow``), the
 domain's ``stmt_summary`` records the statement (its latency, rows, CPU
 time, plan digest and the scheduler's columns from the QueryHandle)
-and its ``flight_recorder`` offers the tree.  A physical plan
-that holds an operator of a later slice (a memtable) raises
-``NotImplementedError`` naming its ROADMAP.md item, as do every other
-statement kind and the SHOW kinds of later slices.
+and its ``flight_recorder`` offers the tree.  The memtables of
+``information_schema`` and ``performance_schema`` answer, as does
+``ADMIN RECOMMEND INDEX`` (planner/advisor over the statement summary).
+The statement kinds of later slices (the resource-group statements)
+raise ``NotImplementedError`` naming their ROADMAP.md item, as do the
+SHOW kinds of later slices.
 """
 
 from __future__ import annotations
@@ -179,9 +181,17 @@ class Domain:
     the device scheduler (``sched.SCHED_GROUP``); the resource-group
     statements come with ROADMAP.md, Queue 1 entry 12.
     ``stmt_summary`` holds the statement summary and the slow log,
-    ``flight_recorder`` the statements' span trees.  The JAX package's
-    Domain also takes a tenant keyspace and holds DXF and the background
-    workers; the port's has none of them yet (ROADMAP.md, Queue 1)."""
+    ``flight_recorder`` the statements' span trees.  ``pd`` holds the
+    Domain's coordinator on the coordination plane (pd/) once
+    ``tidb_tpu_pd = 1``: Domains in one process, or server processes
+    with one ``tidb_tpu_pd_dir``, then share one RU budget, program
+    claims, quarantine tombstones and calibration.  ``start_background``
+    starts the background workers on the timer framework (GC, TTL,
+    auto-analyze, the workload repository: ``timers``, stopped by
+    ``close``); ``dxf`` is the distributed task framework's manager.
+    Registered extensions (``extension``) boot with the Domain.  The
+    JAX package's Domain also takes a tenant keyspace; the port's does
+    not."""
 
     def __init__(self, device="cuda", n_devices: int = 1,
                  data_dir: Optional[str] = None, sync: bool = False):
@@ -265,6 +275,17 @@ class Domain:
         for _tables in self.catalog.databases.values():
             for _t in _tables.values():       # durable-load rebind
                 _t._autoid = self.autoid
+        # coplace coordination plane (pd/): the Domain's PdCoordinator
+        # slot — attached by pd.configure_domain when tidb_tpu_pd = 1
+        # (this Domain then models ONE server process of the fleet)
+        self.pd = None
+        self.timers = None               # start_background's framework
+        from ..extension import registry as _ext_registry
+        _ext_registry.setup_domain(self)   # pkg/extension bootstrap point
+        # workload repository (util/workloadrepo): periodic snapshots of
+        # the statement summary, queryable via
+        # information_schema.workload_repo_statements
+        self.workload_repo: list = []
 
     # ---------------- watch plane (etcd-channel analogs) ---------------- #
 
@@ -333,7 +354,63 @@ class Domain:
                     self._ddl = DDLExecutor(self)
         return self._ddl
 
+    @property
+    def dxf(self):
+        """Lazily-created distributed task framework manager
+        (pkg/disttask analog)."""
+        m = getattr(self, "_dxf", None)
+        if m is None:
+            from ..dxf.tasks import manager_for
+            m = self._dxf = manager_for(self)
+        return m
+
+    def start_background(self):
+        """Start the domain's background workers (domain.go:146 Init
+        analog): GC, TTL, auto-analyze on the timer framework."""
+        if self.timers is not None:
+            return self.timers
+        from ..store.gcworker import GCWorker
+        from ..timer import TimerFramework
+        from ..ttl import run_ttl_sweep
+        life = float(self.sysvars.get("tidb_gc_life_time_sec", 600))
+        self.gc_worker = GCWorker(self.kv, life)
+        self.timers = TimerFramework()
+        self.timers.register(
+            "gc", float(self.sysvars.get("tidb_gc_run_interval_sec", 60)),
+            self.gc_worker.run_once)
+        self.timers.register(
+            "ttl", float(self.sysvars.get("tidb_ttl_job_interval_sec", 60)),
+            lambda: run_ttl_sweep(self))
+        self.timers.register("auto-analyze", 30.0, self._auto_analyze_sweep)
+        self.timers.register("workload-repo", 60.0,
+                             self.snapshot_workload_repo)
+        self.timers.start()
+        return self.timers
+
+    def snapshot_workload_repo(self):
+        """Workload repository sweep (pkg/util/workloadrepo): persist a
+        timestamped snapshot of the statement summary so workload history
+        survives summary eviction; bounded ring."""
+        now = time.time()
+        for row in self.stmt_summary.summary_rows():
+            self.workload_repo.append((now,) + tuple(row[:5]))
+        if len(self.workload_repo) > 50_000:
+            del self.workload_repo[:25_000]
+
+    def _auto_analyze_sweep(self):
+        """Background auto-analyze (handle/autoanalyze.go worker), gated
+        as the inline one and the stats load are: the port's Domain
+        starts with ``tidb_enable_auto_analyze = 0``."""
+        if not _flag_on(self.sysvars, "tidb_enable_auto_analyze"):
+            return
+        for db, tables in list(self.catalog.databases.items()):
+            for tbl in list(tables.values()):
+                if self.stats.needs_auto_analyze(tbl):
+                    self.stats.analyze_table(tbl)
+
     def close(self):
+        if self.timers is not None:
+            self.timers.close()
         if self._ddl is not None:
             self._ddl.close()
 
@@ -378,25 +455,6 @@ _UNPORTED_STMTS = {
     "CreateResourceGroup": CONTROL, "DropResourceGroup": CONTROL,
     "SetResourceGroup": CONTROL,
 }
-
-# physical operators of later slices, by the ROADMAP.md item that ports
-# them; every other operator of executor/physical.py runs
-_UNPORTED_OPS = {
-    "MemTableExec": HOST_SURFACE,
-}
-
-
-def check_ported(phys: P.PhysOp) -> None:
-    """Raise ``NotImplementedError`` naming its ROADMAP.md item for the
-    first operator of ``phys`` that the port does not run yet (one of
-    ``_UNPORTED_OPS``)."""
-    stack = [phys]
-    while stack:
-        op = stack.pop()
-        name = type(op).__name__
-        if name in _UNPORTED_OPS:
-            raise unported(f"the {name} operator", _UNPORTED_OPS[name])
-        stack.extend(getattr(op, "children", ()) or ())
 
 
 class Session:
@@ -1145,8 +1203,7 @@ class Session:
         return built, phys
 
     def _to_physical(self, plan) -> P.PhysOp:
-        """The physical plan, its cop tasks naming the client's device;
-        raises for an operator of a later slice (``check_ported``)."""
+        """The physical plan, its cop tasks naming the client's device."""
         tok = P.COP_DEVICE.set(self.domain.client.devices[0].type)
         tok2 = STATS_HANDLE.set(self.domain.stats)
         try:
@@ -1154,7 +1211,6 @@ class Session:
         finally:
             STATS_HANDLE.reset(tok2)
             P.COP_DEVICE.reset(tok)
-        check_ported(phys)
         return phys
 
     def _eval_scalar_subquery(self, sub_ast, ran: list):
@@ -1203,14 +1259,17 @@ class Session:
 
     def _note_predicate_columns(self, plan) -> None:
         """Track filtered columns for ANALYZE ... PREDICATE COLUMNS
-        (column_stats_usage.go analog).  The JAX package also schedules
-        a background ANALYZE here for a table with no stats (its async
-        load, ``StatsHandle.request_load``); the port runs no background
-        workers yet (ROADMAP.md, Queue 1 entry 13), so its plans wait
-        for ANALYZE or the inline auto-analyze."""
+        (column_stats_usage.go analog), and schedule a background
+        ANALYZE for a planned-against table with no stats
+        (``StatsHandle.request_load``).  The port's Domain starts with
+        ``tidb_enable_auto_analyze = 0``; the load runs only with it on,
+        so a session that never turns it on plans over the tables it
+        analyzed, as before."""
         from ..planner.logical import DataSource, LogicalSelection
         from ..planner.optimize import referenced_columns
         stats = self.domain.stats
+        merged = {**self.domain.sysvars, **self.vars}
+        load = _flag_on(merged, "tidb_enable_auto_analyze")
 
         def walk(p):
             if isinstance(p, LogicalSelection) \
@@ -1222,6 +1281,9 @@ class Session:
                 names = [ds.schema.cols[i].name for i in refs
                          if i < len(ds.schema.cols)]
                 stats.note_predicate_columns(ds.table, names)
+            if load and isinstance(p, DataSource) \
+                    and not getattr(p.table, "is_memtable", False):
+                stats.request_load(p.table)
             for c in getattr(p, "children", []):
                 walk(c)
 
@@ -1240,8 +1302,9 @@ class Session:
         calibration's, the memory ledger's, the host fallback of the
         ladders (once a SET GLOBAL gave it a value), the fault-injection
         spec and the program cache's (then its warm replay, once a
-        directory).  The JAX package's pd knobs stay inert (ROADMAP.md,
-        Queue 1 entry 12)."""
+        directory), and the coordination plane's (``tidb_tpu_pd``,
+        ``tidb_tpu_pd_dir``): the Domain's coordinator is attached or
+        detached and ticked here."""
         from ..utils.memory import Tracker
         merged = {**self.domain.sysvars, **self.vars}
         quota = int(merged.get("tidb_mem_quota_query", 1 << 30))
@@ -1272,6 +1335,21 @@ class Session:
             from ..faults import install_spec
             install_spec(str(v10))
         _apply_sched_knobs(client, merged)
+        # coplace coordination plane (pd/): attach/detach the Domain's
+        # coordinator from the sysvars (the scheduler's hooks read the
+        # live coordinators), and tick the statement-driven heartbeat
+        # (internally throttled; a degraded store costs one failed
+        # grant per tick, never a statement)
+        v18 = merged.get("tidb_tpu_pd")
+        v19 = merged.get("tidb_tpu_pd_dir")
+        pd_on = bool(int(v18)) if v18 is not None and v18 != "" \
+            else False
+        from ..pd import configure_domain
+        coord = configure_domain(
+            self.domain, pd_on,
+            "" if v19 is None else str(v19))
+        if coord is not None:
+            coord.tick()
         return P.ExecContext(client, merged,
                              mem_tracker=Tracker("query", quota))
 
@@ -2684,8 +2762,10 @@ class Session:
         if stmt.kind == "check table":
             return self._admin_check_table(stmt.target)
         if stmt.kind == "recommend index":
-            # the index advisor reads the statement summary
-            raise unported("ADMIN RECOMMEND INDEX", CONTROL)
+            from ..planner.advisor import recommend_indexes
+            return ResultSet(
+                ["Table", "Columns", "Est_benefit_execs", "Sample_sql"],
+                recommend_indexes(self.domain, self.db))
         if stmt.kind == "checksum table":
             # br/pkg/checksum analog: order-independent XOR of per-pair
             # CRCs over the table's record+index ranges at one ts
@@ -2850,4 +2930,4 @@ def _render_create_table(tbl) -> str:
             "\n) ENGINE=tpu-columnar DEFAULT CHARSET=utf8mb4")
 
 
-__all__ = ["Session", "Domain", "ResultSet", "check_ported"]
+__all__ = ["Session", "Domain", "ResultSet"]

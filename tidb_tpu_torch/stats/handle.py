@@ -99,13 +99,13 @@ class StatsHandle:
         self.device = device
         self._cache: dict[int, TableStats] = {}
         self._lock = threading.Lock()
+        self.auto_analyze_enabled = True
         # predicate-column tracking (tidb_enable_column_tracking /
-        # column_stats_usage): which columns queries actually filter on.
-        # The JAX package's background stats load (its request_load)
-        # comes with the port's background workers (ROADMAP.md, Queue 1
-        # entry 13); the session's tidb_enable_auto_analyze is the one
-        # gate of the inline auto-analyze
+        # column_stats_usage): which columns queries actually filter on
         self._pred_cols: dict[int, set] = {}
+        # async stats load (handle/syncload analog): tables whose first
+        # plan found no stats get analyzed in the background
+        self._loading: set = set()
 
     # ------------------------------------------------------------ #
 
@@ -128,6 +128,8 @@ class StatsHandle:
             ts.delta_count += int(churn if delta is None else delta)
 
     def needs_auto_analyze(self, table) -> bool:
+        if not self.auto_analyze_enabled:
+            return False
         ts = self.get(table)
         n = table.num_rows
         if ts is None:
@@ -138,7 +140,7 @@ class StatsHandle:
 
     # ------------------------------------------------------------ #
 
-    # -- predicate-column tracking ---------------------------------- #
+    # -- predicate-column tracking + async load --------------------- #
 
     def note_predicate_columns(self, table, names) -> None:
         """Record columns that appeared in query predicates; ANALYZE
@@ -152,6 +154,34 @@ class StatsHandle:
 
     def predicate_columns(self, table) -> set:
         return set(self._pred_cols.get(self._key(table), ()))
+
+    def request_load(self, table) -> bool:
+        """Async stats load (handle/syncload analog): schedule a
+        background ANALYZE for a planned-against table with no stats;
+        the current plan proceeds on defaults.  Returns True if
+        scheduled."""
+        if not self.auto_analyze_enabled:
+            return False
+        key = self._key(table)
+        with self._lock:
+            if key in self._cache or key in self._loading:
+                return False
+            if getattr(table, "num_rows", 0) < self.AUTO_ANALYZE_MIN_COUNT:
+                return False
+            self._loading.add(key)
+
+        def run():
+            try:
+                self.analyze_table(table)
+            except Exception:
+                pass
+            finally:
+                with self._lock:
+                    self._loading.discard(key)
+
+        threading.Thread(target=run, name="stats-async-load",
+                         daemon=True).start()
+        return True
 
     # ------------------------------------------------------------ #
 
