@@ -9,7 +9,9 @@
                                      # SF=10 and SF=1; the store at
                                      # SF=0.1; the SELECT surface: the
                                      # lanes and rollup at SF=10, the
-                                     # 22 TPC-H statements at SF=0.01
+                                     # 22 TPC-H statements at SF=0.01;
+                                     # the tools and cascades over the
+                                     # eight tables at SF=0.1
     python3 chip_smoke.py --sf 0.05 --main-sf 0.1 --s4-sf 0.05   # quicker
     python3 chip_smoke.py --perm-of DIR   # only scatter_permutation's
                                           # time, of DIR/tidb_tpu_torch
@@ -356,7 +358,33 @@ script exits non-zero without printing a result:
    point lookups, then ``Domain.close`` stopping the timer thread; the
    ``radix_hist_all64``, ``radix_onesweep64`` and ``group_reduce``
    launches of 19c, counted from 0;
-20. the ``kernels`` JSON line, then the last line
+20. the ecosystem tools and the cascades planner, on a new KV-backed
+   Domain on the card, over ``gen_tpch(TOOLS_SF)``'s eight tables
+   written as CSV (``TOOLS_SF_CUT`` when the script reaches phase 20
+   past ``TOOLS_LATE_S``, the arrival past which the phase at this
+   host's pace would end after ``TOOLS_END_S``; the cut printed): (a)
+   ``tools.import_csv`` of each table (``TOOLS_THREADS`` threads, rows/s
+   a table) and ``global_sort_import`` of orders into another database
+   under a memory budget that spills several runs (counted); Q1 and Q6
+   equal to numpy; with the result cache on, a further chunk of lineitem
+   imported into the non-empty table: Q6 gives the new exact answer, no
+   cache hit; (b) BR: ``backup`` of the database and ``restore`` under
+   another name (seconds and MB/s), Q1 and Q6 on the restored tables
+   equal to 20a's; ``log_backup_start`` on the global-sort orders,
+   UPDATE, DELETE and INSERT, ``log_backup_tick``; ``restore_pitr`` to
+   the tick equal to the source table and to the base equal to the
+   backup; (c) ``dump_database`` of that orders in the ``sql`` and
+   ``csv`` formats, the CSV dump imported into a fresh table with the
+   source's count and sums; (d) ANALYZE of the tables TPC-H Q3, Q5, Q10
+   and Q12 read, then each statement with
+   ``tidb_enable_cascades_planner`` off and on, equal to each other and
+   to sqlite, ``search`` called directly on each optimized plan (the
+   join methods it chose printed), the plan ms of each leg on its miss,
+   then the warm walls of both legs over ``TOOLS_WARM`` rounds in
+   alternating order, and whether their EXPLAINs are the same; the
+   ``group_reduce`` launches of each sub-phase (and 20d's onesweep
+   launches), counted from 0;
+21. the ``kernels`` JSON line, then the last line
    ``{"ok": true, "device": {...}}``.  A ``phase ...: s=`` line after
    each phase gives its seconds.
 
@@ -384,7 +412,7 @@ import time
 
 import numpy as np
 
-T_START = time.perf_counter()      # the script's start, for phase 19's guard
+T_START = time.perf_counter()      # the script's start, for the late guards
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3, NVIDIA data sheet
 CUDA_CORE_OPS_PER_S = 67e12      # H100 SXM non-tensor fp32 rate, per op
@@ -3262,6 +3290,8 @@ def tpch_sqlite(data: dict):
                "customer(c_custkey)", "supplier(s_suppkey)",
                "part(p_partkey)", "nation(n_nationkey)"):
         tbl = ix.split("(")[0]
+        if tbl not in data:
+            continue
         cols = ix[len(tbl) + 1:-1].replace(", ", "_")
         lite.execute(f"create index ix_{tbl}_{cols} on {ix}")
     lite.commit()
@@ -5538,6 +5568,17 @@ TTL_THREADS = 4           # 19c's Q6 senders during the auto-analyze
 TIMER_FIRST_S = 60.0      # 19c: the timers' first round, at most
 
 
+def late_sf(tag: str, full: float, cut: float, late_s: float) -> float:
+    """``full``, or ``cut`` (printed) when the script reaches sub-phase
+    ``tag`` past ``late_s`` seconds."""
+    late = time.perf_counter() - T_START
+    if late <= late_s:
+        return full
+    print(f"{tag} cut to sf={cut}: the script at {late:.1f} s, past "
+          f"{late_s:.1f} s")
+    return cut
+
+
 def _pd_status(port: int) -> dict:
     import urllib.request
     with urllib.request.urlopen(f"http://127.0.0.1:{port}/pd",
@@ -6084,14 +6125,371 @@ def pd_phase(gr, os1, main_sess, main_data) -> int:
     """Phase 19 (see the module docstring): returns the group_reduce
     launches of 19a's Q1 and Q6."""
     launched = pd_two_domains(gr, main_sess, main_data)
-    late = time.perf_counter() - T_START
-    sf = SERVE_PD_SF if late <= SERVE_PD_LATE_S else SERVE_PD_SF_CUT
-    if sf != SERVE_PD_SF:
-        print(f"19b cut to sf={sf}: the script at {late:.1f} s, past "
-              f"{SERVE_PD_LATE_S} s")
+    sf = late_sf("19b", SERVE_PD_SF, SERVE_PD_SF_CUT, SERVE_PD_LATE_S)
     pd_two_servers(main_sess.domain.client.devices[0].type, sf)
     background_workers(gr, os1, main_sess, main_data)
     return launched
+
+
+# -- phase 20: the ecosystem tools and the cascades planner ------------- #
+
+TOOLS_DEVICE = "cuda"
+TOOLS_SF = 0.1            # 20a's eight TPC-H tables: lineitem 600,000 rows
+TOOLS_SF_CUT = 0.01       # their scale when the script is late (below)
+TOOLS_FULL_S = 210.0      # phase 20 at TOOLS_SF alone on the H100's host:
+#                           195.8 and 210.3 s in two runs (PERF.md section 4)
+TOOLS_FAST_AT = 835.0     # a fast host's seconds at phase 20: phases 1-18
+#                           took 703.3 s, phase 19 at full scale 131.5 s
+TOOLS_END_S = 1100.0      # phase 20 ends by then (the script's limit 1200 s)
+# A host's pace is its seconds at phase 20 over TOOLS_FAST_AT (at least 1).
+# At TOOLS_SF, TOOLS_FULL_S times that pace, phase 20 would end past
+# TOOLS_END_S when the script reaches it past this many seconds:
+TOOLS_LATE_S = TOOLS_END_S / (1 + TOOLS_FULL_S / TOOLS_FAST_AT)
+TOOLS_THREADS = 4         # import_csv's and dump_database's pools
+TOOLS_EXTRA_SHARE = 60    # 20a's further chunk: 1/this of lineitem's rows
+TOOLS_GS_BYTES = 40 << 20   # 20a's global-sort memory budget at SF=1, by SF
+TOOLS_CASCADES = (3, 5, 10, 12)   # 20d's TPC-H statements
+TOOLS_CASCADES_TABLES = ("lineitem", "orders", "customer", "supplier",
+                         "nation", "region")   # the tables they read
+TOOLS_WARM = 2            # 20d's warm rounds of both legs, order alternating
+TOOLS_ORDERS_AGG = ("select o_orderstatus, count(*), sum(o_orderkey), "
+                    "sum(o_custkey), sum(o_totalprice), min(o_orderdate), "
+                    "max(o_orderdate), sum(o_shippriority) from orders "
+                    "group by o_orderstatus order by o_orderstatus")
+
+
+def write_csv(path: str, names: list, cols: list) -> int:
+    """``cols`` as a CSV file with a header line, the text LOAD DATA
+    reads (``tpch._as_text``: ``\\N`` for NULL, ISO dates, doubles by
+    ``repr``); returns the rows."""
+    import csv
+    from tidb_tpu_torch.testing import tpch
+    texts = [tpch._as_text(c) for c in cols]
+    with open(path, "w", newline="") as f:
+        f.write(",".join(names) + "\n")
+        w = csv.writer(f)
+        for lo in range(0, len(texts[0]), 65536):
+            w.writerows(zip(*[t[lo:lo + 65536] for t in texts]))
+    return len(texts[0])
+
+
+def dir_bytes(path: str) -> int:
+    import os
+    return sum(os.path.getsize(os.path.join(path, f))
+               for f in os.listdir(path))
+
+
+def tools_launches(tag: str, counters, need) -> dict:
+    """The launches of the sub-phase since the counters' reset, printed;
+    each kernel of ``need`` must have launched."""
+    launched = {k: launches[k] for launches in counters for k in GR + OS
+                if k in launches}
+    check(all(launched[k] > 0 for k in need),
+          f"{tag}: a kernel of its path never launched {launched}")
+    print(f"{tag} launches: "
+          + " ".join(f"{k}={v}" for k, v in launched.items()))
+    return launched
+
+
+def tools_phase(gr, os1) -> int:
+    """Phase 20 (see the module docstring): returns the group_reduce
+    launches of 20a-20d."""
+    import tempfile
+
+    from tidb_tpu_torch.chunk.column import Column
+    from tidb_tpu_torch.planner.cascades import search as search_mod
+    from tidb_tpu_torch.session import Domain, Session
+    from tidb_tpu_torch.testing import tpch
+    from tidb_tpu_torch.tools import br, dump, external_sort, lightning
+
+    sf = late_sf("20", TOOLS_SF, TOOLS_SF_CUT, TOOLS_LATE_S)
+    counters = (gr.LAUNCHES, os1.LAUNCHES)
+    group_reduce = 0
+    with tempfile.TemporaryDirectory(prefix="tidb_tools_") as tmp:
+        # -- 20a: the direct and the global-sort imports --------------- #
+        t0 = time.perf_counter()
+        data = tpch.gen_tpch(sf, seed=0)
+        rows = {t: write_csv(f"{tmp}/{t}.csv", names, cols)
+                for t, (names, cols) in data.items()}
+        li_names, li_cols = data["lineitem"]
+        n_extra = rows["lineitem"] // TOOLS_EXTRA_SHARE
+        write_csv(f"{tmp}/extra.csv", li_names,
+                  [c.slice(0, n_extra) for c in li_cols])
+        print(f"20a data: sf={sf} " + " ".join(
+            f"{t}={n}" for t, n in rows.items())
+            + f" extra={n_extra} gen_write_s={time.perf_counter() - t0:.2f}")
+        dom = Domain(TOOLS_DEVICE)
+        sess = Session(dom)
+        reset(counters)
+        sess.execute("create database tpch")
+        sess.execute("use tpch")
+        for t in data:
+            sess.execute(f"create table {t} {tpch.TPCH_TABLE_DDL[t]}")
+            t0 = time.perf_counter()
+            n = lightning.import_csv(dom, "tpch", t, f"{tmp}/{t}.csv",
+                                     threads=TOOLS_THREADS)
+            s_ = time.perf_counter() - t0
+            check(n == rows[t], f"20a import {t}: {n} rows of {rows[t]}")
+            print(f"20a import_csv {t}: rows={n} s={s_:.3f} "
+                  f"rows_per_s={n / s_:.0f} threads={TOOLS_THREADS}")
+        sess.execute("create database tools_gs")
+        sess.execute(f"create table tools_gs.orders "
+                     f"{tpch.TPCH_TABLE_DDL['orders']}")
+        runs = [0]
+        close = external_sort.RunWriter.close
+
+        def counted_close(self):
+            runs[0] += 1
+            close(self)
+        budget = int(TOOLS_GS_BYTES * sf)
+        external_sort.RunWriter.close = counted_close
+        try:
+            t0 = time.perf_counter()
+            n = lightning.global_sort_import(
+                dom, "tools_gs", "orders", f"{tmp}/orders.csv",
+                f"{tmp}/runs", mem_budget_bytes=budget)
+            s_ = time.perf_counter() - t0
+        finally:
+            external_sort.RunWriter.close = close
+        check(n == rows["orders"] and runs[0] >= 2,
+              f"20a global_sort_import: {n} rows, {runs[0]} runs")
+        print(f"20a global_sort_import orders: rows={n} s={s_:.3f} "
+              f"rows_per_s={n / s_:.0f} runs={runs[0]} "
+              f"mem_budget_bytes={budget}")
+        o_names, o_cols = data["orders"]
+        li, od = store_oracle_data(li_cols, li_names, o_cols, o_names)
+        answers = {}
+        for name in ("Q1", "Q6"):
+            t0 = time.perf_counter()
+            rs = sess.execute(tpch.SQL_QUERIES[name])
+            first = time.perf_counter() - t0
+            store_check(name, rs.rows, li, od)
+            t0 = time.perf_counter()
+            answers[name] = sess.execute(tpch.SQL_QUERIES[name]).rows
+            check(answers[name] == rs.rows, f"20a {name}: warm != first")
+            print(f"20a {name}: first_ms={first * 1e3:.3f} warm_ms="
+                  f"{(time.perf_counter() - t0) * 1e3:.3f} exact=True")
+        gs = Session(dom, db="tools_gs").execute(TOOLS_ORDERS_AGG).rows
+        check(tpch_rows_equal(gs, sess.execute(TOOLS_ORDERS_AGG).rows),
+              f"20a: the global-sort orders differ from import_csv's {gs}")
+        # a further chunk into the non-empty lineitem, the result cache on
+        client = dom.client
+        sess.execute("set global tidb_tpu_result_cache_entries = 64")
+        sess.execute(tpch.TPCH_Q6)
+        hits = client.result_cache_hits
+        check(sess.execute(tpch.TPCH_Q6).rows == answers["Q6"]
+              and client.result_cache_hits == hits + 1,
+              "20a: the result cache did not answer the warm Q6")
+        t0 = time.perf_counter()
+        n = lightning.import_csv(dom, "tpch", "lineitem", f"{tmp}/extra.csv",
+                                 threads=TOOLS_THREADS)
+        s_ = time.perf_counter() - t0
+        li_cols = [Column.concat([c, c.slice(0, n_extra)]) for c in li_cols]
+        data["lineitem"] = (li_names, li_cols)
+        li, _od = store_oracle_data(li_cols, li_names, o_cols, o_names)
+        hits = client.result_cache_hits
+        old = answers["Q6"]
+        t0 = time.perf_counter()
+        q6 = sess.execute(tpch.TPCH_Q6).rows
+        q6_ms = (time.perf_counter() - t0) * 1e3
+        store_check("Q6", q6, li, od)
+        check(n == n_extra and q6 != answers["Q6"]
+              and client.result_cache_hits == hits,
+              f"20a: Q6 after the import {q6}, before {answers['Q6']}")
+        answers["Q6"] = q6
+        answers["Q1"] = sess.execute(tpch.TPCH_Q1).rows
+        store_check("Q1", answers["Q1"], li, od)
+        print(f"20a import into non-empty lineitem: rows={n} s={s_:.3f} "
+              f"q6_before={old[0][0]} q6_after={q6[0][0]} "
+              f"q6_after_first_ms={q6_ms:.3f} result_cache_hit=False "
+              "exact=True")
+        group_reduce += tools_launches("20a", counters, GR)["group_reduce"]
+
+        # -- 20b: BR backup, restore and PITR, the result cache on ------ #
+        reset(counters)
+        bk = f"{tmp}/backup"
+        t0 = time.perf_counter()
+        counts = br.backup(dom, "tpch", bk)
+        s_b = time.perf_counter() - t0
+        mb = dir_bytes(bk) / 1e6
+        t0 = time.perf_counter()
+        restored = br.restore(dom, bk, db="tpch_r")
+        s_r = time.perf_counter() - t0
+        check(restored == counts, f"20b restore: {restored} != {counts}")
+        print(f"20b backup: pairs={sum(counts.values())} mb={mb:.1f} "
+              f"s={s_b:.3f} mb_per_s={mb / s_b:.1f}")
+        print(f"20b restore: pairs={sum(restored.values())} s={s_r:.3f} "
+              f"mb_per_s={mb / s_r:.1f}")
+        rsess = Session(dom, db="tpch_r")
+        first = {}
+        for name in ("Q1", "Q6"):
+            t0 = time.perf_counter()
+            got = rsess.execute(tpch.SQL_QUERIES[name]).rows
+            first[name] = (time.perf_counter() - t0) * 1e3
+            check(got == answers[name],
+                  f"20b {name} on the restored tables: {got[:2]}")
+        print(f"20b Q1 Q6 on the restored tables: first_ms Q1="
+              f"{first['Q1']:.3f} Q6={first['Q6']:.3f} equal_20a=True")
+        gsess = Session(dom, db="tools_gs")
+        pitr = f"{tmp}/pitr"
+        t0 = time.perf_counter()
+        br.log_backup_start(dom, "tools_gs", pitr)
+        base_ts = json.load(open(f"{pitr}/{br.STREAM_FILE}"))["last_ts"]
+        base = gsess.execute(TOOLS_ORDERS_AGG).rows
+        gsess.execute("update orders set o_totalprice = o_totalprice + 1, "
+                      "o_shippriority = 1 where o_orderkey % 7 = 0")
+        gsess.execute("delete from orders where o_orderkey % 11 = 0")
+        gsess.execute("insert into orders values "
+                      "(-1, 1, 'X', 10.5, '1999-01-01', '1-URGENT', 'c', 0, "
+                      "'pitr'), (-2, 2, 'X', 20.25, '1999-01-02', '5-LOW', "
+                      "'c', 0, null)")
+        n_changed = br.log_backup_tick(dom, pitr)
+        tick_ts = json.load(open(f"{pitr}/{br.STREAM_FILE}"))["last_ts"]
+        s_l = time.perf_counter() - t0
+        now = gsess.execute(TOOLS_ORDERS_AGG).rows
+        t0 = time.perf_counter()
+        br.restore_pitr(dom, pitr, restore_ts=tick_ts, db="pitr_tick")
+        br.restore_pitr(dom, pitr, restore_ts=base_ts, db="pitr_base")
+        s_p = time.perf_counter() - t0
+        at_tick = Session(dom, db="pitr_tick").execute(TOOLS_ORDERS_AGG).rows
+        at_base = Session(dom, db="pitr_base").execute(TOOLS_ORDERS_AGG).rows
+        check(n_changed > 0 and now != base and tpch_rows_equal(at_tick, now)
+              and tpch_rows_equal(at_base, base),
+              f"20b PITR: tick {at_tick} vs {now}; base {at_base} vs {base}")
+        n_now = sum(r[1] for r in now)
+        print(f"20b pitr: orders={n_now} changed_keys={n_changed} "
+              f"log_s={s_l:.3f} restore_pitr_s={s_p:.3f} (two restores) "
+              "tick_equal_source=True base_equal_backup=True")
+        # 20d's legs plan one statement two ways: each launches its own
+        sess.execute("set global tidb_tpu_result_cache_entries = 0")
+        group_reduce += tools_launches("20b", counters, GR)["group_reduce"]
+
+        # -- 20c: Dumpling, and its CSV back through import_csv -------- #
+        reset(counters)
+        for fmt in ("sql", "csv"):
+            out = f"{tmp}/dump_{fmt}"
+            t0 = time.perf_counter()
+            got = dump.dump_database(dom, "tools_gs", out, fmt=fmt,
+                                     threads=TOOLS_THREADS)
+            s_ = time.perf_counter() - t0
+            check(got == {"orders": n_now},
+                  f"20c dump {fmt}: {got}")
+            print(f"20c dump {fmt}: rows={got['orders']} "
+                  f"mb={dir_bytes(out) / 1e6:.1f} s={s_:.3f} "
+                  f"rows_per_s={got['orders'] / s_:.0f}")
+        n_stmts = open(f"{tmp}/dump_sql/tools_gs.orders.000000000.sql"
+                       ).read().count("INSERT INTO `orders` VALUES")
+        check(n_stmts == -(-n_now // 200),
+              f"20c: {n_stmts} INSERT statements in the SQL dump")
+        sess.execute("create database dumpcheck")
+        sess.execute(f"create table dumpcheck.orders "
+                     f"{tpch.TPCH_TABLE_DDL['orders']}")
+        t0 = time.perf_counter()
+        n = lightning.import_csv(
+            dom, "dumpcheck", "orders",
+            f"{tmp}/dump_csv/tools_gs.orders.000000000.csv",
+            threads=TOOLS_THREADS)
+        s_ = time.perf_counter() - t0
+        back = Session(dom, db="dumpcheck").execute(TOOLS_ORDERS_AGG).rows
+        check(tpch_rows_equal(back, now),
+              f"20c: the re-imported dump {back} != the source {now}")
+        print(f"20c csv dump re-imported: rows={n} s={s_:.3f} "
+              "count_and_sums_equal=True")
+        group_reduce += tools_launches("20c", counters, GR)["group_reduce"]
+
+        # -- 20d: tidb_enable_cascades_planner against the heuristic ---- #
+        # both planners cost from the statistics of the tables read
+        t0 = time.perf_counter()
+        for t in TOOLS_CASCADES_TABLES:
+            sess.execute(f"analyze table {t}")
+        print(f"20d analyze: tables={len(TOOLS_CASCADES_TABLES)} "
+              f"s={time.perf_counter() - t0:.2f}")
+        t0 = time.perf_counter()
+        lite = tpch_sqlite({t: data[t] for t in TOOLS_CASCADES_TABLES})
+        print(f"20d sqlite: load_s={time.perf_counter() - t0:.2f}")
+        del data
+        reset(counters)
+        # the session's cascades leg must plan through search, not fall
+        # back to the greedy reorder: its returns are counted
+        search = search_mod.search
+        searched = [0]
+
+        def counted_search(plan, stats):
+            out = search(plan, stats)
+            searched[0] += 1
+            return out
+        search_mod.search = counted_search
+        try:
+            cascades_legs(sess, dom, lite, search, searched)
+        finally:
+            search_mod.search = search
+        group_reduce += tools_launches("20d", counters, GR + OS)[
+            "group_reduce"]
+        dom.close()
+    return group_reduce
+
+
+def cascades_legs(sess, dom, lite, search, searched) -> None:
+    """Phase 20d: each of ``TOOLS_CASCADES`` with the cascades planner
+    off, then on (its plan a cache miss, planned through ``search``),
+    equal to each other and to sqlite; then ``TOOLS_WARM`` warm rounds
+    of both legs, the order alternating, for their walls; ``search``
+    called directly on the statement's optimized plan."""
+    from tidb_tpu_torch.planner.build import build_query
+    from tidb_tpu_torch.planner.logical import explain_logical, walk_plan
+    from tidb_tpu_torch.planner.optimize import optimize_plan
+    from tidb_tpu_torch.sql.parser import parse_one
+    from tidb_tpu_torch.testing import tpch
+    for k in TOOLS_CASCADES:
+        sql = tpch.TPCH_22[k]
+        want = lite.execute(sql).fetchall()
+        plan = optimize_plan(build_query(parse_one(sql), dom.catalog,
+                                         "tpch").plan)
+        t0 = time.perf_counter()
+        chosen = search(plan, dom.stats)
+        search_ms = (time.perf_counter() - t0) * 1e3
+        methods = [getattr(n, "hint_method", "") or "hash"
+                   for n in walk_plan(chosen)
+                   if type(n).__name__ == "LogicalJoin"]
+        plan_ms = {}
+        for flag in (0, 1):
+            sess.execute(f"set tidb_enable_cascades_planner = {flag}")
+            before = searched[0]
+            rows = sess.execute(sql).rows
+            plan_ms[flag] = sess.timings["plan"] * 1e3
+            check(searched[0] - before == flag,
+                  f"20d Q{k}: {searched[0] - before} searches with "
+                  f"the cascades planner {'on' if flag else 'off'}")
+            check(tpch_rows_equal(rows, want),
+                  f"20d Q{k} cascades={flag}: {rows[:3]}, sqlite "
+                  f"{want[:3]}")
+        walls = {0: [], 1: []}
+        for r in range(TOOLS_WARM):
+            for flag in ((1, 0) if r % 2 == 0 else (0, 1)):
+                sess.execute(f"set tidb_enable_cascades_planner = {flag}")
+                t0 = time.perf_counter()
+                rows = sess.execute(sql).rows
+                walls[flag].append(time.perf_counter() - t0)
+                check(tpch_rows_equal(rows, want),
+                      f"20d Q{k} warm, cascades={flag}: {rows[:3]}")
+        explains = {}
+        for flag in (0, 1):
+            sess.execute(f"set tidb_enable_cascades_planner = {flag}")
+            explains[flag] = [r[0] for r in sess.execute(
+                "explain " + sql).rows]
+        sess.execute("set tidb_enable_cascades_planner = 0")
+        same = explains[0] == explains[1]
+        top = explain_logical(chosen).splitlines()[0].strip()
+        print(f"20d Q{k}: rows={len(want)} search_ms={search_ms:.3f} "
+              f"joins={','.join(methods)} plan_ms heuristic="
+              f"{plan_ms[0]:.3f} cascades={plan_ms[1]:.3f} warm_s "
+              f"heuristic={' '.join(f'{w:.4f}' for w in walls[0])} "
+              f"cascades={' '.join(f'{w:.4f}' for w in walls[1])} "
+              f"same_plan={same} top={top} equal_sqlite=True")
+        if not same:
+            for flag in (0, 1):
+                print(f"20d Q{k} plan, cascades={flag}: "
+                      + " / ".join(ln.strip() for ln in explains[flag]))
 
 
 def build_phase(*modules) -> None:
@@ -6223,6 +6621,8 @@ def main() -> int:
     counts["group_reduce"] += pd_phase(gr, os1, main_sess, main_data)
     del main_sess
     lap("19 coordination and background")
+    counts["group_reduce"] += tools_phase(gr, os1)
+    lap("20 tools and cascades")
 
     cu = "tidb_tpu_torch/copr/cuda/"
     sources = {"radix_hist": cu + "radix_kernel.cu",

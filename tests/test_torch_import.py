@@ -200,11 +200,28 @@ PD_MODULES = ["tidb_tpu_torch/pd/__init__.py",
               "tidb_tpu_torch/session/session.py"]
 
 
+# the ecosystem tools' and the cascades planner's slice: tools/,
+# planner/cascades/, the micro-benchmarks, and the modules they grow
+TOOLS_MODULES = ["tidb_tpu_torch/tools/__init__.py",
+                 "tidb_tpu_torch/tools/external_sort.py",
+                 "tidb_tpu_torch/tools/lightning.py",
+                 "tidb_tpu_torch/tools/br.py",
+                 "tidb_tpu_torch/tools/dump.py",
+                 "tidb_tpu_torch/planner/cascades/__init__.py",
+                 "tidb_tpu_torch/planner/cascades/cost.py",
+                 "tidb_tpu_torch/planner/cascades/memo.py",
+                 "tidb_tpu_torch/planner/cascades/search.py",
+                 "tidb_tpu_torch/testing/bench_host.py",
+                 "tidb_tpu_torch/testing/bench_kv.py",
+                 "tidb_tpu_torch/session/session.py",
+                 "tidb_tpu_torch/__main__.py"]
+
+
 @pytest.mark.parametrize("path", JOIN_MODULES + STORE_MODULES
                          + SELECT_MODULES + WINDOW_STATS_MODULES
                          + SERVER_MODULES + RESILIENCE_MODULES
                          + SCHED_MODULES + OBS_MODULES + GATES_MODULES
-                         + PD_MODULES)
+                         + PD_MODULES + TOOLS_MODULES)
 def test_join_modules_are_checked(path):
     assert path in SOURCES
 
@@ -400,3 +417,23 @@ def test_sched_modules_load_no_jax():
     a fresh interpreter, each leave jax and tidb_tpu out of
     sys.modules."""
     _modules_load_no_jax(SCHED_MODULES)
+
+
+def test_tools_modules_load_no_jax():
+    """The tools' and the cascades planner's modules, imported one by one
+    in a fresh interpreter, each leave jax and tidb_tpu out of
+    sys.modules; the micro-benchmarks print nothing at import (the
+    helper's output holds only the modules' own lines), so importing
+    them runs no benchmark."""
+    _modules_load_no_jax(TOOLS_MODULES)
+
+
+@pytest.mark.parametrize("path", [p for p in TOOLS_MODULES
+                                  if "/tools/" in p or "/cascades/" in p
+                                  or "/bench_" in p])
+def test_tools_modules_name_their_counterpart(path):
+    """Every module of the slice, its packages' ``__init__`` included,
+    carries its provenance line."""
+    first = (ROOT / path).read_text().splitlines()[0]
+    m = PROVENANCE.match(first)
+    assert m and (ROOT / m.group(1)).exists(), f"{path}: {first!r}"

@@ -493,17 +493,22 @@ def _unported_cases():
 
 # SQL statements of later slices: (statement, the ROADMAP.md item named)
 _UNPORTED_SQL = {
-    "SQL cascades planner": ("""set tidb_enable_cascades_planner = 1;
-                                select count(*) from part""",
-                             "Queue 1 item 1, sub-step 7"),
     "SQL create resource group": ("create resource group rg1 ru_per_sec = 100",
                                   "Queue 1 item 8: slice 12"),
 }
 
 # the statements that raised in the cases above before the observability
 # slice (and, for the memtable and the index advisor, the coordination
-# slice) ported them, each with a check of what it now returns
+# slice; for the cascades planner, the tools-and-cascades slice) ported
+# them, each with a check of what it now returns
 _PORTED_SQL = {
+    "SQL cascades planner": (
+        """set tidb_enable_cascades_planner = 1;
+           select count(*) from part p join lineitem l
+           on p.p_partkey = l.l_partkey""",
+        lambda res: res.rows == [(int(np.isin(
+            gen_lineitem(0.0005, seed=1)[1][1].data,
+            np.arange(1, 41)).sum()),)]),
     "SQL memtable": (
         "select count(*) from information_schema.tables",
         lambda res: res.rows == [(2,)]),
@@ -555,7 +560,8 @@ def _sql_session():
 def test_ported_observability_statements_answer(case):
     """The statements of the observability slice answer through the
     port's session (tests/test_torch_observability.py holds them
-    against the JAX package's)."""
+    against the JAX package's, tests/test_torch_cascades.py the
+    cascades planner's)."""
     sql, ok = _PORTED_SQL[case]
     sess = _sql_session()
     sess.execute("select count(*) from part")

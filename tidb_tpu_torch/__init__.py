@@ -89,20 +89,26 @@ the distributed task framework (``dxf/``) runs ANALYZE and CSV import as
 resumable tasks and spreads ADD INDEX's backfill over store processes;
 the ``information_schema`` memtables, ``ADMIN RECOMMEND INDEX``
 (``planner/advisor.py``) and the extension points (``extension/``)
-answer.  What the port does not run yet raises ``NotImplementedError``
-naming its ROADMAP.md item (below).
+answer.  The ecosystem tools are embedded APIs over a Domain's row
+store (``tools/``): BR's snapshot backup, restore and log backup with
+point-in-time restore (``tools/br.py``), Lightning's direct import and
+its global-sort import through sorted runs on disk
+(``tools/lightning.py``, ``tools/external_sort.py``) and Dumpling's
+export (``tools/dump.py``), in the JAX package's file formats; a
+session with ``tidb_enable_cascades_planner`` on plans through the
+memo search of ``planner/cascades/``.  What the port does not run yet
+raises ``NotImplementedError`` naming its ROADMAP.md item (below).
 """
 
 # ROADMAP.md items of the paths the port does not run yet, named by the
 # NotImplementedError each raises
-PLANNER = "Queue 1 item 1, sub-step 7: the cascades planner"
 EXCHANGE = "Queue 1 item 4: several physical GPUs"
 ANALYSIS = ("Queue 1 item 7: slice 11, the rest of the analysis gates "
             "(concurrency, lint and analysis/__main__)")
 # the resource-group statements, /resource and /locksan
 CONTROL = "Queue 1 item 8: slice 12, the control plane"
-# tools/ and testing/
-HOST_SURFACE = "Queue 1 item 9: slice 13, the rest of the host surface"
+# testing/stress.py, with the control plane's items
+HOST_SURFACE = "Queue 1 item 9: slice 13, testing/stress.py"
 
 
 def unported(what: str, where: str = "Queue 1") -> NotImplementedError:

@@ -18,8 +18,12 @@ bound.  ``serve`` starts the Domain's background workers
 auto-analyze sweep and the workload repository), as the JAX package's
 does; a ``--config`` file's ``[variables]`` with ``tidb_tpu_pd = 1`` and
 one ``tidb_tpu_pd_dir`` joins several ``serve`` processes on one card to
-one coordination plane (pd/).  The JAX package's embedded tools
-(BR-style backup/restore, the direct-ingest import) are not ported.
+one coordination plane (pd/).
+
+BR-style snapshot backup/restore (tools.br.backup/restore) and the
+direct-ingest import (tools.lightning.import_csv) are embedded APIs:
+they operate on an in-process Domain's KV store, which has no
+cross-process surface to point a standalone binary at.
 """
 
 from __future__ import annotations

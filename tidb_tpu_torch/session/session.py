@@ -33,8 +33,9 @@ and ``STATUS``; users and grants (``CREATE``/``ALTER``/
 ``DROP USER``, ``GRANT``, ``REVOKE``, ``FLUSH``, each statement checked
 against the privilege manager), ``KILL``, ``PREPARE``/``EXECUTE``/
 ``DEALLOCATE``, optimizer hints and ``CREATE``/``DROP BINDING``.  Its
-``_plan_select`` is the JAX package's, the plan cache included, without
-cascades and the analysis gates: the inline auto-analyze,
+``_plan_select`` is the JAX package's, the plan cache, the plan-time
+gates and the cascades planner (``tidb_enable_cascades_planner``,
+``planner/cascades/``) included: the inline auto-analyze,
 the join reorder, the index paths and the high-NDV strategy choice read
 the domain's statistics.  The port's ``Domain`` starts with
 ``tidb_enable_auto_analyze = 0`` (the JAX package's default is 1), and
@@ -65,7 +66,7 @@ from typing import Any, Optional
 
 import numpy as np
 
-from .. import CONTROL, HOST_SURFACE, PLANNER, unported
+from .. import CONTROL, HOST_SURFACE, unported
 from ..copr.coordinator import KILL_EVENT, QUERY_HANDLE, Coordinator
 from ..executor import physical as P
 from ..executor.plan import STATS_HANDLE, to_physical
@@ -1131,8 +1132,6 @@ class Session:
         t0 = time.perf_counter()
         cache = self.domain.plan_cache
         merged = {**self.domain.sysvars, **self.vars}
-        if _flag_on(merged, "tidb_enable_cascades_planner", default=False):
-            raise unported("the cascades planner", PLANNER)
         use_cache = (cache_sql is not None
                      and _flag_on(merged, "tidb_enable_plan_cache"))
         if use_cache:
@@ -1158,7 +1157,11 @@ class Session:
         if _flag_on(merged, "tidb_opt_skew_distinct_agg", default=False):
             from ..planner.rules import rewrite_skew_distinct
             plan = rewrite_skew_distinct(plan)
-        plan = reorder_joins(plan, self.domain.stats)
+        if _flag_on(merged, "tidb_enable_cascades_planner", default=False):
+            from ..planner.cascades import cascades_optimize
+            plan = cascades_optimize(plan, self.domain.stats)
+        else:
+            plan = reorder_joins(plan, self.domain.stats)
         phys = self._to_physical(apply_index_paths(plan, self.domain.stats))
         try:       # Top-SQL plan digest attribution (util/topsql)
             self._last_plan_text = phys.explain()
