@@ -11,7 +11,9 @@
                                      # lanes and rollup at SF=10, the
                                      # 22 TPC-H statements at SF=0.01;
                                      # the tools and cascades over the
-                                     # eight tables at SF=0.1
+                                     # eight tables at SF=0.1; resource
+                                     # control at SF=10, the stress
+                                     # harness over 60,000 rows
     python3 chip_smoke.py --sf 0.05 --main-sf 0.1 --s4-sf 0.05   # quicker
     python3 chip_smoke.py --perm-of DIR   # only scatter_permutation's
                                           # time, of DIR/tidb_tpu_torch
@@ -384,9 +386,45 @@ script exits non-zero without printing a result:
    alternating order, and whether their EXPLAINs are the same; the
    ``group_reduce`` launches of each sub-phase (and 20d's onesweep
    launches), counted from 0;
-21. the ``kernels`` JSON line, then the last line
+21. resource control and the chaos stress harness: (a) on 13a's
+   Domain, ``CREATE``, ``CREATE ... IF NOT EXISTS``, ``ALTER`` and
+   ``DROP RESOURCE GROUP`` against ``information_schema.resource_groups``
+   and four statements refused with ``PlanError`` (``DROP`` of
+   ``default`` among them); Q6's RU price read from an unthrottled
+   group's debits, then ``RC_CALLS`` warm Q6 in a group of
+   ``RC_RATE_Q6`` Q6 prices a second with the overdraft at 0, which
+   wait at least ``RC_BLOCK_S`` for the refill while as many in
+   ``default`` do not; a Q6 in a ``PRIORITY = HIGH`` group and a Q1 in
+   a ``LOW`` one queued together under ``pause()``, each group given
+   device ms and RUs, the per-digest map filled; a read-only Q1 in a
+   ``KILL`` group raising ``RunawayError`` (errno 8253); a Q6 whose
+   ``SWITCH_GROUP`` moves its debit to the target; ``/resource``
+   through the status server; every Q1 and Q6 equal to numpy; (b)
+   ``testing.stress.build_stress_domain(STRESS_ROWS)`` on the card, the
+   64-session smoke at the JAX package's bars (completion 1.0, no
+   failure or wrong result, every shape complete, RU fairness 1.0, no
+   value drift, launches at most the tasks), then the full rung
+   (``STRESS_SESSIONS`` sessions at ``STRESS_RATE`` arrivals a second
+   over four groups, ``DEFAULT_CHAOS`` armed: no wrong result,
+   completion at least 0.98, RU fairness below 1.5; only the smoke
+   when the script reaches 21b past ``STRESS_LATE_S``, the cut
+   printed), each metrics dict printed on a line, the ``group_reduce``,
+   ``radix_hist_all64`` and ``radix_onesweep64`` launches of its
+   sessions counted from 0 (each above 0; ``radix_hist`` and
+   ``radix_scatter`` too, where the cost model sends the high-NDV
+   group-by to the SCATTER partition), no plain kernel version, no
+   ladder and no join fallback serving a statement; (c) the HBM ledger
+   over two more waves (``STRESS_WAVES``) on (b)'s Domain: launch bytes
+   drained, no negative balance, no residency added by the second wave,
+   the watermark above every measured launch peak (the card's peak
+   counter reset first, so launches are measured);
+22. the ``kernels`` JSON line, then the last line
    ``{"ok": true, "device": {...}}``.  A ``phase ...: s=`` line after
-   each phase gives its seconds.
+   each phase gives its seconds and, of them, the script's own host
+   work by kind (``host_s``: in phases 9, 11, 12 and 13 its oracles,
+   table generation, file writing and sqlite; ``host_work``).  An
+   answer checked once is passed on (phase 7's ``main_res``, phase 8's
+   ``s4_res``), not computed again.
 
 Query A is the grouping inside TPC-H Q18; query B is a corpus query of
 the JAX package's TPC-H plan set:
@@ -403,11 +441,13 @@ row-returning statements (see ``build_s4``).
 from __future__ import annotations
 
 import argparse
+import functools
 import gc
 import json
 import statistics
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -424,6 +464,42 @@ REPS = 15
 def check(cond, msg: str) -> None:
     if not cond:
         raise RuntimeError(f"check failed: {msg}")
+
+
+# the script's own host work since the last phase's end, by kind: its
+# oracles, table generation, file writing and sqlite in phases 9, 11, 12
+# and 13 (the port's work is the rest of a phase's seconds)
+HOST_S: dict = {}
+_HOST = threading.local()
+
+
+class host_work:
+    """Adds the seconds inside it to ``HOST_S[kind]``, as a ``with``
+    block or as a decorator; a use inside another on the same thread
+    counts once, in the outer one's kind."""
+
+    def __init__(self, kind: str):
+        self.kind = kind
+
+    def __enter__(self):
+        depth = getattr(_HOST, "depth", 0)
+        _HOST.depth = depth + 1
+        if depth == 0:
+            _HOST.t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        _HOST.depth -= 1
+        if _HOST.depth == 0:
+            HOST_S[self.kind] = (HOST_S.get(self.kind, 0.0)
+                                 + time.perf_counter() - _HOST.t0)
+
+    def __call__(self, fn):
+        @functools.wraps(fn)
+        def timed(*a, **k):
+            with host_work(self.kind):
+                return fn(*a, **k)
+        return timed
 
 
 def nvidia_smi() -> str:
@@ -1416,6 +1492,19 @@ def main_oracle(which: str, names, cols) -> list:
     return [(exact_sum(price[m] * (100 - disc[m])), int(m.sum()))]
 
 
+def main_answer(main_res: dict, name: str):
+    """Phase 7's answer of statement ``name`` over the main lineitem,
+    checked there against numpy (Q6's corpus form shares Q6's): the
+    ``dag`` of ``sql_check``; None for another statement."""
+    return main_res.get("Q6" if name == "Q6 corpus" else name)
+
+
+def main_q6(main_res: dict) -> int:
+    """TPC-H Q6's revenue over the main lineitem scaled by 10^4, phase
+    7's answer (``q6_params_oracle`` at ``SERVER_Q6_PARAMS[0]``)."""
+    return main_res["Q6"][0][0]
+
+
 def result_rows(res) -> list:
     """[(keys..., values...)] of a CopResult as Python ints; a NULL
     fails the check (none of these queries yields one)."""
@@ -1955,20 +2044,21 @@ SQL_WARM = 5        # else the median of this many
 SQL_ONCE = ("SORT", "SORT two keys", "rows")
 
 
-def sql_cell(v, t) -> int | str:
-    """One result cell for the oracles: a DECIMAL as its scaled integer,
-    a string as is, anything else as an int; a NULL fails."""
-    from tidb_tpu_torch.types import dtypes as dt
-    check(v is not None, "unexpected NULL output")
-    if t.kind == dt.TypeKind.DECIMAL:
-        return int(v.scaleb(t.scale))
-    return v if isinstance(v, str) else int(v)
-
-
 def sql_columns(rs) -> list:
-    """The result set's columns as lists of ``sql_cell``s."""
-    return [[sql_cell(r[j], t) for r in rs.rows]
-            for j, t in enumerate(rs.dtypes)]
+    """The result set's columns as lists of cells for the oracles: a
+    DECIMAL as its scaled integer, a string as is, anything else as an
+    int; a NULL fails (a column at a time: the SORT statements return
+    millions of rows)."""
+    from tidb_tpu_torch.types import dtypes as dt
+    out = []
+    for j, t in enumerate(rs.dtypes):
+        col = [r[j] for r in rs.rows]
+        check(None not in col, "unexpected NULL output")
+        if t.kind == dt.TypeKind.DECIMAL:
+            out.append([int(v.scaleb(t.scale)) for v in col])
+        else:
+            out.append([v if isinstance(v, str) else int(v) for v in col])
+    return out
 
 
 def avg_ok(avg, total: int, count: int, scale: int, t) -> bool:
@@ -1989,6 +2079,7 @@ def sql_key_order(cols: list, n_keys: int) -> list:
 Q1_ORACLE: dict = {}     # q1_groups by the identity of its columns
 
 
+@host_work("oracle")
 def q1_groups(c: dict, names) -> dict:
     """{(flag, status): (sum_qty, sum_price, sum_disc, sum_disc_price,
     sum_charge, count)} over the rows shipped by 1998-09-02, exact.
@@ -2025,10 +2116,12 @@ def _q1_groups(c: dict) -> dict:
     return out
 
 
+@host_work("oracle")
 def sql_check(name: str, rs, c: dict, names, dag) -> None:
     """``rs`` of statement ``name`` against its numpy oracle over the
-    columns ``c`` and, where phase 7 or 8 ran it as a DAG, against that
-    run's result ``dag``."""
+    columns ``c``; where phase 7 or 8 ran it over the same rows, against
+    that run's result ``dag`` instead, which equals the oracle's answer
+    (checked there).  Q1 is held against both."""
     cols = sql_columns(rs)
     if name in ("Q1", "Q1 corpus"):
         groups = q1_groups(c, names)
@@ -2059,10 +2152,9 @@ def sql_check(name: str, rs, c: dict, names, dag) -> None:
             check(got == want, "Q1: SQL != the DAG-level run")
         return
     if name in ("Q6", "Q6 corpus"):
-        want = main_oracle("Q6", names, [c[n] for n in names])
+        want = dag if dag is not None else \
+            main_oracle("Q6", names, [c[n] for n in names])
         check(cols == [[want[0][0]]], f"{name}: {cols} != numpy {want}")
-        if dag is not None:
-            check(cols[0][0] == dag[0][0], "Q6: SQL != the DAG-level run")
         return
     if name == "HAVING":
         u, n = np.unique(c["l_returnflag"].data, return_counts=True)
@@ -2077,19 +2169,14 @@ def sql_check(name: str, rs, c: dict, names, dag) -> None:
               f"{name} != numpy")
         return
     which = {"SORT": "SORT", "SORT two keys": "SEGMENT"}.get(name, name)
-    want = s4_oracle(which, c)
+    want = dag if dag is not None else s4_oracle(which, c)
     if which in ("SORT", "SEGMENT"):
         want = want[0] + want[1]
         got = sql_key_order(cols, len(want) - (1 if which == "SORT" else 2))
-        if dag is not None:
-            dag = dag[0] + dag[1]
     else:
         got = [np.asarray(col, dtype=np.int64) for col in cols]
     check(len(got) == len(want) and all(
         np.array_equal(g, w) for g, w in zip(got, want)), f"{name} != numpy")
-    if dag is not None:
-        check(all(np.array_equal(g, w) for g, w in zip(got, dag)),
-              f"{name}: SQL != the DAG-level run")
 
 
 class plain_guard:
@@ -2157,7 +2244,8 @@ def sql_phase(gr, os1, S, main_data, main_res, s4_sf: float,
     from tidb_tpu_torch.testing import tpch
     rk_counts = (gr.LAUNCHES, os1.LAUNCHES)
     t0 = time.perf_counter()
-    names, cols = tpch.gen_lineitem(s4_sf, seed=0, columns=SQL_COLS)
+    with host_work("gen"):
+        names, cols = tpch.gen_lineitem(s4_sf, seed=0, columns=SQL_COLS)
     print(f"data: lineitem sf={s4_sf} rows={len(cols[0])} "
           f"columns={len(names)} gen_s={time.perf_counter() - t0:.2f}")
     runs = [("main", tpch.sql_session({"lineitem": main_data},
@@ -2580,6 +2668,7 @@ def _days(iso: str) -> int:
     return (datetime.date.fromisoformat(iso) - datetime.date(1970, 1, 1)).days
 
 
+@host_work("oracle")
 def store_oracle_data(li_cols, li_names, o_cols, o_names) -> tuple:
     """The generated tables as the loaded types read them: DOUBLE
     columns as float64 (the files' two-decimal text), strings as str."""
@@ -2603,6 +2692,7 @@ def fsum_ok(got: float, terms: np.ndarray) -> bool:
         STORE_FRTOL * max(float(np.abs(terms).sum()), 1.0)
 
 
+@host_work("oracle")
 def store_check(name: str, rows: list, li: dict, od: dict) -> None:
     """``rows`` of statement ``name`` against a numpy oracle over the
     written rows ``li`` / ``od``: counts and keys exactly, float sums
@@ -2734,14 +2824,16 @@ def store_phase(torch, gr, os1, S, sf: float = STORE_SF) -> dict:
             "TopN": STORE_TOPN}
     with tempfile.TemporaryDirectory(prefix="tidb_store_") as tmp:
         t0 = time.perf_counter()
-        li_names, li_cols = tpch.gen_lineitem(sf, seed=0)
-        li_cols = li_cols + [tpch.lineitem_comments(len(li_cols[0]))]
-        li_names = li_names + ["l_comment"]
-        o_names, o_cols = tpch.gen_orders(sf, seed=0)
+        with host_work("gen"):
+            li_names, li_cols = tpch.gen_lineitem(sf, seed=0)
+            li_cols = li_cols + [tpch.lineitem_comments(len(li_cols[0]))]
+            li_names = li_names + ["l_comment"]
+            o_names, o_cols = tpch.gen_orders(sf, seed=0)
         files = {"lineitem": f"{tmp}/lineitem.tbl",
                  "orders": f"{tmp}/orders.tbl"}
-        n_rows = {"lineitem": tpch.write_tbl(files["lineitem"], li_cols),
-                  "orders": tpch.write_tbl(files["orders"], o_cols)}
+        with host_work("write"):
+            n_rows = {"lineitem": tpch.write_tbl(files["lineitem"], li_cols),
+                      "orders": tpch.write_tbl(files["orders"], o_cols)}
         li, od = store_oracle_data(li_cols, li_names, o_cols, o_names)
         del li_cols, o_cols
         print(f"store data: sf={sf} lineitem rows={n_rows['lineitem']} "
@@ -3076,6 +3168,7 @@ def _fsum(x) -> tuple:
     return ("f", float(x.sum()), float(np.abs(x).sum()))
 
 
+@host_work("oracle")
 def lane_oracle(name: str, c: dict) -> list:
     """The rows statement ``name`` of ``LANE_SQL`` returns, from numpy
     over the generator's columns (DECIMALs as scaled ints, dates as
@@ -3150,30 +3243,38 @@ def lane_oracle(name: str, c: dict) -> list:
     raise KeyError(name)
 
 
+@host_work("oracle")
 def rollup_oracle(name: str, c: dict) -> list:
     """The rows of ``ROLLUP_SQL``'s ``name``: the union of its levels'
     GROUP BYs, the rolled keys NULL, sorted with NULLs last."""
     q, p, d = (c["l_quantity"].data, c["l_extendedprice"].data,
                c["l_discount"].data)
     rf, ls = c["l_returnflag"], c["l_linestatus"]
+    # the finest level's exact sums once; a coarser level adds its
+    # groups' (integer sums are exact in any order)
     out = []
     if name == "Q1 rollup":
         m = c["l_shipdate"].data <= 10471                   # 1998-09-02
-        vals = [q[m], p[m], p[m] * (100 - d[m])]
-        for keys in ([rf.data[m], ls.data[m]], [rf.data[m]], []):
-            g = _by(keys or [np.zeros(int(m.sum()), np.int64)], vals)
-            for k, (a, b, e) in g.items():
-                names = ([rf.dictionary.values[k[0]]] if keys else [None]) \
-                    + ([ls.dictionary.values[k[1]]] if len(keys) == 2
-                       else [None])
-                out.append(tuple(names) + (exact_sum(a), exact_sum(b),
-                                           exact_sum(e), len(a)))
+        fine = {k: (exact_sum(a), exact_sum(b), exact_sum(e), len(a))
+                for k, (a, b, e) in _by(
+                    [rf.data[m], ls.data[m]],
+                    [q[m], p[m], p[m] * (100 - d[m])]).items()}
+        for level in (2, 1, 0):
+            sums: dict = {}
+            for k, v in fine.items():
+                acc = sums.setdefault(k[:level], [0, 0, 0, 0])
+                for i, x in enumerate(v):
+                    acc[i] += x
+            for k, v in sums.items():
+                names = [rf.dictionary.values[k[0]] if level else None,
+                         ls.dictionary.values[k[1]] if level == 2 else None]
+                out.append(tuple(names) + tuple(v))
     else:
-        for keys in ([rf.data], []):
-            g = _by(keys or [np.zeros(len(q), np.int64)], [q])
-            for k, (a,) in g.items():
-                out.append((rf.dictionary.values[k[0]] if keys else None,
-                            0 if keys else 1, len(a), exact_sum(a)))
+        fine = {k[0]: (len(a), exact_sum(a))
+                for k, (a,) in _by([rf.data], [q]).items()}
+        out = [(rf.dictionary.values[k], 0) + v for k, v in fine.items()]
+        out.append((None, 1, sum(v[0] for v in fine.values()),
+                    sum(v[1] for v in fine.values())))
     return sorted(out, key=_null_last)
 
 
@@ -3268,6 +3369,7 @@ def select_line(tag: str, name: str, first: float, warm: float,
           f"warm_ms={warm * 1e3:.3f} {split} {extra}".rstrip())
 
 
+@host_work("sqlite")
 def tpch_sqlite(data: dict):
     """An in-memory sqlite3 database of ``gen_tpch``'s tables (dates as
     ISO text, as tests/test_tpch_diff.py loads them), with indexes on the
@@ -3403,7 +3505,8 @@ def select_phase(torch, gr, os1, S, main_data, main_sf: float,
         gc.collect()
         # -- 12c: TPC-H ------------------------------------------------- #
         t0 = time.perf_counter()
-        data = tpch.gen_tpch(tpch_sf, seed=0)
+        with host_work("gen"):
+            data = tpch.gen_tpch(tpch_sf, seed=0)
         lite = tpch_sqlite(data)
         sess = tpch.sql_session(data, device=SELECT_DEVICE)
         timer = statement_timings(sess.domain.client)
@@ -3423,7 +3526,8 @@ def select_phase(torch, gr, os1, S, main_data, main_sf: float,
             warm = first
             for _ in range(0 if name in TPCH_ONCE else SELECT_WARM):
                 _rs, warm, acc = timer.run(sess, sql)
-            want = lite.execute(sql).fetchall()
+            with host_work("sqlite"):
+                want = lite.execute(sql).fetchall()
             check(tpch_rows_equal(rs.rows, want),
                   f"12c {name}: {rs.rows[:4]} != sqlite {want[:4]}")
             dev_s = acc.get("device", 0.0)
@@ -3509,6 +3613,7 @@ def stats_sample(n: int, stats) -> tuple:
         n / m
 
 
+@host_work("oracle")
 def stats_oracle(x: np.ndarray, valid: np.ndarray,
                  scale: float = 1.0) -> dict:
     """A column's statistics by the ANALYZE kernel's semantics, in numpy:
@@ -3576,15 +3681,25 @@ def stats_equal(cs, want: dict) -> bool:
             and np.array_equal(cs.fms.kmv, want["kmv"]))
 
 
+@host_work("oracle")
 def window_oracle(name: str, c: dict) -> list:
     """The rows of window statement ``name`` in numpy, as
     ``select_cells`` gives them (decimals as scaled ints, dates as days,
     a double as ("f", value, magnitude))."""
     from tidb_tpu_torch.testing import tpch
     if name == "top 3 a day":
-        day, price = c["l_shipdate"].data, c["l_extendedprice"].data
-        o = np.lexsort((-price, day))
-        ds, ps = day[o], price[o]
+        # rows by (day, price descending) in one sort of a packed key
+        # (prices under 2^31, days under 2^31): which of two equal
+        # (day, price) rows gets which row number leaves the sorted
+        # (day, price, row number) triples the same
+        day = c["l_shipdate"].data.astype(np.int64)
+        price = c["l_extendedprice"].data.astype(np.int64)
+        top = (1 << 31) - 1
+        check(int(price.min()) >= 0 and int(price.max()) <= top
+              and int(day.min()) >= 0 and int(day.max()) <= top,
+              "top 3 a day: a key past the packed range")
+        packed = np.sort((day << 31) | (top - price))
+        ds, ps = packed >> 31, top - (packed & top)
         first = np.r_[0, np.flatnonzero(ds[1:] != ds[:-1]) + 1]
         rn = np.arange(len(ds)) - np.repeat(first, np.diff(np.r_[first,
                                                                  len(ds)]))
@@ -3647,7 +3762,8 @@ def window_stats_phase(torch, gr, os1, S, main_sess, main_data, s4_data
     counters = (gr.LAUNCHES, os1.LAUNCHES)
     on_card = WINDOW_DEVICE == "cuda"
     c = dict(zip(*main_data))
-    orders = tpch.gen_orders_mini(WINDOW_ORDERS)
+    with host_work("gen"):
+        orders = tpch.gen_orders_mini(WINDOW_ORDERS)
     co = dict(zip(*orders))
     sessions = {
         "lineitem": main_sess,
@@ -3932,11 +4048,14 @@ def server_phase(torch, gr, os1, S, main_sess, main_data, main_res) -> None:
             cache = dom.plan_cache
             h0, before = cache.hits, snapshot()
             times = []
+            wants = {i: main_q6(main_res) if i == 0 else
+                     q6_params_oracle(c, SERVER_Q6_PARAMS[i])
+                     for i in set(SERVER_Q6_ORDER)}
             for i in SERVER_Q6_ORDER:
                 t0 = time.perf_counter()
                 got = stmt.execute(*SERVER_Q6_PARAMS[i])
                 times.append((time.perf_counter() - t0) * 1e3)
-                want = q6_params_oracle(c, SERVER_Q6_PARAMS[i])
+                want = wants[i]
                 check(len(got) == 1 and _scaled(got[0][0], 4) == want,
                       f"14 Q6 prepared {SERVER_Q6_PARAMS[i]}: {got} != "
                       f"numpy {want}")
@@ -4074,7 +4193,7 @@ def server_phase(torch, gr, os1, S, main_sess, main_data, main_res) -> None:
               "the kernels on the card")
         # -- 6: four connections, Q6 twenty times each ----------------- #
         q6 = tpch.SQL_QUERIES["Q6"]
-        rev = main_oracle("Q6", main_data[0], main_data[1])[0][0]
+        rev = main_q6(main_res)
         want6 = [(f"{rev // 10 ** 4}.{rev % 10 ** 4:04d}",)]
         one = connect()
         before = snapshot()
@@ -4286,7 +4405,7 @@ def batch_lines(tag: str, rec: list) -> dict:
             for name in BATCH_TIMES}
 
 
-def stream_step(gr, sess, main_data, s4_data) -> None:
+def stream_step(gr, sess, main_data, main_res, s4_data, s4_res) -> None:
     """15a: TPC-H Q1 and Q6 through SQL over 13a's Domain, and the SORT
     group-by over the ``--s4-sf`` lineitem through ``CopClient``, each
     resident and then streamed under a cap of a quarter of the snapshot's
@@ -4313,7 +4432,7 @@ def stream_step(gr, sess, main_data, s4_data) -> None:
         t = dict(client.timings)
         sess.execute("set global tidb_tpu_device_mem_cap = 0")
         check(rs.rows == resident.rows, f"15a {name}: streamed != resident")
-        sql_check(name, rs, c, names, None)
+        sql_check(name, rs, c, names, main_answer(main_res, name))
         rec = t["batches"]
         check(len(rec) == planned and launched == planned,
               f"15a {name}: {len(rec)} batches, {launched} group_reduce "
@@ -4342,7 +4461,7 @@ def stream_step(gr, sess, main_data, s4_data) -> None:
     launched = gr.LAUNCHES["group_reduce"] - before
     t = client.timings
     got = result_arrays(res)
-    want_k, want_v = s4_oracle("SORT", bycol)
+    want_k, want_v = s4_res["SORT"]
     check(all(np.array_equal(g, w) for g, w in zip(
         got[0] + got[1], resident[0] + resident[1])),
         "15a SORT: streamed != resident")
@@ -4572,7 +4691,8 @@ def oom_step(torch, gr, main_data) -> None:
           f"degraded={client.degraded} exact=True")
 
 
-def resilience_phase(torch, gr, main_sess, main_data, s4_data) -> None:
+def resilience_phase(torch, gr, main_sess, main_data, main_res, s4_data,
+                     s4_res) -> None:
     """Phase 15: the streamed path (a), a real CUDA OOM through its
     ladder (b, last), retries that heal the placement (c), the result
     cache (d) and the remote stores (e); no ladder serves a statement
@@ -4584,7 +4704,8 @@ def resilience_phase(torch, gr, main_sess, main_data, s4_data) -> None:
     dom = main_sess.domain
     for name in statement_timings.CALLS:    # phases 12-13's wrappers
         dom.client.__dict__.pop(name, None)
-    steps = (("a", lambda: stream_step(gr, main_sess, main_data, s4_data)),
+    steps = (("a", lambda: stream_step(gr, main_sess, main_data, main_res,
+                                       s4_data, s4_res)),
              ("c", lambda: retry_step(gr, s4_data)),
              ("d", lambda: cache_step(gr, main_sess)),
              ("e", lambda: remote_step(gr)))
@@ -4691,7 +4812,8 @@ def run_queued(sched, fns: list) -> tuple:
     return res, wall
 
 
-def admission_phase(torch, gr, main_sess, main_data, s4_data) -> int:
+def admission_phase(torch, gr, main_sess, main_data, main_res,
+                    s4_data) -> int:
     """Phase 16 (see the module docstring): returns the group_reduce
     launches of the statements it drives (the programs it times and
     compares are not counted)."""
@@ -4725,7 +4847,8 @@ def admission_phase(torch, gr, main_sess, main_data, s4_data) -> int:
             rs = Session(dom).execute(sql)
             wall = time.perf_counter() - t0
         driven += launches() - n0
-        sql_check(name, rs, dict(zip(*data)), data[0], None)
+        sql_check(name, rs, dict(zip(*data)), data[0],
+                  main_answer(main_res, name) if data is main_data else None)
         return rs.rows, wall, spy.tasks
 
     want6, _w, tasks6 = solo(q6, "Q6", main_data)
@@ -4878,7 +5001,7 @@ def admission_phase(torch, gr, main_sess, main_data, s4_data) -> int:
           "exact=True")
 
     # -- d, e: admission and the server -------------------------------- #
-    rev = main_oracle("Q6", names, main_data[1])[0][0]
+    rev = main_q6(main_res)
     wire6 = [(f"{rev // 10 ** 4}.{rev % 10 ** 4:04d}",)]
     srv = MySQLServer(dom, host="127.0.0.1", port=0)
     port = srv.start()
@@ -5035,7 +5158,7 @@ def launch_spans(tree) -> list:
     return [sp for sp in tree.spans if sp.name == "sched.launch"]
 
 
-def observability_phase(torch, gr, os1, main_sess, main_data,
+def observability_phase(torch, gr, os1, main_sess, main_data, main_res,
                         s4_data) -> int:
     """Phase 17 (see the module docstring): returns the group_reduce
     launches of the main-path statements it drives (Q1 and Q6; 17b's
@@ -5067,7 +5190,8 @@ def observability_phase(torch, gr, os1, main_sess, main_data,
             rs = sess.execute(sql)
         driven += launches() - n0
         if name:
-            sql_check(name, rs, c, main_data[0], None)
+            sql_check(name, rs, c, main_data[0],
+                      main_answer(main_res, name))
         return rs, spy.tasks
 
     step_t["a"] = time.perf_counter()
@@ -5325,7 +5449,7 @@ GATES_DRIFT_ROWS = 64            # 18d's table: 1..64, then one far row
 GATES_DRIFT_FAR = 100_000
 
 
-def gates_phase(torch, gr, main_sess, main_data) -> int:
+def gates_phase(torch, gr, main_sess, main_data, main_res) -> int:
     """Phase 18 (see the module docstring): returns the group_reduce
     launches of 18b's narrow Q1 and Q6 statements."""
     from tidb_tpu_torch.analysis import valueflow
@@ -5414,7 +5538,7 @@ def gates_phase(torch, gr, main_sess, main_data) -> int:
             rs = sess.execute(sql)          # warm, a plan cache hit
             wall_ms = (time.perf_counter() - t1) * 1e3
             hit_ms = sess.timings["plan"] * 1e3
-            sql_check(name, rs, c, names, None)
+            sql_check(name, rs, c, names, main_answer(main_res, name))
             tree = newest_trace(dom, sql)
             dev_ms = sum(sp.attrs.get("device_ms", 0.0)
                          for sp in launch_spans(tree)) if tree else 0.0
@@ -5586,7 +5710,7 @@ def _pd_status(port: int) -> dict:
         return json.load(r)
 
 
-def pd_two_domains(gr, main_sess, main_data) -> int:
+def pd_two_domains(gr, main_sess, main_data, main_res) -> int:
     """Phase 19a: ``main_sess``'s Domain (A) and a second Domain (B)
     over the SF=0.1 lineitem on the same card, joined on the in-process
     pd backend.  Returns the group_reduce launches of its Q1 and Q6
@@ -5641,7 +5765,7 @@ def pd_two_domains(gr, main_sess, main_data) -> int:
           f"and analyzed s={time.perf_counter() - t0:.1f}")
     step("b")
 
-    want_a = q6_params_oracle(ca, SERVER_Q6_PARAMS[0])   # TPC-H Q6's
+    want_a = main_q6(main_res)
 
     def q6_median():
         walls, got = [], []
@@ -5789,7 +5913,8 @@ def pd_two_domains(gr, main_sess, main_data) -> int:
                               ("B", sb, cb, b_data[0])):
         sql_check("Q1", run(s, q1), c, names, None)
         got = _scaled(str(run(s, q6).rows[0][0]), 4)
-        check(got == q6_params_oracle(c, SERVER_Q6_PARAMS[0]),
+        check(got == (want_a if name == "A" else
+                      q6_params_oracle(c, SERVER_Q6_PARAMS[0])),
               f"19a {name} Q6: {got}")
         print(f"19a {name}: Q1, Q6 exact")
     for s in (sa, sb):
@@ -5970,7 +6095,7 @@ def pd_two_servers(dev_type: str, sf: float) -> None:
           f"survivor_q6_exact={answered + 1} s={time.perf_counter() - t0:.1f}")
 
 
-def background_workers(gr, os1, main_sess, main_data) -> None:
+def background_workers(gr, os1, main_sess, main_data, main_res) -> None:
     """Phase 19c: the background workers on ``main_sess``'s Domain: the
     TTL sweep, the auto-analyze timer under four Q6 senders, a DXF
     analyze task over two tables, and ADMIN RECOMMEND INDEX."""
@@ -6028,7 +6153,7 @@ def background_workers(gr, os1, main_sess, main_data) -> None:
     old = dom.stats.get(tbl)
     check(old is not None, "19c: lineitem has no statistics from 13c")
     dom.stats._cache.pop(dom.stats._key(tbl))
-    want_q6 = q6_params_oracle(c, SERVER_Q6_PARAMS[0])
+    want_q6 = main_q6(main_res)
     errors, sent, done = [], [0], threading.Event()
 
     def sender():
@@ -6121,13 +6246,13 @@ def stats_same(got, want) -> bool:
     return True
 
 
-def pd_phase(gr, os1, main_sess, main_data) -> int:
+def pd_phase(gr, os1, main_sess, main_data, main_res) -> int:
     """Phase 19 (see the module docstring): returns the group_reduce
     launches of 19a's Q1 and Q6."""
-    launched = pd_two_domains(gr, main_sess, main_data)
+    launched = pd_two_domains(gr, main_sess, main_data, main_res)
     sf = late_sf("19b", SERVE_PD_SF, SERVE_PD_SF_CUT, SERVE_PD_LATE_S)
     pd_two_servers(main_sess.domain.client.devices[0].type, sf)
-    background_workers(gr, os1, main_sess, main_data)
+    background_workers(gr, os1, main_sess, main_data, main_res)
     return launched
 
 
@@ -6492,6 +6617,339 @@ def cascades_legs(sess, dom, lite, search, searched) -> None:
                       + " / ".join(ln.strip() for ln in explains[flag]))
 
 
+# -- phase 21: resource control and the chaos stress harness ----------- #
+
+RC_CALLS = 10             # 21a: warm Q6 calls in the limited group, and in default
+RC_RATE_Q6 = 4            # 21a: the limited group's RU_PER_SEC, in Q6 prices
+RC_BLOCK_S = 1.0          # 21a: the refill the limited calls must wait, at least
+STRESS_ROWS = 60_000      # 21b: build_stress_domain's rows (the JAX rung's)
+STRESS_SMOKE = 64         # 21b: the smoke's sessions, at STRESS_SMOKE_RATE
+STRESS_SMOKE_RATE = 400.0
+STRESS_SESSIONS = 1000    # 21b: the full rung's sessions, at STRESS_RATE
+STRESS_RATE = 200.0       # arrivals/s, over the harness's four groups
+STRESS_WAVES = (32, 16)   # 21c: the ledger's two waves of sessions
+STRESS_FULL_S = 45.0      # phase 21 with the full rung on the H100's host:
+#                           28.8 s alone with 21a at SF=1 (its rung 15.0 s;
+#                           PERF.md section 6), 21a at SF=10 adds seconds
+STRESS_FAST_AT = 1000.0   # a fast host's seconds at phase 21: 954-993 s
+STRESS_END_S = 1150.0     # phase 21 ends by then (the script's limit 1200 s)
+# Past this arrival, phase 21 at this host's pace (its seconds so far over
+# STRESS_FAST_AT) would end after STRESS_END_S with the full rung: 21b then
+# runs the smoke only, and says so
+STRESS_LATE_S = STRESS_END_S / (1 + STRESS_FULL_S / STRESS_FAST_AT)
+
+
+def group_debited(dom, name: str) -> float:
+    return dom.resource_groups.get(name).bucket.debited
+
+
+def resource_control(gr, main_sess, main_data, main_res) -> int:
+    """Phase 21a: the resource-group statements and the statement's RU
+    charge over 13a's Domain.  Returns the group_reduce launches of its
+    Q1 and Q6 calls."""
+    from tidb_tpu_torch.planner.build import PlanError
+    from tidb_tpu_torch.rc.controller import DEFAULT_OVERDRAFT_RU
+    from tidb_tpu_torch.rc.runaway import RunawayError
+    from tidb_tpu_torch.server.status import StatusServer
+    from tidb_tpu_torch.session import Session
+    from tidb_tpu_torch.testing import tpch
+    t0 = time.perf_counter()
+    dom = main_sess.domain
+    s = Session(dom)
+    c = dict(zip(*main_data))
+    q1, q6 = tpch.SQL_QUERIES["Q1"], tpch.SQL_QUERIES["Q6"]
+    want6 = main_q6(main_res)
+    # every launch of 21a is one of its Q1 and Q6 calls'
+    n0 = gr.LAUNCHES["group_reduce"]
+
+    def run(sess, name):
+        """Q1 or Q6 through ``sess``, checked against numpy."""
+        rs = sess.execute(q1 if name == "Q1" else q6)
+        if name == "Q1":
+            sql_check("Q1", rs, c, main_data[0], None)
+        else:
+            got = _scaled(str(rs.rows[0][0]), 4)
+            check(got == want6, f"21a Q6 {got} != numpy {want6}")
+        return rs
+
+    def in_group(group):
+        sess = Session(dom)
+        sess.execute(f"set resource group {group}")
+        return sess
+
+    def groups_row(name):
+        return s.must_query(
+            "select name, ru_per_sec, burstable, exec_elapsed_sec, "
+            "runaway_action, priority from information_schema."
+            f"resource_groups where name = '{name}'")
+
+    # the statements against the memtable
+    s.execute("create resource group rc21 RU_PER_SEC = 1000")
+    s.execute("create resource group if not exists rc21 RU_PER_SEC = 5")
+    check(groups_row("rc21") == [("rc21", 1000, "NO", None, "KILL",
+                                  "MEDIUM")], f"21a create: "
+          f"{groups_row('rc21')}")
+    s.execute("alter resource group rc21 RU_PER_SEC = 2000 BURSTABLE "
+              "PRIORITY = HIGH QUERY_LIMIT = (EXEC_ELAPSED = '60s' "
+              "ACTION = COOLDOWN)")
+    check(groups_row("rc21") == [("rc21", 2000, "YES", 60.0, "COOLDOWN",
+                                  "HIGH")],
+          f"21a alter: {groups_row('rc21')}")
+    s.execute("drop resource group rc21")
+    check(groups_row("rc21") == [], "21a drop: the group is still listed")
+    for sql in ("drop resource group default", "drop resource group rc21",
+                "set resource group rc21",
+                "alter resource group rc21 RU_PER_SEC = 1"):
+        try:
+            s.execute(sql)
+            raised = None
+        except PlanError as e:
+            raised = str(e)
+        check(raised is not None, f"21a {sql!r} did not raise PlanError")
+    print("21a statements: CREATE, IF NOT EXISTS, ALTER, DROP against "
+          "information_schema.resource_groups; four PlanErrors")
+
+    # a limited group blocks for its refill, default does not
+    s.execute("create resource group probe21 RU_PER_SEC = 1000000000")
+    d0 = group_debited(dom, "probe21")
+    run(in_group("probe21"), "Q6")
+    price = group_debited(dom, "probe21") - d0
+    check(price > 0, f"21a: Q6 was priced {price} RU")
+    rate = int(np.ceil(RC_RATE_Q6 * price))
+    sched = dom.client._sched_obj
+    s.execute(f"create resource group lim21 RU_PER_SEC = {rate}")
+    s.execute("set global tidb_tpu_rc_overdraft_ru = 0")
+    try:
+        sl, sd = in_group("lim21"), in_group("default")
+        throttled0 = sched.stats()["rc_throttled"]
+        d0 = group_debited(dom, "lim21")
+        t1 = time.perf_counter()
+        for _ in range(RC_CALLS):
+            run(sl, "Q6")
+        lim_s = time.perf_counter() - t1
+        paid = group_debited(dom, "lim21") - d0
+        throttled = sched.stats()["rc_throttled"] - throttled0
+        t1 = time.perf_counter()
+        for _ in range(RC_CALLS):
+            run(sd, "Q6")
+        free_s = time.perf_counter() - t1
+    finally:
+        s.execute(f"set global tidb_tpu_rc_overdraft_ru = "
+                  f"{DEFAULT_OVERDRAFT_RU:g}")
+        run(s, "Q6")                 # a launch re-plumbs the knob
+    # the bucket starts full (one second of refill): what it paid past
+    # that, it paid at ``rate``
+    refill_s = (paid - rate) / rate
+    check(refill_s >= RC_BLOCK_S and lim_s >= 0.9 * refill_s,
+          f"21a: {RC_CALLS} Q6 in lim21 took {lim_s:.3f} s, the refill "
+          f"{refill_s:.3f} s")
+    check(free_s < 0.5 * lim_s,
+          f"21a: default took {free_s:.3f} s against lim21's {lim_s:.3f}")
+    check(sched.rc_overdraft_ru == DEFAULT_OVERDRAFT_RU,
+          f"21a: overdraft left at {sched.rc_overdraft_ru}")
+    print(f"21a throttle: q6_ru={price:.3f} lim21_ru_per_sec={rate} "
+          f"calls={RC_CALLS} paid_ru={paid:.3f} refill_s={refill_s:.3f} "
+          f"lim21_s={lim_s:.3f} default_s={free_s:.3f} "
+          f"throttled_skips={throttled}")
+
+    # two priorities queued together: each group given its device time
+    s.execute("create resource group hi21 RU_PER_SEC = 0 PRIORITY = HIGH")
+    s.execute("create resource group lo21 RU_PER_SEC = 0 PRIORITY = LOW")
+    sh, so = in_group("hi21"), in_group("lo21")
+    before = {g: dict(sched.stats()["groups"].get(g) or {})
+              for g in ("hi21", "lo21")}
+    run_queued(sched, [lambda: run(sh, "Q6"), lambda: run(so, "Q1")])
+    st = sched.stats()
+    got = {g: {k: st["groups"][g][k] - before[g].get(k, 0)
+               for k in ("tasks", "rus", "device_ms")}
+           for g in ("hi21", "lo21")}
+    check(all(v["device_ms"] > 0 and v["rus"] > 0 for v in got.values()),
+          f"21a: queued groups {got}")
+    check(st["digest_device_ms"], "21a: digest_device_ms is empty")
+    print("21a queued: " + " ".join(
+        f"{g}_tasks={v['tasks']} {g}_ru={v['rus']:.3f} "
+        f"{g}_device_ms={v['device_ms']:.3f}" for g, v in got.items())
+        + f" digests={len(st['digest_device_ms'])}")
+
+    # the runaway watch: KILL on a read, SWITCH_GROUP repricing
+    s.execute("create resource group kill21 RU_PER_SEC = 0 QUERY_LIMIT = "
+              "(EXEC_ELAPSED = '1ms' ACTION = KILL)")
+    sk = in_group("kill21")
+    try:
+        run(sk, "Q1")
+        raised = None
+    except RunawayError as e:
+        raised = e
+    check(raised is not None and raised.errno == 8253,
+          f"21a: Q1 in kill21 raised {raised!r}")
+    check(sk.must_query("select 1") == [(1,)], "21a: session after KILL")
+    s.execute(f"create resource group batch21 RU_PER_SEC = {rate}")
+    s.execute(f"create resource group hot21 RU_PER_SEC = {rate} "
+              "QUERY_LIMIT = (EXEC_ELAPSED = '1ms' "
+              "ACTION = SWITCH_GROUP(batch21))")
+    sw = in_group("hot21")
+    hot, batch = dom.resource_groups.get("hot21"), \
+        dom.resource_groups.get("batch21")
+    b0, h0 = batch.bucket.debited, hot.bucket.credited
+    run(sw, "Q6")
+    moved, refunded = batch.bucket.debited - b0, hot.bucket.credited - h0
+    rec = dom.resource_groups.runaway_ring.records()[-1]
+    check(moved > 0 and abs(moved - refunded) <= 1e-9 * moved
+          and (rec["group"], rec["action"], rec["target"])
+          == ("hot21", "switch_group", "batch21"),
+          f"21a SWITCH_GROUP: moved {moved} refunded {refunded} {rec}")
+    print(f"21a runaway: kill21 Q1 raised errno={raised.errno} "
+          f"({raised}); hot21 Q6 repriced to batch21 ru={moved:.3f}")
+
+    srv = StatusServer(dom)
+    port = srv.start()
+    try:
+        import urllib.request
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}/resource",
+                                    timeout=30) as r:
+            body = json.load(r)
+    finally:
+        srv.close()
+    groups = body["groups"]
+    check({"hi21", "lo21", "lim21", "kill21", "hot21", "batch21"}
+          <= set(groups) and groups["hi21"]["device_ms"] > 0
+          and groups["lim21"]["ru_per_sec"] == rate
+          and groups["kill21"]["runaway_count"] >= 1
+          and body["runaway"]["total"] >= 2 and body["rc_enable"],
+          f"21a /resource: {json.dumps(body)[:2000]}")
+    print(f"21a /resource: groups={len(groups)} "
+          f"rc_debited_ru={body['rc_debited_ru']} "
+          f"rc_throttled={body['rc_throttled']} "
+          f"runaway_total={body['runaway']['total']} "
+          f"digests={len(body['digest_device_ms'])}")
+    for g in ("probe21", "lim21", "hi21", "lo21", "kill21", "hot21",
+              "batch21"):
+        s.execute(f"drop resource group {g}")
+    launched = gr.LAUNCHES["group_reduce"] - n0
+    check(launched > 0, "21a: group_reduce never launched")
+    print(f"21a group_reduce launches={launched} "
+          f"s={time.perf_counter() - t0:.1f}")
+    return launched
+
+
+def stress_run(dom, sessions: int, rate: float) -> dict:
+    """``run_stress_harness`` as the JAX package's tests run it: transient
+    retries that do not sleep, the breaker reset after."""
+    from tidb_tpu_torch.testing.stress import run_stress_harness
+    sched = dom.client._scheduler()
+    saved = sched._retry_sleep
+    sched._retry_sleep = lambda sec: None
+    try:
+        return run_stress_harness(dom, n_sessions=sessions, rate_per_s=rate)
+    finally:
+        sched._retry_sleep = saved
+        sched.breaker.reset()
+
+
+def stress_bars(tag: str, out: dict, smoke: bool) -> None:
+    """The JAX package's bars (tests/test_stress.py): the smoke's or the
+    full rung's."""
+    from tidb_tpu_torch.testing.stress import STRESS_QUERIES
+    check(out["wrong_results"] == 0, f"{tag}: wrong results {out}")
+    if not smoke:
+        check(out["completion_rate"] >= 0.98 and out["ru_fairness"]
+              is not None and out["ru_fairness"] < 1.5, f"{tag}: {out}")
+        return
+    shapes = out["per_shape"]
+    check(out["completion_rate"] == 1.0 and out["failed"] == 0
+          and set(shapes) == {t for t, _q in STRESS_QUERIES}
+          and all(v["ok"] == v["submitted"] for v in shapes.values())
+          and out["sched_wait_p99_ms"] >= out["sched_wait_p50_ms"] >= 0
+          and 0.0 <= out["fusion_rate"] <= 1.0
+          and out["ru_fairness"] == 1.0 and out["calibration_entries"] > 0
+          and out["launches"] <= out["tasks"] and out["value_drifts"] == 0,
+          f"{tag}: {out}")
+
+
+def stress_phase(torch, rk, gr, os1, main_sess, main_data,
+                 main_res) -> dict:
+    """Phase 21 (see the module docstring): returns the launches of
+    group_reduce, radix_hist_all64 and radix_onesweep64 of 21a's Q1 and
+    Q6 and of 21b's sessions, and of radix_hist and radix_scatter (the
+    SCATTER partition the cost model may choose for the high-NDV
+    group-by) of 21b's sessions."""
+    from tidb_tpu_torch.testing.stress import build_stress_domain
+    launched = {"group_reduce": resource_control(gr, main_sess, main_data,
+                                                 main_res)}
+    late = time.perf_counter() - T_START
+    full = late <= STRESS_LATE_S
+    if not full:
+        print(f"21b cut to the {STRESS_SMOKE}-session smoke: the script at "
+              f"{late:.1f} s, past {STRESS_LATE_S:.1f} s")
+    counters = (gr.LAUNCHES, os1.LAUNCHES, rk.LAUNCHES)
+    kernels = GR + OS + RADIX32
+    t0 = time.perf_counter()
+    reset(counters)
+    dom, _s = build_stress_domain(STRESS_ROWS, device="cuda")
+    check(dom.client.devices[0].type == "cuda", "21b: not on the card")
+    print(f"21b domain: rows={STRESS_ROWS} s={time.perf_counter() - t0:.1f} "
+          "build launches: " + " ".join(
+              f"{k}={launches[k]}" for launches in counters
+              for k in kernels if k in launches))
+    reset(counters)
+    ladder0, fb0 = dict(LADDER), dom.client.join_fallbacks
+    runs = [("smoke", STRESS_SMOKE, STRESS_SMOKE_RATE)]
+    if full:
+        runs.append(("rung", STRESS_SESSIONS, STRESS_RATE))
+    with plain_guard({"gr": gr, "os1": os1}) as plain:
+        for tag, sessions, rate in runs:
+            out = stress_run(dom, sessions, rate)
+            print(f"21b {tag}: " + json.dumps(out))
+            stress_bars(f"21b {tag}", out, smoke=tag == "smoke")
+    check(plain.calls == 0, f"21b: {plain.calls} plain kernel calls")
+    check(LADDER == ladder0 and dom.client.join_fallbacks == fb0,
+          f"21b: a fallback served a statement: {LADDER} "
+          f"join_fallbacks={dom.client.join_fallbacks - fb0}")
+    stress = {k: launches[k] for launches in counters for k in kernels
+              if k in launches}
+    check(all(stress[k] > 0 for k in GR + OS),
+          f"21b: a kernel of the stress path never launched {stress}")
+    print("21b launches: " + " ".join(f"{k}={v}" for k, v in stress.items())
+          + f" s={time.perf_counter() - t0:.1f}")
+    for k, v in stress.items():
+        launched[k] = launched.get(k, 0) + v
+
+    # 21c: the HBM ledger conserves over two waves on (b)'s Domain
+    t0 = time.perf_counter()
+    sched = dom.client._scheduler()
+    check(sched.hbm_enable, "21c: the ledger is off")
+    # the drain measures a launch's peak where it raises the card's peak
+    # counter, which the SF=10 statements before this phase set high
+    torch.cuda.reset_peak_memory_stats()
+    led = None
+    for i, sessions in enumerate(STRESS_WAVES):
+        out = stress_run(dom, sessions, STRESS_SMOKE_RATE)
+        check(out["wrong_results"] == 0, f"21c wave {i}: {out}")
+        led = sched._ledger_obj
+        check(led is not None, "21c: the ledger never engaged")
+        deadline = time.monotonic() + 10.0
+        while led.inflight_bytes and time.monotonic() < deadline:
+            time.sleep(0.02)
+        check(led.inflight_bytes == 0 and led.negative_events == 0,
+              f"21c wave {i}: inflight {led.inflight_bytes} negative "
+              f"{led.negative_events}")
+        if i == 0:
+            baseline = led.persistent_bytes
+            check(baseline > 0, "21c: no resident bytes")
+    check(led.persistent_bytes == baseline
+          and led.watermark_bytes >= led.max_measured_bytes
+          and led.watermark_bytes >= led.persistent_bytes
+          and led.measured_launches > 0,
+          f"21c: resident {led.persistent_bytes} (was {baseline}) "
+          f"watermark {led.watermark_bytes} max measured "
+          f"{led.max_measured_bytes} measured {led.measured_launches}")
+    print(f"21c ledger: waves={STRESS_WAVES} resident_bytes={baseline} "
+          f"watermark_bytes={led.watermark_bytes} max_measured_bytes="
+          f"{led.max_measured_bytes} measured_launches="
+          f"{led.measured_launches} s={time.perf_counter() - t0:.1f}")
+    return launched
+
+
 def build_phase(*modules) -> None:
     """The kernel libraries of ``modules`` from the checkout's sources,
     one nvcc each, started together."""
@@ -6561,9 +7019,13 @@ def main() -> int:
     t_lap = [time.perf_counter()]
 
     def lap(label: str) -> None:
-        """The seconds of the phase that just ended, on a line."""
+        """The seconds of the phase that just ended, on a line, with the
+        script's own host work among them."""
         now = time.perf_counter()
-        print(f"phase {label}: s={now - t_lap[0]:.1f}")
+        print(f"phase {label}: s={now - t_lap[0]:.1f} host_s="
+              f"{sum(HOST_S.values()):.1f} " + " ".join(
+                  f"{k}_s={v:.1f}" for k, v in sorted(HOST_S.items())))
+        HOST_S.clear()
         t_lap[0] = now
 
     build_phase(rk, gr, os1)
@@ -6606,23 +7068,30 @@ def main() -> int:
     lap("13 windows and statistics")
     server_phase(torch, gr, os1, S, main_sess, main_data, main_res)
     lap("14 server")
-    resilience_phase(torch, gr, main_sess, main_data, s4_data)
+    resilience_phase(torch, gr, main_sess, main_data, main_res, s4_data,
+                     s4_res)
     lap("15 resilience")
     counts["group_reduce"] += admission_phase(torch, gr, main_sess,
-                                              main_data, s4_data)
+                                              main_data, main_res, s4_data)
     lap("16 admission")
     counts["group_reduce"] += observability_phase(torch, gr, os1, main_sess,
-                                                  main_data, s4_data)
+                                                  main_data, main_res,
+                                                  s4_data)
     lap("17 observability")
     counts["group_reduce_gates"] = 0
     counts["group_reduce_gates"] += gates_phase(torch, gr, main_sess,
-                                                main_data)
+                                                main_data, main_res)
     lap("18 gates")
-    counts["group_reduce"] += pd_phase(gr, os1, main_sess, main_data)
-    del main_sess
+    counts["group_reduce"] += pd_phase(gr, os1, main_sess, main_data,
+                                       main_res)
     lap("19 coordination and background")
     counts["group_reduce"] += tools_phase(gr, os1)
     lap("20 tools and cascades")
+    for name, n in stress_phase(torch, rk, gr, os1, main_sess, main_data,
+                                main_res).items():
+        counts[name] += n
+    del main_sess
+    lap("21 resource control and stress")
 
     cu = "tidb_tpu_torch/copr/cuda/"
     sources = {"radix_hist": cu + "radix_kernel.cu",

@@ -217,11 +217,20 @@ TOOLS_MODULES = ["tidb_tpu_torch/tools/__init__.py",
                  "tidb_tpu_torch/__main__.py"]
 
 
+# resource control end to end and the chaos stress harness: the shim,
+# the harness, and the modules they grow
+RESOURCE_MODULES = ["tidb_tpu_torch/utils/resourcegroup.py",
+                    "tidb_tpu_torch/testing/stress.py",
+                    "tidb_tpu_torch/rc/__init__.py",
+                    "tidb_tpu_torch/server/status.py",
+                    "tidb_tpu_torch/session/session.py"]
+
+
 @pytest.mark.parametrize("path", JOIN_MODULES + STORE_MODULES
                          + SELECT_MODULES + WINDOW_STATS_MODULES
                          + SERVER_MODULES + RESILIENCE_MODULES
                          + SCHED_MODULES + OBS_MODULES + GATES_MODULES
-                         + PD_MODULES + TOOLS_MODULES)
+                         + PD_MODULES + TOOLS_MODULES + RESOURCE_MODULES)
 def test_join_modules_are_checked(path):
     assert path in SOURCES
 
@@ -434,6 +443,22 @@ def test_tools_modules_load_no_jax():
 def test_tools_modules_name_their_counterpart(path):
     """Every module of the slice, its packages' ``__init__`` included,
     carries its provenance line."""
+    first = (ROOT / path).read_text().splitlines()[0]
+    m = PROVENANCE.match(first)
+    assert m and (ROOT / m.group(1)).exists(), f"{path}: {first!r}"
+
+
+def test_resource_modules_load_no_jax():
+    """The resource-control shim and the stress harness, imported one by
+    one in a fresh interpreter, each leave jax and tidb_tpu out of
+    sys.modules; importing the harness builds no domain and runs no
+    session (the helper's output holds only the modules' own lines)."""
+    _modules_load_no_jax(RESOURCE_MODULES)
+
+
+@pytest.mark.parametrize("path", RESOURCE_MODULES[:2])
+def test_resource_modules_name_their_counterpart(path):
+    """The shim and the harness carry their provenance lines."""
     first = (ROOT / path).read_text().splitlines()[0]
     m = PROVENANCE.match(first)
     assert m and (ROOT / m.group(1)).exists(), f"{path}: {first!r}"

@@ -302,7 +302,15 @@ def test_quota_shares_sum_to_declared_budget():
         {"shared": 2}
 
 
-def test_quota_debt_weights_the_refill_split():
+def test_quota_debt_weights_the_refill_split(monkeypatch):
+    """Each package's buckets read one frozen clock, so b's debt (and
+    so the shares) cannot drift with the wall time between the pairs."""
+    import tidb_tpu.rc.bucket as jbucket
+    import tidb_tpu_torch.rc.bucket as pbucket
+    frozen = types.SimpleNamespace(monotonic=lambda: 1000.0)
+    monkeypatch.setattr(jbucket, "time", frozen)
+    monkeypatch.setattr(pbucket, "time", frozen)
+
     def run(ns):
         _mgrs, (pa, pb) = _quota_pair(ns, 900, debt_b=1800)
         return [pa.shares["shared"], pb.shares["shared"]]

@@ -10,7 +10,9 @@ window's EWMA and clamp, a transient fault retried, a poisoned member
 demuxed and retried solo, quarantine after repeated failures, KILL of a
 queued task, one submit a launch over Q1 and a join (none with
 ``TIDB_TPU_SCHED_DISABLE=1``), and a process that ran a scheduled
-statement exiting with code 0.
+statement exiting with code 0.  The port's own: a submit to a full
+queue waits for a slot while the drain serves, and answers 9003 when the
+wait runs out or the drain is paused.
 
 Queues are built with ``pause()``/``resume()`` and every wait and join
 has a timeout: nothing sleeps for an arrival.  The scheduler is one a
@@ -200,6 +202,67 @@ def test_queue_overflow_raises_9003():
     for t in tasks:
         _wait_until(lambda t=t: t.done, msg="a task served")
     assert sched.stats()["queue_depth"] == 0
+    sched.shutdown()
+
+
+def _busy_drain(max_depth: int):
+    """A scheduler whose drain is serving a task that blocks until the
+    returned event is set, with ``max_depth`` more tasks queued behind
+    it: the queue is full and the drain is not paused."""
+    sched = DeviceScheduler(max_depth=max_depth)
+    release, serving = threading.Event(), threading.Event()
+
+    def block():
+        serving.set()
+        release.wait(TIMEOUT)
+    head = sched.submit(CopTask(fn=block))
+    assert serving.wait(TIMEOUT)
+    queued = [sched.submit(CopTask(fn=lambda: None))
+              for _ in range(max_depth)]
+    return sched, release, [head] + queued
+
+
+def test_full_queue_waits_for_a_slot_while_the_drain_serves():
+    """The port's admission wait: a submit to a full queue that a drain
+    is serving waits for a slot and is admitted, with no 9003."""
+    sched, release, tasks = _busy_drain(2)
+    sched.busy_wait_s = TIMEOUT
+    admitted = []
+    t = threading.Thread(
+        target=lambda: admitted.append(sched.submit(CopTask(fn=lambda: 7))))
+    t.start()
+    time.sleep(0.05)
+    assert t.is_alive() and sched.depth == 2     # waiting, not queued
+    release.set()
+    t.join(TIMEOUT)
+    assert not t.is_alive() and len(admitted) == 1
+    assert admitted[0].wait() == 7
+    for task in tasks:
+        _wait_until(lambda task=task: task.done, msg="a task served")
+    assert sched.busy_rejects == 0
+    sched.shutdown()
+
+
+def test_full_queue_answers_9003_when_the_wait_runs_out():
+    """A submit that waits ``busy_wait_s`` without a slot freeing gets
+    the 9003 busy error; a paused drain answers it at once."""
+    sched, release, tasks = _busy_drain(1)
+    sched.busy_wait_s = 0.1
+    t0 = time.monotonic()
+    with pytest.raises(ServerBusyError):
+        sched.submit(CopTask(fn=lambda: None))
+    assert time.monotonic() - t0 >= 0.1
+    sched.pause()
+    sched.busy_wait_s = TIMEOUT
+    t0 = time.monotonic()
+    with pytest.raises(ServerBusyError):
+        sched.submit(CopTask(fn=lambda: None))
+    assert time.monotonic() - t0 < TIMEOUT / 2
+    assert sched.busy_rejects == 2
+    release.set()
+    sched.resume()
+    for task in tasks:
+        _wait_until(lambda task=task: task.done, msg="a task served")
     sched.shutdown()
 
 

@@ -321,13 +321,45 @@ def test_denied_statement_and_bad_password_equal_the_jax(servers):
     assert outs[0][3] == 1045
 
 
-def test_unported_path_is_an_error_packet_and_the_connection_stays(conns):
+def test_unported_path_is_an_error_packet_and_the_connection_stays(
+        conns, monkeypatch):
+    """A path the port does not run yet raises NotImplementedError
+    naming its ROADMAP.md item, which the wire sends as error 1105 on a
+    connection that stays.  No statement kind of the JAX session is left
+    unported, so the session's dispatch is made to refuse as it refuses
+    a kind it does not know."""
+    from tidb_tpu_torch import HOST_SURFACE, unported
+    from tidb_tpu_torch.session import session as psession
+
+    def refuse(self, stmt):
+        raise unported(f"the {type(stmt).__name__} statement",
+                       HOST_SURFACE)
     _j, p = conns
-    got = p.query("create resource group rg1 ru_per_sec = 100")[0]
+    with monkeypatch.context() as mp:
+        mp.setattr(psession.Session, "_dispatch_stmt", refuse)
+        got = p.query("create resource group rg1 ru_per_sec = 100")[0]
     assert got[0] == 0xFF
     assert struct.unpack_from("<H", got, 1)[0] == 1105
-    assert b"ROADMAP.md, Queue 1 item 8" in got
+    assert b"ROADMAP.md, Queue 1 item 9" in got
     assert p.query("select 1")[-2] == P.put_lenenc_str(b"1")
+
+
+def test_resource_group_statements_answer_equal_packets(conns):
+    """The resource-group statements answer over the wire as the JAX
+    server's do: OK packets, the memtable's rows, and the same error
+    packet for a group that exists."""
+    j, p = conns
+    for sql in ("create resource group rgw ru_per_sec = 100",
+                "create resource group rgw ru_per_sec = 5",
+                "alter resource group rgw ru_per_sec = 200 burstable",
+                "select name, ru_per_sec, burstable from "
+                "information_schema.resource_groups where name = 'rgw'",
+                "set resource group rgw",
+                "select count(*) from u",
+                "set resource group default",
+                "drop resource group rgw",
+                "drop resource group rgw"):
+        assert_packets_equal(p.query(sql), j.query(sql))
 
 
 def test_prepared_binary_rows_equal_the_jax_server(conns):
@@ -552,9 +584,9 @@ def test_status_routes_equal_the_jax_server(servers):
             and "compile_cache" in sched
         # the observability routes answer since the observability
         # slice (tests/test_torch_obs.py holds them), /pd since the
-        # coordination slice (tests/test_torch_pd.py); the resource
-        # groups' and the lock sanitizer's still answer 501 naming
-        # their item
+        # coordination slice (tests/test_torch_pd.py), /resource since
+        # the resource-control slice (tests/test_torch_resource.py); the
+        # lock sanitizer's still answers 501 naming its item
         for route in ("/hbm", "/profile", "/trace"):
             assert isinstance(json.loads(_get(pst.port, route)), dict)
         with pytest.raises(urllib.error.HTTPError) as e:
@@ -563,11 +595,12 @@ def test_status_routes_equal_the_jax_server(servers):
         assert json.loads(_get(pst.port, "/pd"))["this_domain"] == \
             json.loads(_get(jst.port, "/pd"))["this_domain"] == \
             {"enabled": False}
-        for route in ("/resource", "/locksan"):
-            with pytest.raises(urllib.error.HTTPError) as e:
-                _get(pst.port, route)
-            assert e.value.code == 501
-            assert "ROADMAP.md, Queue 1 item" in e.value.read().decode()
+        assert set(json.loads(_get(pst.port, "/resource"))) == \
+            set(json.loads(_get(jst.port, "/resource")))
+        with pytest.raises(urllib.error.HTTPError) as e:
+            _get(pst.port, "/locksan")
+        assert e.value.code == 501
+        assert "ROADMAP.md, Queue 1 item" in e.value.read().decode()
         with pytest.raises(urllib.error.HTTPError) as e:
             _get(pst.port, "/schema/nosuch")
         assert e.value.code == 404

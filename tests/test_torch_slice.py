@@ -491,17 +491,17 @@ def _unported_cases():
     }
 
 
-# SQL statements of later slices: (statement, the ROADMAP.md item named)
-_UNPORTED_SQL = {
-    "SQL create resource group": ("create resource group rg1 ru_per_sec = 100",
-                                  "Queue 1 item 8: slice 12"),
-}
-
-# the statements that raised in the cases above before the observability
-# slice (and, for the memtable and the index advisor, the coordination
-# slice; for the cascades planner, the tools-and-cascades slice) ported
-# them, each with a check of what it now returns
+# the statements that raised before the observability slice (and, for
+# the memtable and the index advisor, the coordination slice; for the
+# cascades planner, the tools-and-cascades slice; for the resource
+# groups, the resource-control slice) ported them, each with a check of
+# what it now returns
 _PORTED_SQL = {
+    "SQL create resource group": (
+        """create resource group rg1 ru_per_sec = 100;
+           select name, ru_per_sec from information_schema.resource_groups
+           where name = 'rg1'""",
+        lambda res: res.rows == [("rg1", 100)]),
     "SQL cascades planner": (
         """set tidb_enable_cascades_planner = 1;
            select count(*) from part p join lineitem l
@@ -569,18 +569,12 @@ def test_ported_observability_statements_answer(case):
     assert ok(res), (sql, res.names, res.rows)
 
 
-@pytest.mark.parametrize("case", sorted(_unported_cases())
-                         + sorted(_UNPORTED_SQL))
+@pytest.mark.parametrize("case", sorted(_unported_cases()))
 def test_unported_paths_raise(case):
     """What the slice does not port raises NotImplementedError naming
     the ROADMAP queue that brings it, never a wrong answer: the DAG
-    paths through the client, the SQL statements through the session
-    (each naming its ROADMAP.md item)."""
-    if case in _UNPORTED_SQL:
-        sql, item = _UNPORTED_SQL[case]
-        with pytest.raises(NotImplementedError, match=f"ROADMAP.md, {item}"):
-            _sql_session().execute(sql)
-        return
+    paths through the client (no SQL statement of the JAX session is
+    left unported)."""
     snap = snapshot_from_numpy(["k", "f", "u"], [
         {"kind": "INT64", "nullable": False, "data": np.arange(10)},
         {"kind": "FLOAT64", "nullable": False, "data": np.ones(10)},

@@ -96,8 +96,17 @@ its global-sort import through sorted runs on disk
 (``tools/lightning.py``, ``tools/external_sort.py``) and Dumpling's
 export (``tools/dump.py``), in the JAX package's file formats; a
 session with ``tidb_enable_cascades_planner`` on plans through the
-memo search of ``planner/cascades/``.  What the port does not run yet
-raises ``NotImplementedError`` naming its ROADMAP.md item (below).
+memo search of ``planner/cascades/``.  Resource control runs end to end:
+``CREATE``/``ALTER``/``DROP``/``SET RESOURCE GROUP`` manage the groups
+(``rc/``, with the ``utils/resourcegroup.py`` shim), each statement is
+charged to its group at its end under the runaway watch (KILL,
+COOLDOWN, SWITCH_GROUP), and ``/resource`` serves the groups'
+balances, the scheduler's per-group device time and the runaway ring;
+``testing/stress.py`` drives many concurrent sessions over a mixed
+corpus across resource groups with the fault plane armed, checking
+every result against an oracle taken before chaos.  What the port does
+not run yet raises ``NotImplementedError`` naming its ROADMAP.md item
+(below).
 """
 
 # ROADMAP.md items of the paths the port does not run yet, named by the
@@ -105,10 +114,10 @@ raises ``NotImplementedError`` naming its ROADMAP.md item (below).
 EXCHANGE = "Queue 1 item 4: several physical GPUs"
 ANALYSIS = ("Queue 1 item 7: slice 11, the rest of the analysis gates "
             "(concurrency, lint and analysis/__main__)")
-# the resource-group statements, /resource and /locksan
-CONTROL = "Queue 1 item 8: slice 12, the control plane"
-# testing/stress.py, with the control plane's items
-HOST_SURFACE = "Queue 1 item 9: slice 13, testing/stress.py"
+# the lock sanitizer and its /locksan route
+CONTROL = "Queue 1 item 8: slice 12, /locksan and the lock sanitizer"
+# a statement kind the port's session does not dispatch
+HOST_SURFACE = "Queue 1 item 9: slice 13, the host surface"
 
 
 def unported(what: str, where: str = "Queue 1") -> NotImplementedError:

@@ -1,4 +1,5 @@
 # ported from tidb_tpu/chunk/column.py @ 9d319cb
+# (to_python's one-call decode of integers and floats: this port's)
 """Arrow-layout columnar data plane: Column / Chunk.
 
 Reference analog: pkg/util/chunk/column.go:71-81 (Column{nullBitmap, offsets,
@@ -151,9 +152,23 @@ class Column:
 
     # ------------------------------------------------------------------ #
 
+    # the kinds whose values decode one by one (the rest are integers or
+    # floats, decoded in one ``tolist``)
+    _DECODED_KINDS = frozenset((
+        dt.TypeKind.DECIMAL, dt.TypeKind.STRING, dt.TypeKind.DATE,
+        dt.TypeKind.DATETIME, dt.TypeKind.ENUM, dt.TypeKind.SET,
+        dt.TypeKind.VECTOR, dt.TypeKind.TIME))
+
     def to_python(self) -> list[Any]:
         """Decode to python values (None for NULLs) — result-set surface."""
         kind = self.dtype.kind
+        if kind not in self._DECODED_KINDS and self.data.dtype.kind in (
+                "f" if kind in (dt.TypeKind.FLOAT64, dt.TypeKind.FLOAT32)
+                else "iu"):
+            out = self.data.tolist()     # python ints / floats, as below
+            for i in np.flatnonzero(~np.asarray(self.validity)).tolist():
+                out[i] = None
+            return out
         out: list[Any] = []
         for i in range(len(self.data)):
             if not self.validity[i]:

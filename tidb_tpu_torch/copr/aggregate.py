@@ -1,4 +1,5 @@
 # ported from tidb_tpu/copr/aggregate.py @ a9e9482
+# (the distinct rows of merge_sorted_states by one lexsort: this port's)
 """Aggregation partial-state merge + finalize (host side, numpy).
 
 SCALAR/DENSE states arrive merged across the devices (parallel/spmd.py);
@@ -91,6 +92,24 @@ def _np_key_code(val: np.ndarray, valid: np.ndarray,
     return np.where(np.asarray(valid), c, 0)
 
 
+def _unique_rows(mat: np.ndarray) -> tuple[int, np.ndarray, np.ndarray]:
+    """``np.unique(mat, axis=0, return_index=True, return_inverse=True)``
+    as (distinct rows, first index, inverse): rows in lexicographic order
+    of their signed columns, each row's first occurrence.  One stable
+    ``np.lexsort`` over the columns, where ``np.unique`` sorts the rows
+    as structured records (an order of magnitude slower)."""
+    n = len(mat)
+    if n == 0:
+        return 0, np.zeros(0, np.intp), np.zeros(0, np.intp)
+    perm = np.lexsort(mat.T[::-1])
+    rows = mat[perm]
+    first = np.ones(n, bool)
+    first[1:] = (rows[1:] != rows[:-1]).any(axis=1)
+    inv = np.empty(n, np.intp)
+    inv[perm] = np.cumsum(first) - 1
+    return int(first.sum()), perm[first], inv
+
+
 def merge_sorted_states(agg: D.Aggregation,
                         per_dev: Sequence[dict]) -> dict:
     """Merge per-device group tables: trim each to its live group count,
@@ -124,10 +143,7 @@ def merge_sorted_states(agg: D.Aggregation,
         mat[:, 2 * j] = (~valid).astype(np.int64)
         mat[:, 2 * j + 1] = _np_key_code(val, valid, e.dtype)
 
-    uniq, first_idx, inv = np.unique(mat, axis=0, return_index=True,
-                                     return_inverse=True)
-    inv = inv.reshape(-1)
-    ng = len(uniq)
+    ng, first_idx, inv = _unique_rows(mat)
 
     def regroup(name, arr):
         how = _MERGE[name]

@@ -5,10 +5,9 @@ analog): RU pricing of device launches from their static LaunchCost
 (rc/bucket), admission-time enforcement wired into the scheduler drain
 plus statement accounting (rc/controller), and the runaway watch with
 KILL / COOLDOWN / SWITCH_GROUP actions (rc/runaway).  Host-only copies:
-the port's device scheduler (sched/) prices and debits at its drain.
-The resource-group statements that make limited groups come with
-ROADMAP.md, Queue 1 entry 12: until then the port has the unlimited
-``default`` group only.
+the port's device scheduler (sched/) prices and debits at its drain,
+and the session's resource-group statements make and alter the groups
+(``session.Session._charge_resource_group`` charges each statement).
 """
 
 from .bucket import TokenBucket

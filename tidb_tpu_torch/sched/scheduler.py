@@ -103,6 +103,14 @@ from .task import CopTask, ServerBusyError, TaskCancelledError, _shape_sig
 
 DEFAULT_QUEUE_DEPTH = 256
 DEFAULT_MAX_COALESCE = 8
+# a submit that finds the queue full waits this long for a slot before
+# the 9003 busy error, while a drain is serving (not paused or closing,
+# and never on the drain's own thread).  A waiter sleeps on a condition
+# until the drain frees a slot, FIFO among waiters; a client that retries
+# on 9003 instead re-runs its statement's host path each time, and each
+# eager op of a launch takes the GIL back behind those threads (the
+# client-go ServerIsBusy backoff's first sleep is 1-2 s)
+BUSY_WAIT_S = 2.0
 IDLE_EXIT_S = 5.0
 # adaptive micro-batch window: never hold a launch longer than this, and
 # only hold at all when the key's EWMA arrival gap predicts a straggler
@@ -274,8 +282,11 @@ class DeviceScheduler:
         self.breaker = CircuitBreaker()
         self.launch_retry_ms = DEFAULT_LAUNCH_RETRY_MS
         self._retry_sleep = time.sleep
+        self.busy_wait_s = BUSY_WAIT_S
         self._mu = threading.Lock()
         self._cv = threading.Condition(self._mu)
+        # submits waiting for a slot of a full queue (BUSY_WAIT_S)
+        self._room = threading.Condition(self._mu)
         self._groups: dict[str, _GroupQ] = {}
         self._depth = 0
         self._gvt = 0.0           # global virtual time (newcomer floor)
@@ -666,6 +677,8 @@ class DeviceScheduler:
         task.svc_ns = self._expected_ns(task)
         with self._cv:
             if self._depth >= self.max_depth:
+                self._wait_room_locked()
+            if self._depth >= self.max_depth:
                 self.busy_rejects += 1
                 self._m_busy.inc()
                 if task.key is not None:
@@ -699,10 +712,28 @@ class DeviceScheduler:
             self._cv.notify_all()
         return task
 
+    def _wait_room_locked(self) -> None:
+        """Wait up to ``busy_wait_s`` for a slot of the full queue while
+        a drain serves it (called with _cv held); returns when a slot is
+        free, or when the wait cannot be served (paused, closing, no
+        drain, the drain's own thread) or has run out."""
+        if self.busy_wait_s <= 0:
+            return
+        deadline = time.monotonic() + self.busy_wait_s
+        while self._depth >= self.max_depth:
+            if self._paused or self._closing or self._thread is None \
+                    or self._thread is threading.current_thread():
+                return
+            left = deadline - time.monotonic()
+            if left <= 0:
+                return
+            self._room.wait(left)
+
     def pause(self) -> None:
         """Hold the drain loop (tests / maintenance); submits still queue."""
         with self._cv:
             self._paused = True
+            self._room.notify_all()
 
     def resume(self) -> None:
         with self._cv:
@@ -718,6 +749,7 @@ class DeviceScheduler:
             self._paused = False
             t = self._thread
             self._cv.notify_all()
+            self._room.notify_all()
         if t is not None and t is not threading.current_thread():
             t.join(timeout)
 
@@ -981,6 +1013,7 @@ class DeviceScheduler:
                 t.fail(exc_type())
         self._depth = 0
         self._m_depth.set(0)
+        self._room.notify_all()
 
     def _loop(self) -> None:
         try:
@@ -1008,6 +1041,7 @@ class DeviceScheduler:
                         return
                     self._cv.wait(timeout=0.5)
                 batch = self._take_batch()
+                self._room.notify(self.max_depth - self._depth)
                 if not batch and self._depth > 0:
                     # every queued group is RU-throttled: their waiters
                     # stay queued until a refill covers a head task or the

@@ -1,4 +1,5 @@
 # ported from tidb_tpu/server/status.py @ 02e96d8
+# (/resource from the same file @ f4efee1)
 """HTTP status/admin API.
 
 Reference analog: pkg/server http_handler.go + handler/ — /status,
@@ -15,11 +16,13 @@ plane: ``/trace`` (the flight recorder's index) and ``/trace/<id>``
 JSON for ui.perfetto.dev), ``/hbm`` (the memory ledgers reconciled with
 the card, the roofline tables, the calibration's memory counters) and
 ``/profile?ms=N`` (a ``torch.profiler`` capture, gated by
-``tidb_tpu_profile``), and ``/pd`` (the coordination plane: this
+``tidb_tpu_profile``), ``/pd`` (the coordination plane: this
 Domain's membership, every attached coordinator and a bounded dump of
-the shared store).  The JAX package's ``/resource`` and ``/locksan``
-read the resource-group statements and the lock sanitizer, which the
-port has not yet: each answers HTTP 501 naming its ROADMAP.md item.
+the shared store) and ``/resource`` (the resource groups' RU balances,
+debt and debits, the scheduler's per-group and per-digest device time,
+and the runaway ring).  The JAX package's ``/locksan`` reads the lock
+sanitizer, which the port has not yet: it answers HTTP 501 naming its
+ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -34,9 +37,7 @@ from ..session.session import Domain
 
 # routes over subsystems of later slices, by the ROADMAP.md item that
 # ports them
-_UNPORTED_ROUTES = {
-    "/resource": CONTROL, "/locksan": CONTROL,
-}
+_UNPORTED_ROUTES = {"/locksan": CONTROL}
 
 
 class StatusServer:
@@ -148,6 +149,43 @@ class StatusServer:
             # counters
             return json.dumps(self.domain.client.sched_stats(),
                               default=str), "application/json"
+        if path == "/resource":
+            # resource control plane (rc/): per-group RU budget state
+            # (balance/debt/debited), drain-side enforcement counters
+            # (throttled skips, deadline failures, priced debits),
+            # measured per-group + per-program-digest device-time
+            # attribution, and the bounded runaway-record ring
+            mgr = self.domain.resource_groups
+            groups = mgr.resource_stats()
+            sched = self.domain.client.sched_stats()
+            for name, gstats in (sched.get("groups") or {}).items():
+                ent = groups.setdefault(name, {})
+                ent.update({
+                    "tasks": gstats.get("tasks", 0),
+                    "queued": gstats.get("queued", 0),
+                    "rus": gstats.get("rus", 0.0),
+                    "throttled": gstats.get("throttled", 0),
+                    "device_ms": gstats.get("device_ms", 0.0),
+                })
+            return json.dumps({
+                "rc_enable": sched.get("rc_enable", True),
+                "rc_overdraft_ru": sched.get("rc_overdraft_ru"),
+                "rc_throttled": sched.get("rc_throttled", 0),
+                "rc_exhausted": sched.get("rc_exhausted", 0),
+                "rc_debited_ru": sched.get("rc_debited_ru", 0.0),
+                "digest_device_ms": sched.get("digest_device_ms", {}),
+                # copmeter (analysis/calibrate): closed-loop cost
+                # calibration state + OOM recovery / early shedding
+                "calibration": sched.get("calibration"),
+                "oom_faults": sched.get("oom_faults", 0),
+                "shed_rejects": sched.get("shed_rejects", 0),
+                "backlog_ms": sched.get("backlog_ms", 0.0),
+                "groups": groups,
+                "runaway": {
+                    "total": mgr.runaway_ring.total,
+                    "records": mgr.runaway_ring.records(),
+                },
+            }, default=str), "application/json"
         if path == "/pd":
             # coplace (pd/): coordination-plane status — this Domain's
             # membership (lease epoch, degraded state, quota shares,

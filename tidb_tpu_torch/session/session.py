@@ -2,6 +2,8 @@
 # (windows, ANALYZE, auto-analyze and SHOW from the same file @ 6298005)
 # (privileges, KILL, the plan cache, bindings and PREPARE from the same
 # file @ 6233200)
+# (the resource-group statements and the statement's resource-group
+# charge from the same file @ f4efee1)
 """Session: statement lifecycle.
 
 Reference analog: pkg/session (session.ExecuteStmt, session.go:2112) —
@@ -51,9 +53,11 @@ time, plan digest and the scheduler's columns from the QueryHandle)
 and its ``flight_recorder`` offers the tree.  The memtables of
 ``information_schema`` and ``performance_schema`` answer, as does
 ``ADMIN RECOMMEND INDEX`` (planner/advisor over the statement summary).
-The statement kinds of later slices (the resource-group statements)
-raise ``NotImplementedError`` naming their ROADMAP.md item, as do the
-SHOW kinds of later slices.
+The resource-group statements (``CREATE``/``ALTER``/``DROP RESOURCE
+GROUP``, ``SET RESOURCE GROUP``) manage the domain's groups (rc/), and
+each statement is charged to its group at its end, under the runaway
+watch (``_charge_resource_group``).  The SHOW kinds of later slices
+raise ``NotImplementedError`` naming their ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -66,7 +70,7 @@ from typing import Any, Optional
 
 import numpy as np
 
-from .. import CONTROL, HOST_SURFACE, unported
+from .. import HOST_SURFACE, unported
 from ..copr.coordinator import KILL_EVENT, QUERY_HANDLE, Coordinator
 from ..executor import physical as P
 from ..executor.plan import STATS_HANDLE, to_physical
@@ -177,10 +181,10 @@ class Domain:
     (``watch``) carries ``SET GLOBAL`` and the grant tables, persisted
     in a durable store so both survive a reopen.  ``register_session``
     keeps a weak registry of the sessions for ``SHOW PROCESSLIST`` and
-    ``KILL``.  ``resource_groups`` holds the resource groups: only
-    ``default``, unlimited, whose live object each statement binds for
-    the device scheduler (``sched.SCHED_GROUP``); the resource-group
-    statements come with ROADMAP.md, Queue 1 entry 12.
+    ``KILL``.  ``resource_groups`` holds the resource groups (``default``,
+    unlimited, and those the resource-group statements make), whose live
+    object each statement binds for the device scheduler
+    (``sched.SCHED_GROUP``).
     ``stmt_summary`` holds the statement summary and the slow log,
     ``flight_recorder`` the statements' span trees.  ``pd`` holds the
     Domain's coordinator on the coordination plane (pd/) once
@@ -451,13 +455,6 @@ class Domain:
             return sorted(self._sessions.items())
 
 
-# statement kinds of later slices, by the ROADMAP.md item that ports them
-_UNPORTED_STMTS = {
-    "CreateResourceGroup": CONTROL, "DropResourceGroup": CONTROL,
-    "SetResourceGroup": CONTROL,
-}
-
-
 class Session:
     """``timings`` holds the wall-clock seconds of the last SELECT or
     EXPLAIN by phase: ``parse``, ``plan`` (build, optimize and the
@@ -649,8 +646,15 @@ class Session:
                 if was_slow:
                     trace_tree.flag("slow")
                 self.domain.flight_recorder.record(trace_tree)
-            # (the JAX package charges the statement's resource group
-            # here: ROADMAP.md, Queue 1 entry 12)
+            try:
+                # runaway KILL must fire before the success audit hook:
+                # a killed statement is an error to the client
+                self._charge_resource_group(stmt, out, dt_ns / 1e9,
+                                            handle)
+            except Exception as e:
+                _plugins.fire("on_stmt_end", self, text, str(e),
+                              dt_ns / 1e9, 0)
+                raise
             _plugins.fire("on_stmt_end", self, text, None, dt_ns / 1e9,
                           len(out.rows) + out.affected)
             # ROW_COUNT()/FOUND_ROWS() state (executor/adapter.go
@@ -661,6 +665,43 @@ class Session:
             else:
                 self._row_count = out.affected
         return out
+
+    def _charge_resource_group(self, stmt, out: ResultSet,
+                               elapsed_sec: float, handle=None) -> None:
+        """Statement-boundary resource accounting (rc/controller).
+        Device work was priced from its LaunchCost and debited at the
+        scheduler drain BEFORE launching (handle.sched_rus reports it);
+        host-only statements still charge the row-count RU here.  The
+        runaway watch covers queue+execution wall time with actions
+        KILL / COOLDOWN / SWITCH_GROUP.  ACTION=KILL only raises for
+        statements that did not mutate data: the watch runs
+        post-execution, and killing an already-committed DML would
+        report failure for persisted writes (the reference aborts
+        mid-execution; read-only raise is the safe analog)."""
+        gname = self.vars.get("tidb_resource_group") or \
+            self.domain.sysvars.get("tidb_resource_group", "default")
+        group = self.domain.resource_groups.get(gname)
+        if group is None or (group.ru_per_sec <= 0
+                             and not group.exec_elapsed_sec):
+            return
+        from ..rc.controller import charge_statement
+        from ..rc.runaway import RunawayError
+        rc_on = bool(int(self.domain.sysvars.get(
+            "tidb_tpu_rc_enable", 1) or 0))
+        device_rus = handle.sched_rus if (
+            handle is not None and rc_on) else 0.0
+        sched_wait = (handle.sched_wait_ns / 1e9
+                      if handle is not None else 0.0)
+        try:
+            charge_statement(group, len(out.rows) + out.affected,
+                             elapsed_sec, sched_wait_sec=sched_wait,
+                             device_rus=device_rus,
+                             manager=self.domain.resource_groups,
+                             sql=handle.sql if handle is not None else "")
+        except RunawayError:
+            if out.affected:
+                return           # counted as runaway, writes stand
+            raise
 
     def must_query(self, sql: str) -> list[tuple]:
         """testkit MustQuery analog."""
@@ -714,6 +755,35 @@ class Session:
             return self._exec_select(stmt)
         if isinstance(stmt, A.CreateBinding):
             return self._exec_create_binding(stmt)
+        if isinstance(stmt, A.CreateResourceGroup):
+            try:
+                if stmt.replace:      # ALTER: merge named options only
+                    self.domain.resource_groups.alter(
+                        stmt.name, stmt.ru_per_sec, stmt.burstable,
+                        stmt.exec_elapsed_sec, stmt.action,
+                        priority=stmt.priority,
+                        switch_target=stmt.switch_target)
+                else:
+                    self.domain.resource_groups.create(
+                        stmt.name, stmt.ru_per_sec, stmt.burstable,
+                        stmt.exec_elapsed_sec, stmt.action,
+                        if_not_exists=stmt.if_not_exists,
+                        priority=stmt.priority,
+                        switch_target=stmt.switch_target)
+            except ValueError as e:
+                raise PlanError(str(e))
+            return ResultSet()
+        if isinstance(stmt, A.DropResourceGroup):
+            try:
+                self.domain.resource_groups.drop(stmt.name, stmt.if_exists)
+            except ValueError as e:
+                raise PlanError(str(e))
+            return ResultSet()
+        if isinstance(stmt, A.SetResourceGroup):
+            if self.domain.resource_groups.get(stmt.name) is None:
+                raise PlanError(f"unknown resource group {stmt.name!r}")
+            self.vars["tidb_resource_group"] = stmt.name
+            return ResultSet()
         if isinstance(stmt, A.DropBinding):
             mgr = (self.domain.bindings if stmt.scope == "global"
                    else self.bindings)
@@ -841,9 +911,8 @@ class Session:
             return self._exec_txn(stmt)
         if isinstance(stmt, A.AdminStmt):
             return self._exec_admin(stmt)
-        name = type(stmt).__name__
-        raise unported(f"the {name} statement",
-                       _UNPORTED_STMTS.get(name, HOST_SURFACE))
+        raise unported(f"the {type(stmt).__name__} statement",
+                       HOST_SURFACE)
 
     def _exec_drop_table(self, stmt: A.DropTable) -> ResultSet:
         # names are (db|None, name) tuples; session temporary tables

@@ -48,7 +48,9 @@ def main() -> int:
         sess.execute(tpch.SQL_QUERIES[name])
     print(f"placement and analyze s={time.perf_counter() - t0:.2f}")
     t0 = time.perf_counter()
-    cs.pd_phase(gr, os1, sess, main_data)
+    # phase 7's checked answers, which the phases after it take
+    main_res = {q: cs.main_oracle(q, *main_data) for q in ("Q1", "Q6")}
+    cs.pd_phase(gr, os1, sess, main_data, main_res)
     print(f"phase 19 s={time.perf_counter() - t0:.2f}")
     return 0
 
